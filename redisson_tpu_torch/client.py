@@ -17,6 +17,8 @@ from redisson_tpu_torch.backend_torch import TorchBackend
 from redisson_tpu_torch.codecs import get_codec
 from redisson_tpu_torch.config import Config, CudaConfig
 from redisson_tpu_torch.executor import CommandExecutor
+from redisson_tpu_torch.models.bitset import RBitSet
+from redisson_tpu_torch.models.bloomfilter import RBloomFilter
 from redisson_tpu_torch.models.hyperloglog import RHyperLogLog
 from redisson_tpu_torch.routing import RoutingBackend
 from redisson_tpu_torch.store import SketchStore
@@ -56,6 +58,13 @@ class RedissonTorch:
         codec = get_codec(codec) if codec is not None else self._codec
         return RHyperLogLog(name, self._executor, codec, self._widths)
 
+    def get_bit_set(self, name: str) -> RBitSet:
+        return RBitSet(name, self._executor, self._codec, self._widths)
+
+    def get_bloom_filter(self, name: str, codec=None) -> RBloomFilter:
+        codec = get_codec(codec) if codec is not None else self._codec
+        return RBloomFilter(name, self._executor, codec, self._widths)
+
     def get_keys(self, pattern: str = "*"):
         return self._executor.execute_sync("", "keys", {"pattern": pattern})
 
@@ -64,15 +73,23 @@ class RedissonTorch:
 
     # -- state carry-over ---------------------------------------------------
 
-    def from_jax_state(self, bank_np: np.ndarray, rows: dict) -> None:
-        """Install the JAX backend's HLL bank and row map, ordered on the
-        dispatcher after every op submitted before it."""
+    def from_jax_state(self, bank_np: np.ndarray, rows: dict,
+                       objects: dict = None) -> None:
+        """Install the JAX backend's HLL bank and row map and, given
+        `objects` (name -> what the JAX backend's `bits_export` returns for
+        it), its BitSet and Bloom objects; ordered on the dispatcher after
+        every op submitted before it."""
         self._executor.execute_barrier(
-            lambda: self.sketch.from_jax_state(bank_np, rows)).result()
+            lambda: self.sketch.from_jax_state(bank_np, rows, objects)).result()
 
     def to_numpy_state(self):
         """(bank [S, m] int32 numpy, name -> row) after all submitted ops."""
         return self._executor.execute_barrier(self.sketch.to_numpy_state).result()
+
+    def to_numpy_objects(self) -> dict:
+        """name -> (otype, cells uint8 numpy, meta) of every BitSet and
+        Bloom object, after all submitted ops."""
+        return self._executor.execute_barrier(self.sketch.to_numpy_objects).result()
 
     # -- lifecycle ----------------------------------------------------------
 

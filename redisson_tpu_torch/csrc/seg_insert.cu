@@ -18,9 +18,12 @@
 // the codes are sorted by (bucket, value), so the last code of each bucket
 // run carries that bucket's maximum, and only that code stores into the
 // tile with a plain store. A hot bucket (Zipf keys) therefore costs nothing
-// extra. Padding and invalid lanes arrive as code 0 (bucket 0, value 0); a
-// value of 0 never raises a register, so they are no-ops as in JAX. Codes
-// whose bucket lies past the last tile are in no span and are ignored.
+// extra. For HLL, padding and invalid lanes arrive as code 0 (bucket 0,
+// value 0); a value of 0 never raises a register, so they are no-ops as in
+// JAX. For the bit cells (shift 0, every code sets its cell) code 0 would
+// set cell 0, so there invalid lanes carry code m, one past the end: it
+// sorts last, lies in no span or in the ragged last tile's, and the write
+// guard `r < m` drops it. Codes past the last tile are in no span.
 // The block writes a fresh output array, so the caller can compare old and
 // new registers for PFADD's "changed" flag.
 
@@ -55,7 +58,7 @@ __global__ void seg_insert_kernel(const int32_t* __restrict__ codes, int n,
   __syncthreads();
 
   for (int j = threadIdx.x; j < tile; j += blockDim.x) {
-    const int r = base + j;
+    const long long r = static_cast<long long>(base) + j;  // m < 2^31
     if (r < m) {
       const int32_t v = max(static_cast<int32_t>(regs[r]), acc[j]);
       out[r] = static_cast<T>(v);

@@ -1,5 +1,6 @@
-"""Device entry points of the sketch engine, HLL half (counterpart of
-`redisson_tpu.engine`, lines 35-430).
+"""Device entry points of the sketch engine (counterpart of
+`redisson_tpu.engine`: the HLL half, lines 35-430, and the BitSet / Bloom
+half, lines 689-907).
 
 Each function is the work of one device call of a microbatch: hash ->
 bucket/rank -> insert, with a validity mask so the executor can pad batches
@@ -18,6 +19,15 @@ functions stay plain PyTorch. The hand-written kernels are the segmented
 insert (`ingest="segment"`) and `merge_stack` (`hll_merge_stack`,
 `hll_count_merged`). The mesh collectives (`engine.py:467-563` of the JAX
 package) arrive with the parallel slice.
+
+BitSet and Bloom state is an [m] uint8 cell tensor (`ops/bitset.py`).
+SETBIT, CLEAR and the Bloom scatter add write it in place (JAX donates
+it); the segment-OR add (`ingest="segment"`) returns a fresh tensor, like
+the kernel, and the backend installs whichever comes back. The hand
+kernels of this half: `popcount_partials` (BITCOUNT), `bitop_cells`
+(BITOP) and `bits_insert_segmented` (the segment-OR). The host-mirror
+pack / absorb and the delta functions (`engine.py:565-686` of the JAX
+package) arrive with the delta/tape slice.
 """
 
 from __future__ import annotations
@@ -25,7 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from redisson_tpu_torch.ops import hashing, hll
+from redisson_tpu_torch.ops import bitset, bloom, hashing, hll
 from redisson_tpu_torch.ops import kernels as pk
 
 # Batch-size buckets: powers of two between MIN_BUCKET and MAX_BUCKET keys.
@@ -330,3 +340,174 @@ def hll_bank_grow(bank, new_cap: int):
     out = torch.zeros((new_cap, m), dtype=bank.dtype, device=bank.device)
     out[:s] = bank
     return out
+
+
+# ---------------------------------------------------------------------------
+# BitSet
+# ---------------------------------------------------------------------------
+
+
+def bitset_set(bits, idx, valid):
+    """SETBIT batch, in place -> (bits, old values). Padded lanes read
+    index 0 and write nothing (a max with 0)."""
+    idx = torch.where(valid, idx, 0)
+    old = bits[idx]
+    bits.scatter_reduce_(0, idx, valid.to(torch.uint8), reduce="amax")
+    return bits, old
+
+
+def bitset_clear(bits, idx, valid):
+    """SETBIT 0 batch, in place -> (bits, old values); padded lanes take a
+    min with 1, a no-op on 0/1 cells."""
+    idx = torch.where(valid, idx, 0)
+    old = bits[idx]
+    bits.scatter_reduce_(0, idx, (~valid).to(torch.uint8), reduce="amin")
+    return bits, old
+
+
+def bitset_get(bits, idx, valid):
+    return bits[torch.where(valid, idx, 0)]
+
+
+def bitset_cardinality_partials(bits):
+    """Device half of BITCOUNT: [G, 1] int32 partials (the popcount kernel
+    on a card)."""
+    return pk.popcount_partials(bits)
+
+
+def bitset_bitop(stack, op: str):
+    """BITOP AND|OR|XOR over [K, n] stacked operands -> [n] (the bitop
+    kernel on a card)."""
+    return pk.bitop_cells(stack, op)
+
+
+def bitset_length_partials(bits):
+    """Device half of lengthAsync: per-chunk int32 local offsets."""
+    return bitset.length_partials(bits)
+
+
+def bitset_not_masked(bits, n: int):
+    """BITOP NOT over cells [0, n) only, in place: Redis NOT acts on the
+    written bytes (STRLEN), not the allocation."""
+    head = bits[:n]
+    torch.sub(1, head, out=head)
+    return bits
+
+
+# ---------------------------------------------------------------------------
+# Bloom
+# ---------------------------------------------------------------------------
+
+
+def _set_indexes(bits, idx, valid, impl: str = "scatter"):
+    """Set a batch's [N, k] cell indexes -> (bits, added). `added` is
+    any(old == 0) over cells gathered before the insert. The scatter path
+    writes `bits` in place (padded lanes: index 0, value 0); the segment
+    path sends padded lanes to the one-past-end cell m, which the kernel
+    and its plain version drop, and returns a fresh tensor."""
+    idx = torch.where(valid[:, None], idx, 0)
+    old = bits[idx.reshape(-1)].reshape(idx.shape)
+    vals = valid[:, None].expand(idx.shape)
+    if impl == "segment":
+        from redisson_tpu_torch.ingest import kernels as ingest_kernels
+
+        new = ingest_kernels.segmented_bits_set(
+            bits, torch.where(vals, idx, bits.shape[0]).reshape(-1))
+    else:
+        new = bits.scatter_reduce_(0, idx.reshape(-1),
+                                   vals.reshape(-1).to(torch.uint8), reduce="amax")
+    return new, (old == 0).any(dim=-1) & valid
+
+
+def _bloom_add(bits, h1, h2, valid, k: int, m: int, impl: str = "scatter"):
+    """k-index double hashing -> masked set -> (bits, added)."""
+    return _set_indexes(bits, bloom.indexes(h1, h2, k, m), valid, impl)
+
+
+def _bloom_contains(bits, h1, h2, valid, k: int, m: int):
+    idx = bloom.indexes(h1, h2, k, m)
+    idx = torch.where(valid[:, None], idx, 0)
+    return bloom.contains(bits, idx) & valid
+
+
+def _packed_hashes(packed, count: int, seed: int):
+    """(h1, h2, valid) of int64 keys, hashed as their 8-byte LE encodings
+    (the byte path's hash on 8-byte keys)."""
+    valid = _valid_prefix(packed.shape[0], count, packed.device)
+    h1, h2 = hashing.murmur3_x64_128_u64(packed, seed)
+    return h1, h2, valid
+
+
+def bloom_add_bytes(bits, data, lengths, valid, k: int, m: int, seed: int = 0,
+                    impl: str = "scatter"):
+    """Bloom add of a padded byte-key batch -> (bits, added)."""
+    h1, h2 = hashing.murmur3_x64_128(data, lengths, seed)
+    return _bloom_add(bits, h1, h2, valid, k, m, impl)
+
+
+def bloom_contains_bytes(bits, data, lengths, valid, k: int, m: int, seed: int = 0):
+    h1, h2 = hashing.murmur3_x64_128(data, lengths, seed)
+    return _bloom_contains(bits, h1, h2, valid, k, m)
+
+
+def bloom_add_packed(bits, packed, count: int, k: int, m: int, seed: int = 0,
+                     impl: str = "scatter"):
+    """Bloom add of int64 keys, the first `count` lanes valid."""
+    h1, h2, valid = _packed_hashes(packed, count, seed)
+    return _bloom_add(bits, h1, h2, valid, k, m, impl)
+
+
+def bloom_contains_packed(bits, packed, count: int, k: int, m: int, seed: int = 0):
+    h1, h2, valid = _packed_hashes(packed, count, seed)
+    return _bloom_contains(bits, h1, h2, valid, k, m)
+
+
+def bloom_contains_count_packed(bits, packed, count: int, k: int, m: int,
+                                seed: int = 0):
+    """Membership COUNT of an int64 key batch as one device scalar: only
+    it leaves the device (what an FPR probe over 2^30 keys wants)."""
+    h1, h2, valid = _packed_hashes(packed, count, seed)
+    return _bloom_contains(bits, h1, h2, valid, k, m).sum()
+
+
+# -- blocked bloom (ops/bloom.py BLOCK_BITS) -------------------------------
+
+
+def _blocked_add(bits, h1, h2, valid, k: int, m: int):
+    """The blocked layout's add: always the in-place scatter."""
+    block, pos = bloom.blocked_indexes(h1, h2, k, m)
+    return _set_indexes(bits, bloom.blocked_absolute(block, pos), valid)
+
+
+def _blocked_contains(bits, h1, h2, valid, k: int, m: int):
+    block, pos = bloom.blocked_indexes(h1, h2, k, m)
+    block = torch.where(valid, block, 0)
+    return bloom.blocked_contains(bits, block, pos) & valid
+
+
+def blocked_bloom_add_packed(bits, packed, count: int, k: int, m: int, seed: int = 0):
+    h1, h2, valid = _packed_hashes(packed, count, seed)
+    return _blocked_add(bits, h1, h2, valid, k, m)
+
+
+def blocked_bloom_contains_packed(bits, packed, count: int, k: int, m: int,
+                                  seed: int = 0):
+    h1, h2, valid = _packed_hashes(packed, count, seed)
+    return _blocked_contains(bits, h1, h2, valid, k, m)
+
+
+def blocked_bloom_contains_count_packed(bits, packed, count: int, k: int, m: int,
+                                        seed: int = 0):
+    h1, h2, valid = _packed_hashes(packed, count, seed)
+    return _blocked_contains(bits, h1, h2, valid, k, m).sum()
+
+
+def blocked_bloom_add_bytes(bits, data, lengths, valid, k: int, m: int, seed: int = 0):
+    h1, h2 = hashing.murmur3_x64_128(data, lengths, seed)
+    return _blocked_add(bits, h1, h2, valid, k, m)
+
+
+def blocked_bloom_contains_bytes(bits, data, lengths, valid, k: int, m: int,
+                                 seed: int = 0):
+    h1, h2 = hashing.murmur3_x64_128(data, lengths, seed)
+    return _blocked_contains(bits, h1, h2, valid, k, m)

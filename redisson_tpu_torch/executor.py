@@ -36,7 +36,8 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 # Op kinds that may coalesce with the previous op of the same kind+target.
-COALESCABLE = {"hll_add"}
+COALESCABLE = {"hll_add", "bloom_add", "bitset_set", "bitset_clear",
+               "bitset_get", "bloom_contains"}
 
 # Pseudo-kind run inline on the dispatcher thread: the op's payload is a
 # zero-arg callable, executed with no run staging concurrently (an exact

@@ -1,6 +1,7 @@
-"""Segmented insert: the `seg_insert` kernel wrapper for HLL registers.
+"""Segmented insert: the `seg_insert` kernel wrappers, for HLL registers
+(`hll_insert_segmented`) and for bit cells (`bits_insert_segmented`).
 
-Counterpart of `redisson_tpu.ingest.kernels.hll_insert_segmented`. The
+Counterparts of the same functions in `redisson_tpu.ingest.kernels`. The
 random scatter of a key batch becomes a streaming pass:
 
   1. encode each update as `code = bucket << 6 | rank` and sort ascending
@@ -15,8 +16,9 @@ On a CUDA tensor the wrapper launches that kernel or raises; on a CPU
 tensor it runs the plain version, `hll_insert_segmented_plain` (the same
 sort-compress as `ops.hll.insert_sorted`), which is also what the kernel is
 held against on the card. The kernel body takes the shift and the cell type
-as parameters, so BitSet/Bloom's `bits_insert_segmented` (shift 0, uint8
-cells) reuses it when those structures are ported.
+as parameters: the Bloom filter's segment-OR (`bits_insert_segmented`) is
+the same body with shift 0 and uint8 cells, its codes the raw cell indexes
+and its plain version the sorted-dedup set of the JAX package.
 """
 
 from __future__ import annotations
@@ -28,17 +30,22 @@ import torch
 from redisson_tpu_torch.ops import _build, hll
 
 #: kernel launches since the last `reset_launches()`
-launches = {"seg_insert": 0}
+launches = {"seg_insert": 0, "bits_insert_segmented": 0}
 
 #: registers per thread block: m = 16384 gives 128 blocks, one wave on 132 SMs
 TILE = 128
 HLL_SHIFT = 6
+#: cells per thread block of the segment-OR, the JAX kernel's tile
+BITS_TILE = 1024
+#: codes are int32, and invalid lanes carry code m: m must stay below 2^31
+MAX_SEGMENT_CELLS = (1 << 31) - 1
 
 _fns = {}
 
 
 def reset_launches() -> None:
-    launches["seg_insert"] = 0
+    for name in launches:
+        launches[name] = 0
 
 
 def _kernel(dtype: torch.dtype):
@@ -60,14 +67,18 @@ def sort_codes(codes: torch.Tensor, m: int, shift: int = HLL_SHIFT,
     """Sort int32 codes and compute the g+1 tile span offsets (int32)."""
     codes = torch.sort(codes).values
     g = -(-m // tile)
-    bounds = (torch.arange(g + 1, dtype=torch.int32, device=codes.device)
+    # Formed in int64 and clamped: (g * tile) << shift may pass 2^31 - 1 for
+    # large cell arrays, and no int32 code lies beyond the clamp anyway.
+    bounds = (torch.arange(g + 1, dtype=torch.int64, device=codes.device)
               * tile) << shift
+    bounds = bounds.clamp_(max=(1 << 31) - 1).to(torch.int32)
     return codes, torch.searchsorted(codes, bounds, out_int32=True)
 
 
 def seg_insert_launch(cells: torch.Tensor, codes: torch.Tensor,
                       starts: torch.Tensor, shift: int = HLL_SHIFT,
-                      tile: int = TILE) -> torch.Tensor:
+                      tile: int = TILE,
+                      counter: str = "seg_insert") -> torch.Tensor:
     """Launch the kernel on pre-sorted codes and their tile spans; returns a
     fresh [m] tensor `max(cells, segment_max(codes))`."""
     m = cells.shape[0]
@@ -92,7 +103,7 @@ def seg_insert_launch(cells: torch.Tensor, codes: torch.Tensor,
                               cells.device.index, stream)
     if rc:
         raise RuntimeError(f"seg_insert launch failed: CUDA error {rc}")
-    launches["seg_insert"] += 1
+    launches[counter] += 1
     return out
 
 
@@ -124,3 +135,43 @@ def segmented_hll_add(registers: torch.Tensor, bucket: torch.Tensor,
                       rank: torch.Tensor) -> torch.Tensor:
     """The engine's `ingest="segment"` insert."""
     return hll_insert_segmented(registers, bucket, rank)
+
+
+def bits_insert_segmented_plain(cells: torch.Tensor,
+                                idx: torch.Tensor) -> torch.Tensor:
+    """Sorted-dedup set `cells[idx] = 1` (fresh tensor); indexes outside
+    [0, m), such as the sentinel m, are dropped, as JAX's
+    `bits_insert_segmented_lax` drops them (`mode="drop"`)."""
+    m = cells.shape[0]
+    s = torch.sort(idx.to(torch.int64)).values
+    s = s[(s >= 0) & (s < m)]
+    out = cells.clone()
+    out[s] = 1
+    return out
+
+
+def bits_insert_segmented(cells: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Segment-OR: set `cells[idx] = 1` over [m] uint8 cells -> a fresh
+    tensor. Invalid lanes must carry index m (one past the end), never 0:
+    the kernel drops m, while 0 would set cell 0."""
+    if cells.dtype != torch.uint8 or cells.dim() != 1:
+        raise ValueError("bits_insert_segmented needs [m] uint8 cells")
+    m = cells.shape[0]
+    if m > MAX_SEGMENT_CELLS:
+        raise ValueError(
+            f"bits_insert_segmented: m = {m} cells do not fit int32 codes "
+            "with the one-past-the-end sentinel (m must be < 2^31)")
+    if cells.device.type == "cpu":
+        return bits_insert_segmented_plain(cells, idx)
+    if cells.device.type != "cuda":
+        raise ValueError(f"bits_insert_segmented: unsupported device {cells.device}")
+    if idx.numel() == 0:
+        return cells.clone()
+    codes, starts = sort_codes(idx.to(torch.int32), m, 0, BITS_TILE)
+    return seg_insert_launch(cells.contiguous(), codes, starts, 0, BITS_TILE,
+                             counter="bits_insert_segmented")
+
+
+def segmented_bits_set(cells: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The engine's Bloom insert under `ingest="segment"`."""
+    return bits_insert_segmented(cells, idx)

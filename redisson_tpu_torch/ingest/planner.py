@@ -2,7 +2,8 @@
 (counterpart of `redisson_tpu.ingest.planner`, device candidates only).
 
 The first batch of a given size class on a device times every device
-insert path (`scatter`, `sort`, `segment`) on a synthetic batch, records
+insert path of the structure (HLL: `scatter`, `sort`, `segment`; bit
+cells: `scatter`, `segment`) on a synthetic batch, records
 ns/key, and every later batch in that class takes the measured winner. On a
 card the timing uses CUDA events around the launches; on the CPU, the host
 clock. Size classes follow the engine's batch buckets (powers of two,
@@ -37,20 +38,46 @@ class IngestPlan:
     costs: Dict[str, float]  # ns per key, per candidate
 
 
-_HLL_PATHS = {
-    "scatter": hll.insert_scatter,
-    "sort": hll.insert_sorted,
-    "segment": kernels.segmented_hll_add,
+def _bits_scatter(cells, idx):
+    # The engine's scatter path: an in-place max of 1 at each index.
+    return cells.scatter_reduce_(0, idx, torch.ones_like(idx, dtype=cells.dtype),
+                                 reduce="amax")
+
+
+#: structure -> device path -> insert function
+_PATHS = {
+    "hll": {
+        "scatter": hll.insert_scatter,
+        "sort": hll.insert_sorted,
+        "segment": kernels.segmented_hll_add,
+    },
+    "bits": {
+        "scatter": _bits_scatter,
+        "segment": kernels.segmented_bits_set,
+    },
 }
 
 
-def _synthetic_hll(n: int, device: torch.device):
-    # Deterministic, well-spread bucket/rank streams (Knuth multiplicative
-    # hash of the index), as in the JAX planner: repeated measurements agree.
+def _knuth(n: int, mod: int, device: torch.device) -> torch.Tensor:
+    # Deterministic, well-spread index streams (Knuth multiplicative hash
+    # of the index), as in the JAX planner: repeated measurements agree.
     i = torch.arange(n, dtype=torch.int64, device=device)
-    bucket = ((i * 2654435761) % (1 << 32) % hll.M).to(torch.int32)
+    return (i * 2654435761) % (1 << 32) % mod
+
+
+def _synthetic_hll(n: int, device: torch.device):
+    i = torch.arange(n, dtype=torch.int64, device=device)
     rank = (i % 50 + 1).to(torch.int32)
-    return hll.make(device=device), bucket, rank
+    return hll.make(device=device), _knuth(n, hll.M, device).to(torch.int32), rank
+
+
+def _synthetic_bits(n: int, device: torch.device):
+    cells_n = 1 << 20
+    return (torch.zeros((cells_n,), dtype=torch.uint8, device=device),
+            _knuth(n, cells_n, device))
+
+
+_SYNTHETIC = {"hll": _synthetic_hll, "bits": _synthetic_bits}
 
 
 def _time_s(fn, args, device: torch.device) -> float:
@@ -76,12 +103,12 @@ def _time_s(fn, args, device: torch.device) -> float:
 def measure_device_paths(structure: str, n: int,
                          device: torch.device) -> Dict[str, float]:
     """Time every device path for one synthetic batch; ns/key each."""
-    if structure != "hll":
+    if structure not in _PATHS:
         raise ValueError(f"unknown ingest structure {structure!r}")
     n = max(1, min(n, _MEASURE_CAP))
-    args = _synthetic_hll(n, device)
+    args = _SYNTHETIC[structure](n, device)
     return {name: _time_s(fn, args, device) * 1e9 / n
-            for name, fn in _HLL_PATHS.items()}
+            for name, fn in _PATHS[structure].items()}
 
 
 class IngestPlanner:
@@ -103,9 +130,10 @@ class IngestPlanner:
         c = max(1, int(nkeys) - 1).bit_length()
         return min(max(c, _MIN_CLASS), _MAX_CLASS)
 
-    def plan(self, structure: str, nkeys: int) -> IngestPlan:
+    def plan(self, structure: str, nkeys: int, exclude=()) -> IngestPlan:
         """Pick the insert path for one batch: the (structure, size class)
-        row is measured on first use and the cheapest path wins."""
+        row is measured on first use and the cheapest path not in
+        `exclude` wins."""
         key = (structure, self.size_class(nkeys))
         with self._lock:
             costs = self._table.get(key)
@@ -113,7 +141,7 @@ class IngestPlanner:
             fresh = self._measure(structure, 1 << key[1], self.device)
             with self._lock:
                 costs = self._table.setdefault(key, dict(fresh))
-        best = min(costs, key=costs.get)
+        best = min((p for p in costs if p not in exclude), key=costs.get)
         return IngestPlan(path=best, costs=dict(costs))
 
     def table(self) -> Dict[str, Dict[str, float]]:

@@ -9,7 +9,9 @@ blocks run over ceil(W/block) unrolled steps with a per-key `i < nblocks`
 select, and the tail is gathered at each key's block end, where zero padding
 makes the canonical tail switch an unconditional mix.
 
-`xxhash64` arrives with the Bloom filter.
+The Bloom filter hashes with the two murmur3 x64 128 halves, as the JAX
+package does. `xxhash64` (`redisson_tpu/ops/hashing.py`) is still to port;
+ROADMAP.md lists it.
 """
 
 from __future__ import annotations

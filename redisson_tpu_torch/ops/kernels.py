@@ -1,10 +1,11 @@
-"""PFMERGE over a stacked bank: the `merge_stack` kernel wrapper.
+"""The ops-level kernel wrappers: PFMERGE's `merge_stack`, BITCOUNT's
+`popcount_partials` and BITOP's `bitop_cells`.
 
-Counterpart of `redisson_tpu.ops.pallas_kernels.merge_stack`. On a CUDA
-tensor the wrapper launches the hand-written kernel of
-`csrc/merge_stack.cu` or raises; on a CPU tensor it runs the plain PyTorch
-version, `merge_stack_plain`, which is also what the kernel is held against
-on the card.
+Counterparts of the same functions in `redisson_tpu.ops.pallas_kernels`.
+On a CUDA tensor each wrapper launches its hand-written kernel
+(`csrc/merge_stack.cu`, `csrc/popcount.cu`, `csrc/bitop.cu`) or raises; on
+a CPU tensor it runs its plain PyTorch version (`*_plain`), which is also
+what the kernel is held against on the card.
 """
 
 from __future__ import annotations
@@ -16,29 +17,51 @@ import torch
 from redisson_tpu_torch.ops import _build
 
 #: kernel launches since the last `reset_launches()`
-launches = {"merge_stack": 0}
+launches = {"merge_stack": 0, "popcount_partials": 0, "bitop_cells": 0}
 
 # Enough row blocks to put ~4 blocks of 256 threads on each of 132 SMs.
 _TARGET_BLOCKS = 528
 _COLS_PER_BLOCK = 256 * 4
 
-_fn = None
+_fns = {}
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: C entry point -> (source, argtypes)
+_SIGNATURES = {
+    "merge_stack_i32": ("merge_stack", [_P, _P, _I, _I, _I, _I, _P]),
+    "popcount_partials_u8": ("popcount", [_P, _LL, _I, _P, _I, _P]),
+    "bitop_u8": ("bitop", [_P, _P, _I, _LL, _I, _I, _I, _P]),
+}
 
 
 def reset_launches() -> None:
-    launches["merge_stack"] = 0
+    for name in launches:
+        launches[name] = 0
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.load("merge_stack").merge_stack_i32
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+def _kernel(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        source, argtypes = _SIGNATURES[name]
+        fn = getattr(_build.load(source), name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
+
+
+def _on_cpu(name: str, t: torch.Tensor) -> bool:
+    """True for a CPU tensor (plain version), False for a CUDA one (the
+    kernel); raises for any other device."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return False
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def merge_stack_plain(stack: torch.Tensor) -> torch.Tensor:
@@ -62,10 +85,8 @@ def merge_stack(stack: torch.Tensor) -> torch.Tensor:
         raise ValueError(
             f"merge_stack needs an [S, m] int32 tensor, got "
             f"{tuple(stack.shape)} {stack.dtype}")
-    if stack.device.type == "cpu":
+    if _on_cpu("merge_stack", stack):
         return merge_stack_plain(stack)
-    if stack.device.type != "cuda":
-        raise ValueError(f"merge_stack: unsupported device {stack.device}")
     s, m = stack.shape
     if not stack.is_contiguous():
         raise ValueError("merge_stack: stack must be contiguous")
@@ -76,10 +97,109 @@ def merge_stack(stack: torch.Tensor) -> torch.Tensor:
     out = torch.zeros((m,), dtype=torch.int32, device=stack.device)
     if s == 0:
         return out
-    stream = torch.cuda.current_stream(stack.device).cuda_stream
-    rc = _kernel()(stack.data_ptr(), out.data_ptr(), s, m,
-                   rows_per_block(s, m), stack.device.index, stream)
+    rc = _kernel("merge_stack_i32")(stack.data_ptr(), out.data_ptr(), s, m,
+                                    rows_per_block(s, m), stack.device.index,
+                                    _stream(stack))
     if rc:
         raise RuntimeError(f"merge_stack launch failed: CUDA error {rc}")
     launches["merge_stack"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# popcount_partials: BITCOUNT per-block int32 partials over uint8 cells
+# ---------------------------------------------------------------------------
+
+#: cells per partial, as in the JAX kernel (partials compare one to one)
+POPCOUNT_BLOCK = 1 << 18
+
+
+def popcount_partials_plain(cells: torch.Tensor,
+                            block: int = POPCOUNT_BLOCK) -> torch.Tensor:
+    """[n] uint8 -> [G, 1] int32 per-block sums; the ragged tail counts as
+    zeros and n = 0 gives one zero partial (JAX's shapes)."""
+    n = cells.shape[0]
+    if n == 0:
+        return torch.zeros((1, 1), dtype=torch.int32, device=cells.device)
+    pad = (-n) % block
+    if pad:
+        cells = torch.cat([cells, cells.new_zeros((pad,))])
+    return cells.reshape(-1, block).sum(dim=1, dtype=torch.int32)[:, None]
+
+
+def popcount_partials(cells: torch.Tensor,
+                      block: int = POPCOUNT_BLOCK) -> torch.Tensor:
+    """BITCOUNT partials of [n] uint8 cells -> [G, 1] int32, G = ceil(n /
+    block); the exact total is `ops.bitset.combine_partials` on the host."""
+    if cells.dim() != 1 or cells.dtype != torch.uint8:
+        raise ValueError(
+            f"popcount_partials needs [n] uint8 cells, got "
+            f"{tuple(cells.shape)} {cells.dtype}")
+    if block <= 0 or block % 16 or block * 255 >= 1 << 31:
+        raise ValueError(f"popcount_partials: bad block {block}")
+    if _on_cpu("popcount_partials", cells):
+        return popcount_partials_plain(cells, block)
+    n = cells.shape[0]
+    if n == 0:
+        return torch.zeros((1, 1), dtype=torch.int32, device=cells.device)
+    if not cells.is_contiguous() or cells.data_ptr() % 16:
+        cells = cells.clone()  # a fresh allocation is contiguous and aligned
+    out = torch.empty((-(-n // block), 1), dtype=torch.int32, device=cells.device)
+    rc = _kernel("popcount_partials_u8")(cells.data_ptr(), n, block,
+                                         out.data_ptr(), cells.device.index,
+                                         _stream(cells))
+    if rc:
+        raise RuntimeError(f"popcount_partials launch failed: CUDA error {rc}")
+    launches["popcount_partials"] += 1
+    return out
+
+
+def popcount_cells(cells: torch.Tensor, block: int = POPCOUNT_BLOCK) -> torch.Tensor:
+    """BITCOUNT as one int64 device scalar."""
+    return popcount_partials(cells, block).sum(dtype=torch.int64)
+
+
+# ---------------------------------------------------------------------------
+# bitop_cells: BITOP AND | OR | XOR over a [K, n] uint8 stack -> [n]
+# ---------------------------------------------------------------------------
+
+BITOPS = {"and": 0, "or": 1, "xor": 2}
+_TORCH_BITOPS = {"and": torch.bitwise_and, "or": torch.bitwise_or,
+                 "xor": torch.bitwise_xor}
+
+
+def bitop_cells_plain(stack: torch.Tensor, op: str) -> torch.Tensor:
+    """Fold the K rows with `op`; K = 0 gives zeros."""
+    fn = _TORCH_BITOPS[op]
+    k, n = stack.shape
+    if k == 0:
+        return torch.zeros((n,), dtype=stack.dtype, device=stack.device)
+    acc = stack[0].clone()
+    for r in range(1, k):
+        acc = fn(acc, stack[r])
+    return acc
+
+
+def bitop_cells(stack: torch.Tensor, op: str) -> torch.Tensor:
+    """BITOP `op` ('and' | 'or' | 'xor') over K operands stacked as [K, n]
+    uint8 -> a fresh [n] tensor."""
+    if op not in BITOPS:
+        raise ValueError(f"unknown bitop {op!r}")
+    if stack.dim() != 2 or stack.dtype != torch.uint8:
+        raise ValueError(
+            f"bitop_cells needs a [K, n] uint8 stack, got "
+            f"{tuple(stack.shape)} {stack.dtype}")
+    if _on_cpu("bitop_cells", stack):
+        return bitop_cells_plain(stack, op)
+    k, n = stack.shape
+    out = torch.zeros((n,), dtype=torch.uint8, device=stack.device)
+    if k == 0 or n == 0:
+        return out
+    stack = stack.contiguous()
+    vec = n % 16 == 0 and stack.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    rc = _kernel("bitop_u8")(stack.data_ptr(), out.data_ptr(), k, n, BITOPS[op],
+                             int(vec), stack.device.index, _stream(stack))
+    if rc:
+        raise RuntimeError(f"bitop_cells launch failed: CUDA error {rc}")
+    launches["bitop_cells"] += 1
     return out

@@ -2,8 +2,10 @@
 (counterpart of `redisson_tpu.store`).
 
 HLLs live as rows of the backend's bank, not here; the store holds the
-other sketch kinds (BitSet, Bloom: later slices), and the backend consults
-it so an HLL operation on a name of another kind fails with WRONGTYPE.
+other sketch kinds (BitSet and Bloom cell tensors), and the backend
+consults it so an operation on a name of another kind fails with WRONGTYPE.
+Every `swap` of an object's state bumps its `version`, with an optional
+compare-and-set on it.
 Names map to cluster hash slots with the same CRC16 function as Redis.
 """
 
@@ -34,6 +36,7 @@ class StoredObject:
     state: torch.Tensor
     slot: int
     meta: Dict[str, Any] = field(default_factory=dict)
+    version: int = 0
 
 
 class WrongTypeError(TypeError):
@@ -76,6 +79,21 @@ class SketchStore:
             raise WrongTypeError(
                 f"key '{name}' holds {obj.otype}, operation needs {otype}")
         return obj
+
+    def swap(self, name: str, new_state: torch.Tensor,
+             expected_version: Optional[int] = None) -> bool:
+        """Install new state (the same tensor after an in-place update, or a
+        fresh one) and bump the version; with `expected_version`, only if
+        the version still matches (False otherwise, or if absent)."""
+        with self._lock:
+            obj = self._objects.get(name)
+            if obj is None:
+                return False
+            if expected_version is not None and obj.version != expected_version:
+                return False
+            obj.state = new_state
+            obj.version += 1
+            return True
 
     def delete(self, name: str) -> bool:
         with self._lock:
