@@ -7,10 +7,13 @@ Needs one CUDA card (Hopper: the kernels build for sm_90a) and `nvcc`.
 Phases, each of which fails the run on error:
 
   1. print the card's name and power limit; build the CUDA kernels of
-     `redisson_tpu_torch/csrc/` (one nvcc per source, in parallel);
+     `redisson_tpu_torch/csrc/` (one nvcc per source, in parallel) and the
+     host fold library (`csrc/host_fold.cpp`, g++);
   2. hold every kernel against its plain PyTorch version on the card at the
      main paths' shapes (bit-identical), and time kernel, plain version,
-     the kernel's bound and one PyTorch library call with CUDA events;
+     the kernel's bound and one PyTorch library call with CUDA events
+     (delta_merge at [256, 16384], [1, 2^28] and [3, 1024]; window_merge
+     on a mixed [64, 2^20] tape and an HLL [256, 16384] tape);
   3. drive the HLL path through the client at full width: 1024 named HLLs
      (a 64 MiB bank), 40,000 distinct keys each, one 8M-key PFADD, PFCOUNT,
      PFMERGE and PFMERGE+PFCOUNT over 1000 sketches, and
@@ -33,11 +36,24 @@ Phases, each of which fails the run on error:
      (old-value vectors checked), BITCOUNT, BITOP OR / AND / XOR across the
      week, NOT, length and size, all equal to numpy's;
   9. Bloom and BitSet rates, warm (median, min and max of 5 passes);
- 10. with --profile, torch.profiler traces of short HLL and Bloom windows
+ 10. the delta / tape / hostfold ingest at full width: the HLL path of 3
+     under ingest="delta", "tape" and "hostfold" (banks and PFADD flags
+     equal to "sort"); the Bloom path's 10M adds under "delta" (cells equal
+     to "scatter"; each newly flag implies scatter's `added`), then under
+     "hostfold" from the host mirror with contains of 1M keys and a
+     bloom_sync (cells equal); the BitSet days under "delta" (old bits and
+     cells equal to numpy's);
+ 11. one mixed window (32 HLLs, 16 Blooms of m = 958,505, 16 BitSets of
+     2^20 bits) under "tape" in ONE window_merge launch, then a window past
+     the cell budget through chunked delta_merge, both equal to "delta" and
+     in state to "scatter";
+ 12. delta / tape / hostfold rates, warm, the link profile and what
+     ingest="auto" picks at 2^21 keys;
+ 13. with --profile, torch.profiler traces of short HLL and Bloom windows
      (device busy share, device time by kernel).
 
-Each path (3, 7, 8) resets the launch counters just before it and reads
-them just after. The last lines are the card's name and power limit, a
+Each path (3, 7, 8, 10, 11) resets the launch counters just before it and
+reads them just after. The last lines are the card's name and power limit, a
 JSON object with one entry per kernel, and `{"ok": true, "device": {...}}`.
 Exits non-zero, with no result, when no card is visible or the package is
 missing.
@@ -88,6 +104,12 @@ DAY_BITS = 1 << 27
 DAY_SETS = 8_000_000
 CHUNK = 1 << 21  # engine.MAX_BUCKET: SETBIT batches run in chunks this big
 MASK63 = (1 << 63) - 1
+# The mixed tape window: 2 * MIX_N HLLs, MIX_N Blooms of try_init(100_000,
+# 0.01) (m = 958,505, 2^20 lanes) and MIX_N BitSets of 2^20 bits, 64 rows of
+# 2^20 lanes: exactly the delta stack's cell budget.
+MIX_N = 16
+MIX_BLOOM_M = 958_505
+MIX_BITS = 1 << 20
 # Per-sketch estimates: the RMS error must stay below 2%, and at most this
 # share of sketches may exceed 2%. A single sketch is not held to 2%: the
 # standard error at p = 14 is 0.81%, so 2% is a 2.5-sigma draw, and among
@@ -380,14 +402,19 @@ def main_path(seed: int):
     client.shutdown()
 
     ref = RedissonTorch.create(Config().use_cuda(ingest="sort"))
-    drive(ref, seed)
+    ref_res = drive(ref, seed)
     ref_bank, ref_rows = ref.to_numpy_state()
     ref.shutdown()
+    same_bank(bank, rows, ref_bank, ref_rows, "ingest=segment")
+    return launches, (ref_res, ref_bank, ref_rows)
+
+
+def same_bank(bank, rows, ref_bank, ref_rows, what: str) -> None:
     if set(rows) != set(ref_rows) or any(
             not np.array_equal(bank[r], ref_bank[ref_rows[n]]) for n, r in rows.items()):
-        raise AssertionError("ingest=segment registers differ from ingest=sort")
-    log(f"final bank: all {len(rows)} sketches bit-identical to ingest=sort")
-    return launches
+        raise AssertionError(f"{what} registers differ from ingest=sort")
+    log(f"final bank under {what}: all {len(rows)} sketches bit-identical to "
+        "ingest=sort")
 
 
 def rates(seed: int, card: str):
@@ -580,7 +607,7 @@ def bloom_path(seed: int, probes):
     if not np.array_equal(cells, ref_cells) or not np.array_equal(added, ref_added):
         raise AssertionError("ingest=segment bloom cells or flags differ from scatter")
     log("bloom: cells and added flags under ingest=segment bit-identical to scatter")
-    return launches
+    return launches, (ref_cells, ref_added)
 
 
 def day_ids(seed: int):
@@ -722,6 +749,451 @@ def bloom_rates(seed: int, card: str, probes):
         ", ingest=segment")
 
 
+# -- phase 2: the delta kernels ----------------------------------------------
+
+
+def ring_ms(fn, bufs) -> float:
+    """Mean device ms of `fn(buf)` over distinct buffers, after a warm-up on
+    the first: an in-place merge into the same buffer twice would find
+    nothing left to change."""
+    import torch
+
+    fn(bufs[0])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for b in bufs[1:]:
+        fn(b)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (len(bufs) - 1)
+
+
+def timed_merge(kernel, plain, library, src, reps: int = 10):
+    """ms of the kernel, its plain version and a library call, each merging
+    into fresh copies of `src`."""
+    out = {}
+    for key, fn in (("ms", kernel), ("plain_ms", plain), ("library_ms", library)):
+        if fn is None:
+            out[key] = None
+            continue
+        bufs = [src.clone() for _ in range(reps + 1)]
+        out[key] = ring_ms(fn, bufs)
+        del bufs
+    return out
+
+
+def mixed_planes(seed: int, n_hll: int, n_bloom: int, n_bits: int):
+    """Random folded planes of one mixed window: HLL register images, Bloom
+    planes of m = 958,505 (try_init(100_000, 0.01)) and 2^20-bit BitSets."""
+    from redisson_tpu_torch.ingest import delta
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_hll):
+        plane = np.zeros(delta.HLL_M, np.uint8)
+        plane[rng.integers(0, delta.HLL_M, 9000)] = rng.integers(1, 30, 9000)
+        out.append(delta.encode("hll_add", f"h{i}", plane, cells=delta.HLL_M,
+                                packed=False, nkeys=0, raw_bytes=0))
+    for kind, n, cells in (("bloom_add", n_bloom, MIX_BLOOM_M),
+                           ("bitset_set", n_bits, MIX_BITS)):
+        for i in range(n):
+            plane = (rng.random((cells + 7) // 8) < 0.3).astype(np.uint8) * \
+                rng.integers(0, 256, (cells + 7) // 8).astype(np.uint8)
+            out.append(delta.encode(kind, f"{kind}{i}", plane, cells=cells,
+                                    packed=True, nkeys=0, raw_bytes=0))
+    return out
+
+
+def tape_bound(table: np.ndarray, lanes: int, width: int) -> int:
+    """Bytes the window merge must move for this tape: each row's cells
+    below its length read and written once, and the wire bytes they need."""
+    from redisson_tpu_torch.ops import window_kernel as wk
+
+    valid = np.clip(table[:, 3].astype(np.int64), 0, lanes)
+    wire = np.where(table[:, 0] == wk.OP_HLL, np.minimum(valid, width),
+                    np.minimum((valid + 7) // 8, width))
+    return int(2 * valid.sum() + wire.sum() + table.nbytes + table.shape[0] * 4)
+
+
+def check_delta_kernels(seed: int):
+    """delta_merge and window_merge against their plain versions at the
+    delta paths' shapes, and their times."""
+    import torch
+    from redisson_tpu_torch.ingest import tape
+    from redisson_tpu_torch.ops import kernels as ok
+    from redisson_tpu_torch.ops import window_kernel as wk
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    dm_err, dm = 0, {}
+    for t, l, high in ((256, 16384, 60), (1, 1 << 28, 2), (3, 1024, 60)):
+        old = torch.randint(0, high, (t, l), dtype=torch.uint8, device=dev, generator=g)
+        delta = torch.randint(0, high, (t, l), dtype=torch.uint8, device=dev, generator=g)
+        delta[torch.rand((t, l), device=dev, generator=g) < 0.6] = 0
+        if t > 2:
+            delta[1] = 0  # a row that cannot rise
+        want_m, want_c = ok.delta_merge_plain(old.clone(), delta)
+        got_m, got_c = ok.delta_merge(old.clone(), delta)
+        dm_err = max(dm_err, _same(f"delta_merge [{t}, {l}]", got_m, want_m),
+                     _same(f"delta_merge [{t}, {l}] changed", got_c, want_c))
+        if l == 1024:
+            continue
+        times = timed_merge(lambda o: ok.delta_merge(o, delta),
+                            lambda o: ok.delta_merge_plain(o, delta),
+                            lambda o: torch.maximum(o, delta, out=o), old,
+                            reps=10 if l > 16384 else 20)
+        times["bound_ms"], times["bound_by"] = bound_ms(3 * t * l, t * l)
+        log(f"delta_merge [{t}, {l}]: " + json.dumps(times))
+        dm[(t, l)] = times
+    dmerge = dict(dm[(1, 1 << 28)], max_abs_err=dm_err)
+    log(f"delta_merge at [256, 16384] (HLL window): {json.dumps(dm[(256, 16384)])}; "
+        "library call torch.maximum(out=old) has no changed flag")
+
+    wm_err, wm = 0, {}
+    for name, planes in (("mixed", mixed_planes(seed, 32, 15, 14)),
+                         ("hll", mixed_planes(seed + 1, 250, 0, 0))):
+        tp = tape.encode_window(planes, lambda n: 0)
+        table = tp.table.copy()
+        table[:, 2] = np.random.default_rng(seed).integers(-2**31, 2**31 - 1,
+                                                           table.shape[0])
+        t2 = table.shape[0]
+        old = torch.randint(0, 2, (t2, tp.lanes), dtype=torch.uint8, device=dev,
+                            generator=g)
+        hll_rows = table[:, 0] == wk.OP_HLL
+        old[torch.from_numpy(hll_rows).to(dev)] *= 20  # registers 0 / 20
+        wire = torch.from_numpy(tp.wire).to(dev)
+        tab = torch.from_numpy(table).to(dev)
+        want_m, want_c = wk.window_merge_plain(old.clone(), wire, tab)
+        got_m, got_c = wk.window_merge(old.clone(), wire, tab)
+        shape = f"[{t2}, {tp.lanes}]"
+        wm_err = max(wm_err, _same(f"window_merge {name} {shape}", got_m, want_m),
+                     _same(f"window_merge {name} {shape} changed", got_c, want_c))
+        times = timed_merge(lambda o: wk.window_merge(o, wire, tab),
+                            lambda o: wk.window_merge_plain(o, wire, tab), None, old,
+                            reps=10 if name == "mixed" else 20)
+        nbytes = tape_bound(table, tp.lanes, tp.wire.shape[1])
+        times["bound_ms"], times["bound_by"] = bound_ms(nbytes, nbytes // 2)
+        log(f"window_merge {name} tape {shape} (wire {tp.wire.shape[1]} B/row, "
+            f"{int((table[:, 0] == wk.OP_PAD).sum())} PAD rows, {nbytes} bytes "
+            f"to move): " + json.dumps(times))
+        wm[name] = times
+    return dmerge, dict(wm["mixed"], max_abs_err=wm_err)
+
+
+# -- phases 10-12: the delta / tape / hostfold ingest -------------------------
+
+
+def reset_all_launches():
+    from redisson_tpu_torch.ingest import kernels as ik
+    from redisson_tpu_torch.ops import kernels as ok
+    from redisson_tpu_torch.ops import window_kernel as wk
+
+    ik.reset_launches()
+    ok.reset_launches()
+    wk.reset_launches()
+
+
+def delta_launches() -> dict:
+    import torch
+    from redisson_tpu_torch.ops import kernels as ok
+    from redisson_tpu_torch.ops import window_kernel as wk
+
+    torch.cuda.synchronize()
+    return {"delta_merge": ok.launches["delta_merge"],
+            "window_merge": wk.launches["window_merge"]}
+
+
+def add_launches(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+
+def delta_hll_path(seed: int, ref):
+    """The HLL path of phase 3 under each host-side ingest: banks, PFADD
+    flags and estimates equal to ingest="sort"."""
+    from redisson_tpu_torch.client import RedissonTorch
+    from redisson_tpu_torch.config import Config
+
+    ref_res, ref_bank, ref_rows = ref
+    total = {}
+    for ingest, kernel in (("delta", "delta_merge"), ("tape", "window_merge"),
+                           ("hostfold", None)):
+        reset_all_launches()
+        client = RedissonTorch.create(Config().use_cuda(ingest=ingest))
+        res = drive(client, seed)
+        launches = delta_launches()
+        bank, rows = client.to_numpy_state()
+        stats = client.sketch.ingest_stats()
+        client.shutdown()
+        log(f"hll path under ingest={ingest}: launches {launches}; counters "
+            + json.dumps({k: round(v, 3) for k, v in stats.items()}))
+        same_bank(bank, rows, ref_bank, ref_rows, f"ingest={ingest}")
+        for key in ("added", "big_added", "counts", "big_count", "merge_count",
+                    "merge_and_count", "count_with"):
+            if res[key] != ref_res[key]:
+                raise AssertionError(f"ingest={ingest}: {key} differs from ingest=sort")
+        if kernel and not launches[kernel]:
+            raise AssertionError(f"kernel {kernel} never launched under ingest={ingest}")
+        total = add_launches(total, launches)
+    log("hll path under delta / tape / hostfold: PFADD flags and estimates equal "
+        "to ingest=sort")
+    return total
+
+
+def newly_vs_added(what: str, newly: np.ndarray, added: np.ndarray) -> int:
+    """A key newly set by the in-order host fold was also `added` by the
+    device path (whose flag is taken against the batch start): check the
+    implication and count the keys where only the device path says added
+    (all of their bits set by earlier keys of the same batch)."""
+    if newly.shape != added.shape or (newly & ~added).any():
+        raise AssertionError(f"{what}: a newly flag without the device's added flag")
+    only = int((added & ~newly).sum())
+    log(f"{what}: newly flags imply the device path's added flags; {only} of "
+        f"{added.size} keys added on the device but not newly in the host fold "
+        "(their bits were set earlier in the same batch)")
+    return only
+
+
+def delta_bloom_path(seed: int, ref):
+    """The Bloom path's adds under ingest="delta", then under "hostfold"
+    from the host mirror, against the cells of ingest="scatter"."""
+    from redisson_tpu_torch.client import RedissonTorch
+    from redisson_tpu_torch.config import Config
+
+    ref_cells, ref_added = ref
+    reset_all_launches()
+    client = RedissonTorch.create(Config().use_cuda(ingest="delta"))
+    f, newly = bloom_fill(client, "bloom", seed)
+    launches = delta_launches()
+    cells = export_cells(client, "bloom")
+    client.shutdown()
+    log(f"bloom path under ingest=delta: launches {launches}")
+    if not np.array_equal(cells, ref_cells):
+        raise AssertionError("ingest=delta bloom cells differ from scatter")
+    newly_vs_added("bloom ingest=delta", newly, ref_added)
+    if not launches["delta_merge"]:
+        raise AssertionError("delta_merge never launched on the bloom delta path")
+
+    client = RedissonTorch.create(Config().use_cuda(ingest="hostfold"))
+    f, newly = bloom_fill(client, "bloom", seed)
+    mirror = client.sketch._bloom_mirrors.get("bloom")
+    first = f.contains_ints(bloom_keys(0, BLOOM_CONTAINS, seed))
+    count = f.count()
+    version = client._store.get("bloom").version
+    client._executor.execute_sync("bloom", "bloom_sync", None)
+    cells = export_cells(client, "bloom")
+    client.shutdown()
+    if mirror is None or version != 0:
+        raise AssertionError("ingest=hostfold did not serve the adds from the mirror")
+    if not first.all():
+        raise AssertionError("false negatives from the host mirror")
+    if not np.array_equal(cells, ref_cells):
+        raise AssertionError("ingest=hostfold bloom cells after bloom_sync differ")
+    newly_vs_added("bloom ingest=hostfold", newly, ref_added)
+    log(f"bloom under ingest=hostfold: 10M adds and contains of {BLOOM_CONTAINS} "
+        f"keys from the host mirror (no false negative), count() {count}; after "
+        "bloom_sync the cells equal ingest=scatter's")
+    return launches
+
+
+def delta_bitset_path(seed: int):
+    """The BitSet days under ingest="delta", each day's SETBITs in four
+    2M-index ops: old bits and cells equal to numpy's (a window's old bits
+    are its start state)."""
+    from redisson_tpu_torch.client import RedissonTorch
+    from redisson_tpu_torch.config import Config
+
+    ids = day_ids(seed)
+    reset_all_launches()
+    client = RedissonTorch.create(Config().use_cuda(ingest="delta"))
+    ref = np.zeros(DAY_BITS, np.uint8)
+    for d in range(DAYS):
+        ref[:] = 0
+        day = client.get_bit_set(f"dday:{d}")
+        for lo in range(0, DAY_SETS, DAY_SETS // 4):
+            chunk = ids[d][lo: lo + DAY_SETS // 4]
+            old = day.set_bits(chunk)
+            if not np.array_equal(old, ref[chunk] != 0):
+                raise AssertionError(f"ingest=delta SETBIT old bits of day {d} differ")
+            ref[chunk] = 1
+        if not np.array_equal(export_cells(client, f"dday:{d}"), ref):
+            raise AssertionError(f"ingest=delta cells of day {d} differ from numpy")
+    launches = delta_launches()
+    client.shutdown()
+    log(f"bitset under ingest=delta: {DAYS} days x 4 x {DAY_SETS // 4} SETBITs, old "
+        f"bits and cells equal to numpy; launches {launches}")
+    if not launches["delta_merge"]:
+        raise AssertionError("delta_merge never launched on the bitset delta path")
+    return launches
+
+
+def hold_dispatcher(client):
+    """Block the client's dispatcher on a barrier until the returned event
+    is set, so that ops submitted meanwhile queue up and coalesce into one
+    run (what a client batch of many keys' writes looks like)."""
+    import threading
+
+    release, entered = threading.Event(), threading.Event()
+
+    def block():
+        entered.set()
+        release.wait(60)
+
+    fut = client._executor.execute_barrier(block)
+    if not entered.wait(60):
+        raise AssertionError("the dispatcher never reached the barrier")
+    return release, fut
+
+
+def mixed_ops(client, seed: int, n_hll: int):
+    """One held window: n_hll PFADDs of 40,000 keys, 16 Bloom adds of
+    50,000 keys and 16 SETBIT batches of 100,000 indexes, on distinct
+    targets -> (the ops' results, the targets' state)."""
+    rng = np.random.default_rng(seed)
+    blooms = [client.get_bloom_filter(f"mix:f{i}") for i in range(MIX_N)]
+    for f in blooms:
+        f.try_init(100_000, 0.01)
+    release, fut = hold_dispatcher(client)
+    futs = [client.get_hyper_log_log(f"mix:h{i}").add_ints_async(
+        rng.integers(0, 2**64, KEYS, dtype=np.uint64)) for i in range(n_hll)]
+    futs += [f.add_ints_async(rng.integers(0, 2**63, 50_000, dtype=np.uint64))
+             for f in blooms]
+    for i in range(MIX_N):
+        idx = rng.integers(0, MIX_BITS, 100_000)
+        idx[0] = MIX_BITS - 1  # every BitSet grows to 2^20 bits
+        futs.append(client.get_bit_set(f"mix:b{i}").set_bits_async(idx))
+    release.set()
+    fut.result(60)
+    results = [f.result(120) for f in futs]
+    state = {}
+    for name in [f"mix:f{i}" for i in range(MIX_N)] + [f"mix:b{i}" for i in range(MIX_N)]:
+        client._executor.execute_sync(name, "bloom_sync", None)
+        state[name] = export_cells(client, name)
+    for i in range(n_hll):
+        name = f"mix:h{i}"
+        state[name] = client._executor.execute_sync(name, "hll_export", None)[0]
+    client.flushall()
+    return results, state
+
+
+def mixed_window(seed: int):
+    """Phase 11: a mixed window in one window_merge launch, then one past
+    the cell budget through chunked delta_merge."""
+    from redisson_tpu_torch.client import RedissonTorch
+    from redisson_tpu_torch.config import Config
+
+    runs = {}
+    launches = {}
+    for ingest in ("tape", "delta", "scatter"):
+        client = RedissonTorch.create(Config().use_cuda(ingest=ingest))
+        for window, n_hll in (("fits", 2 * MIX_N), ("over", 2 * MIX_N + 1)):
+            if ingest == "tape":
+                reset_all_launches()
+            runs[(ingest, window)] = mixed_ops(client, seed + n_hll, n_hll)
+            if ingest == "tape":
+                launches[window] = delta_launches()
+                log(f"mixed window ({window}, {n_hll + 2 * MIX_N} targets) under "
+                    f"ingest=tape: launches {launches[window]}; counters "
+                    + json.dumps(client.sketch.ingest_stats()))
+        client.shutdown()
+    if launches["fits"] != {"delta_merge": 0, "window_merge": 1}:
+        raise AssertionError(f"the mixed window took {launches['fits']}, not one "
+                             "window_merge launch")
+    if launches["over"]["window_merge"] or launches["over"]["delta_merge"] < 2:
+        raise AssertionError(f"the over-budget window took {launches['over']}")
+    for window in ("fits", "over"):
+        (tres, tstate), (dres, dstate), (sres, sstate) = (
+            runs[(i, window)] for i in ("tape", "delta", "scatter"))
+        n_hll = len(tres) - 2 * MIX_N
+        for name in tstate:
+            if not (np.array_equal(tstate[name], dstate[name])
+                    and np.array_equal(tstate[name], sstate[name])):
+                raise AssertionError(f"{window} window: state of {name} differs")
+        for i, (t, d, sc) in enumerate(zip(tres, dres, sres)):
+            if not np.array_equal(t, d):
+                raise AssertionError(f"{window} window: result {i} differs from delta")
+            if not (n_hll <= i < n_hll + MIX_N) and not np.array_equal(t, sc):
+                raise AssertionError(f"{window} window: result {i} differs from scatter")
+        newly_vs_added(f"mixed {window} window Bloom adds",
+                       np.concatenate(tres[n_hll: n_hll + MIX_N]),
+                       np.concatenate(sres[n_hll: n_hll + MIX_N]))
+    log("mixed windows: results and state under tape equal delta's; state, PFADD "
+        "flags and SETBIT old bits equal scatter's")
+    return add_launches(launches["fits"], launches["over"])
+
+
+def delta_rates(seed: int, card: str):
+    """Warm rates of the host-side ingest paths, the link profile and what
+    ingest="auto" picks for 2^21 keys."""
+    import torch
+    from redisson_tpu_torch.backend_torch import hostfold_policy, link_profile
+    from redisson_tpu_torch.client import RedissonTorch
+    from redisson_tpu_torch.config import Config
+
+    rows = []
+    for ingest in ("delta", "tape", "hostfold"):
+        client = RedissonTorch.create(Config().use_cuda(ingest=ingest))
+        hlls = [client.get_hyper_log_log(f"r:{i}") for i in range(SKETCHES)]
+        big = client.get_hyper_log_log("r:big")
+        many, one = [], []
+        for rep in range(TIMING_REPS + 1):
+            lo = rep * (1 << 36)
+            batches = [keys_for(lo + i * STRIDE, KEYS, seed) for i in range(SKETCHES)]
+            big_keys = keys_for(lo + (1 << 35), BIG_KEYS, seed)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            [f.result() for f in [h.add_ints_async(b) for h, b in zip(hlls, batches)]]
+            t1 = time.perf_counter()
+            big.add_ints(big_keys)
+            t2 = time.perf_counter()
+            if rep:
+                many.append(SKETCHES * KEYS / (t1 - t0) / 1e6)
+                one.append(BIG_KEYS / (t2 - t1) / 1e6)
+        log(f"ingest={ingest} counters after the rate passes: "
+            + json.dumps(client.sketch.ingest_stats()))
+        client.shutdown()
+        rows += [(f"PFADD, {SKETCHES} sketches x {KEYS} keys, ingest={ingest}", many,
+                  "M inserts/s"),
+                 (f"PFADD, one {BIG_KEYS}-key batch, ingest={ingest}", one,
+                  "M inserts/s")]
+    client = RedissonTorch.create(Config().use_cuda(ingest="delta"))
+    batches = [bloom_keys(lo, BLOOM_BATCH, seed) for lo in range(0, BLOOM_KEYS, BLOOM_BATCH)]
+    adds = []
+    for rep in range(TIMING_REPS + 1):
+        f = client.get_bloom_filter(f"rate:{rep}")
+        f.try_init(BLOOM_N, BLOOM_P)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            f.add_ints(b)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        f.delete()
+        if rep:
+            adds.append(BLOOM_KEYS / (t1 - t0) / 1e6)
+    client.shutdown()
+    rows.append((f"Bloom add_ints, {BLOOM_KEYS} keys in {BLOOM_BATCH}-key batches, "
+                 "ingest=delta", adds, "M inserts/s"))
+    report(card, rows)
+
+    dev = torch.device("cuda", 0)
+    prof = link_profile(dev)
+    log(f"[{card}] link profile: {prof.transfer_ns_per_byte:.5f} ns/byte host->device "
+        f"({8 * prof.transfer_ns_per_byte:.4f} ns per 8-byte key), host fold "
+        f"{prof.fold_ns_per_key:.4f} ns/key, prefer_hostfold={prof.prefer_hostfold}")
+    client = RedissonTorch.create(Config().use_cuda(ingest="auto"))
+    back = client.sketch
+    n = 1 << 21
+    picks = client._executor.execute_barrier(lambda: {
+        "hll": back._plan_ingest(n),
+        "hll from the delta dispatch": back._plan_ingest(n, allow_delta=True),
+        "bloom bits from the delta dispatch": back._plan_bits(
+            n, BLOOM_M, plane_bytes=(BLOOM_M + 7) // 8, allow_delta=True),
+        "bloom host mirror": hostfold_policy("auto", n, dev)}).result()
+    log(f"ingest=auto at {n} keys picks: " + json.dumps(picks))
+    client.shutdown()
+
+
 def traced(what: str, window) -> None:
     """torch.profiler over one window: wall time, device busy share and the
     device time by kernel name (where the time goes)."""
@@ -808,6 +1280,8 @@ def main() -> int:
         print(f"chip_smoke: redisson_tpu_torch not found: {exc}", file=sys.stderr)
         return 2
 
+    from redisson_tpu_torch import native
+
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
@@ -816,9 +1290,16 @@ def main() -> int:
     for name, text in _build.BUILD_LOG.items():
         regs = [ln.strip() for ln in text.splitlines() if "registers" in ln or "spill" in ln]
         log(f"  {name}: " + " | ".join(regs))
+    t0 = time.perf_counter()
+    native.build()
+    if not native.available():
+        raise AssertionError("the host fold library did not load")
+    log(f"host fold library: {native.target().name}, built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s {native.BUILD_LOG.strip()}")
 
     phases = [("kernels", lambda: check_kernels(args.seed)),
               ("bits kernels", lambda: check_bits_kernels(args.seed)),
+              ("delta kernels", lambda: check_delta_kernels(args.seed)),
               ("hll path", lambda: main_path(args.seed)),
               ("hll rates", lambda: rates(args.seed, card)),
               ("hll auto", lambda: auto_path(args.seed)),
@@ -826,7 +1307,13 @@ def main() -> int:
               ("fpr probes", lambda: fpr_probes(args.seed)),
               ("bloom path", lambda: bloom_path(args.seed, out["fpr probes"])),
               ("bloom rates", lambda: bloom_rates(args.seed, card, out["fpr probes"])),
-              ("bitset path", lambda: bitset_path(args.seed, card))]
+              ("bitset path", lambda: bitset_path(args.seed, card)),
+              ("delta hll path", lambda: delta_hll_path(args.seed, out["hll path"][1])),
+              ("delta bloom path", lambda: delta_bloom_path(args.seed,
+                                                            out["bloom path"][1])),
+              ("delta bitset path", lambda: delta_bitset_path(args.seed)),
+              ("mixed tape window", lambda: mixed_window(args.seed)),
+              ("delta rates", lambda: delta_rates(args.seed, card))]
     out = {}
     for name, fn in phases:
         t = time.perf_counter()
@@ -836,8 +1323,11 @@ def main() -> int:
         profile_path(args.seed)
     seg, mrg = out["kernels"]
     pop, bop, bseg = out["bits kernels"]
-    launches = dict(out["hll path"])
-    bloom_l, bitset_l = out["bloom path"], out["bitset path"]
+    dmerge, wmerge = out["delta kernels"]
+    launches = dict(out["hll path"][0])
+    bloom_l, bitset_l = out["bloom path"][0], out["bitset path"]
+    delta_l = [out[p] for p in ("delta hll path", "delta bloom path",
+                                "delta bitset path", "mixed tape window")]
 
     leaked = sorted(m for m in sys.modules
                     if m in ("jax", "redisson_tpu")
@@ -863,6 +1353,12 @@ def main() -> int:
         dict(name="bitop_cells", route="cuda", source=src + "bitop.cu",
              replaces="redisson_tpu/ops/pallas_kernels.py:223",
              launches=bitset_l["bitop_cells"], **bop),
+        dict(name="delta_merge", route="cuda", source=src + "delta_merge.cu",
+             replaces="redisson_tpu/ops/pallas_kernels.py:116",
+             launches=sum(d["delta_merge"] for d in delta_l), **dmerge),
+        dict(name="window_merge", route="cuda", source=src + "window_merge.cu",
+             replaces="redisson_tpu/ops/window_kernel.py:120",
+             launches=sum(d["window_merge"] for d in delta_l), **wmerge),
     ]
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -11,12 +11,17 @@ each make the backend's device current before touching it, and results
 reach the completer through a non-blocking copy into pinned memory plus a
 CUDA event, never a device-wide synchronize.
 
-The group-coalesced write kinds (`GLOBAL_COALESCE`) retire through
-`_classic_group_run`, as the JAX backend's runs do whenever the delta
-planner does not take them. The delta/tape ingest dispatch, the Bloom host
-mirror (it needs the native fold library) and the mesh collectives arrive
-with their slices; until then the Bloom handlers behave as the JAX
-backend's do without the native library: every op runs on the device.
+The group-coalesced write kinds (`hll_add`, `bloom_add`, `bitset_set`)
+share one steal group (`COALESCE_GROUPS`): a run may mix them across
+targets. `_delta_dispatch` folds the groups the delta planner takes on the
+host (`ingest/delta.py`, the host fold library `native.py`) and retires the
+window through the `delta_merge` kernel in as few stacked launches as the
+cell budget allows, or under `ingest="tape"` through one `window_merge`
+launch (`ingest/tape.py`); the other groups go to `_classic_group_run`.
+A Bloom filter may also be served from a packed host mirror (the Bloom
+host mirror section), synced to the device before any device-side op.
+The mesh collectives and the geo-replication planes arrive with their
+slices.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import fnmatch
 import functools
 import queue
 import threading
+import time
 from collections import OrderedDict
 from typing import Callable, List, Optional
 
@@ -33,9 +39,11 @@ import torch
 
 from redisson_tpu_torch import config as config_mod
 from redisson_tpu_torch import device as device_mod
-from redisson_tpu_torch import engine
+from redisson_tpu_torch import engine, native
 from redisson_tpu_torch.executor import Op
+from redisson_tpu_torch.ingest import delta as delta_mod
 from redisson_tpu_torch.ingest import kernels as ingest_kernels
+from redisson_tpu_torch.ingest import tape as tape_mod
 from redisson_tpu_torch.ingest.pipeline import StagingPipeline
 from redisson_tpu_torch.ingest.planner import IngestPlanner, default_planner
 from redisson_tpu_torch.ops import bitset as bitset_ops
@@ -109,6 +117,12 @@ class Readback:
         if self.event is not None:
             self.event.synchronize()
         return self.host
+
+
+def _fail(ops: List[Op], exc: BaseException) -> None:
+    for op in ops:
+        if not op.future.done():
+            op.future.set_exception(exc)
 
 
 def _complete_all(ops: List[Op], materialize: Callable[[], object]) -> Callable:
@@ -261,6 +275,81 @@ class RowAllocator:
         self.next = 0
 
 
+class LinkProfile:
+    """One measurement of the host->device link and of the host fold.
+
+    On a card behind PCIe, raw keys (8 B/key) belong on the device, where
+    hashing runs at memory speed; behind a slow link, folding on the host
+    and shipping a 16 KB sketch wins. This probe decides which, once per
+    device: a round trip (upload, a device reduce, a scalar back) of an
+    incompressible 8 MB buffer against a 4 KB one, whose difference cancels
+    the fixed sync cost, and the host fold library's ns per key.
+    """
+
+    def __init__(self, device: torch.device):
+        rng = np.random.default_rng(0)
+        pin = device.type == "cuda"
+        small = torch.from_numpy(rng.integers(0, 256, 1 << 12, np.uint8))
+        big = torch.from_numpy(rng.integers(0, 256, 1 << 23, np.uint8))
+        if pin:
+            small, big = small.pin_memory(), big.pin_memory()
+
+        def roundtrip(buf):
+            t0 = time.perf_counter()
+            int(buf.to(device, non_blocking=pin).sum(dtype=torch.int64))
+            return time.perf_counter() - t0
+
+        roundtrip(small), roundtrip(big)  # warm the path and the allocator
+        t_small = min(roundtrip(small) for _ in range(2))
+        t_big = min(roundtrip(big) for _ in range(2))
+        self.transfer_ns_per_byte = max(
+            (t_big - t_small) * 1e9 / (big.numel() - small.numel()), 0.001)
+        self.fold_ns_per_key = float("inf")
+        if native.available():
+            keys = np.arange(1 << 19, dtype=np.uint64)
+            regs = np.zeros(delta_mod.HLL_M, np.uint8)
+            native.hll_fold_u64(keys, regs, 0)  # warm
+            t0 = time.perf_counter()
+            native.hll_fold_u64(keys, regs, 0)
+            self.fold_ns_per_key = (time.perf_counter() - t0) * 1e9 / keys.shape[0]
+
+    @property
+    def prefer_hostfold(self) -> bool:
+        return self.fold_ns_per_key < self.transfer_ns_per_byte * 8
+
+
+_LINK_PROFILES: dict = {}
+_LINK_LOCK = threading.Lock()
+
+
+def link_profile(device: torch.device) -> LinkProfile:
+    with _LINK_LOCK:
+        prof = _LINK_PROFILES.get(device)
+        if prof is None:
+            prof = _LINK_PROFILES[device] = LinkProfile(device)
+        return prof
+
+
+# Below this many keys per-run fixed costs (launches, the 16 KB sketch
+# transfer) dominate either way, and the raw-key path is kept.
+HOSTFOLD_MIN_KEYS = 1 << 16
+
+
+def hostfold_policy(ingest: str, nkeys: int, device: torch.device) -> bool:
+    """Whether a Bloom batch adopts the host mirror: always under
+    "hostfold", under "auto" for a large batch when the link profile says
+    so, never without the fold library or under any other forced ingest
+    (the JAX policy also lets a forced device insert adopt the mirror; here
+    a forced device insert stays on the device, as the HLL path's does)."""
+    if not native.available():
+        return False
+    if ingest == "hostfold":
+        return True
+    if ingest != "auto" or nkeys < HOSTFOLD_MIN_KEYS:
+        return False
+    return link_profile(device).prefer_hostfold
+
+
 def _as_i64(packed: np.ndarray) -> np.ndarray:
     """The [n, 2] uint32 (lo, hi) key layout viewed as n int64 keys."""
     return np.ascontiguousarray(packed).view(np.int64).reshape(-1)
@@ -317,6 +406,16 @@ class TorchBackend:
 
     GLOBAL_COALESCE = frozenset({"hll_add", "bloom_add", "bitset_set"})
 
+    #: the executor's steal alias: the three delta kinds share one gate
+    #: group, so one window may hold hll_add, bloom_add and bitset_set runs
+    #: of many targets and retire them in one merge launch
+    COALESCE_GROUPS = {"hll_add": "delta", "bloom_add": "delta",
+                       "bitset_set": "delta"}
+
+    #: cell budget (padded T x padded L uint8 cells) of one merge launch; a
+    #: window whose planes exceed it splits into several launches
+    DELTA_STACK_CELLS = 1 << 26
+
     #: the device index math (ops/bloom._mod_u64) is exact only for
     #: m <= 2^31 or a power-of-two m, so the models size-check eagerly
     BLOOM_STRICT_MOD = True
@@ -337,6 +436,19 @@ class TorchBackend:
         if hll_hash not in config_mod.HLL_HASHES:
             raise ValueError(f"unknown hll_hash family: {hll_hash!r}")
         self.family = "m3" if hll_hash == "murmur3" else "redis"
+        if ingest in config_mod.HOST_INGEST:
+            if self.family == "redis":
+                raise ValueError(
+                    f"hll_hash='redis' is incompatible with ingest={ingest!r} "
+                    "(the host fold implements the murmur3 family); use "
+                    "ingest='device' or 'auto'")
+            if not native.available():
+                # A forced host-side path that cannot run must not quietly
+                # become the raw-key path it was chosen to avoid.
+                raise RuntimeError(
+                    f"ingest={ingest!r} needs the host fold library "
+                    "(redisson_tpu_torch/csrc/host_fold.cpp failed to build "
+                    "or load); use ingest='auto' to fall back")
         self.store = store
         self.device = store.device
         self.hll_impl = hll_impl
@@ -351,9 +463,23 @@ class TorchBackend:
         self.completer = Completer(self.device)
         self.bank: Optional[torch.Tensor] = None  # lazy [S, m] int32
         self._alloc = RowAllocator(max(1, bank_capacity), self._grow_bank)
+        # name -> packed host replica of a Bloom filter (host mirror section)
+        self._bloom_mirrors: dict = {}
         # Per-name write epochs: the read cache's whole invalidation protocol.
         self._epochs: dict = {}
         self.read_cache = EpochReadCache(read_cache_entries)
+        # Delta-ingest counters, cumulative (read through ingest_stats()).
+        self.counters = {
+            "link_bytes": 0,      # delta bytes shipped host -> device
+            "raw_bytes": 0,       # bytes the raw-key path would have shipped
+            "delta_fold_s": 0.0,  # host fold wall time (dispatcher side)
+            "merge_launches": 0,  # delta_merge / window_merge launches
+            "delta_runs": 0,      # windows retired through delta_merge
+            "delta_keys": 0,      # keys folded into delta planes
+            "tape_runs": 0,       # windows retired through window_merge
+            "window_launches": 0,  # device calls issued retiring windows
+            "launch_us": 0.0,     # host wall time spent issuing them
+        }
 
     # row-map views
     @property
@@ -379,26 +505,99 @@ class TorchBackend:
                                              device=self.device)
         return self.bank
 
-    def _plan_ingest(self, nkeys: int) -> str:
-        """One run's HLL insert: 'scatter' | 'sort' | 'segment'."""
+    def _plan_ingest(self, nkeys: int, allow_delta: bool = False) -> str:
+        """One run's HLL insert: 'delta' | 'tape' | 'hostfold' or a device
+        insert ('scatter' | 'sort' | 'segment').
+
+        Forced values short-circuit; 'auto' asks the planner, whose measured
+        device costs pay the link's 8 B/key, against a host-fold candidate
+        priced from the same link profile (fold ns/key plus the 16 KB plane
+        upload) when the fold library, the murmur3 family and a large enough
+        batch allow one. `allow_delta` marks calls from the delta dispatch:
+        there the candidate is 'delta' (the stacked merge), and 'tape' joins
+        once the delta path has measured its launch train."""
+        if self.ingest == "hostfold":
+            return "hostfold"
+        if self.ingest in ("delta", "tape"):
+            return self.ingest if allow_delta else self.hll_impl
         if self.ingest in ("scatter", "sort", "segment"):
             return self.ingest
         if self.ingest == "device":
             return self.hll_impl
-        return self.planner.plan("hll", nkeys).path
+        extra = None
+        overhead = 0.0
+        if (self.family != "redis" and native.available()
+                and nkeys >= HOSTFOLD_MIN_KEYS):
+            prof = link_profile(self.device)
+            overhead = prof.transfer_ns_per_byte * 8
+            plane = (prof.fold_ns_per_key
+                     + prof.transfer_ns_per_byte * delta_mod.HLL_M / max(nkeys, 1))
+            extra = {"delta" if allow_delta else "hostfold": plane}
+            if allow_delta:
+                credit = self._tape_credit_ns()
+                if credit > 0.0:
+                    extra["tape"] = max(plane - credit, 0.0)
+        return self.planner.plan("hll", nkeys, extra_costs=extra,
+                                 device_overhead=overhead).path
 
-    def _plan_bits(self, nkeys: int, m: int) -> str:
-        """Set-bits strategy of a classic Bloom add: 'scatter' | 'segment'.
-        A forced 'segment' carries over from the config, every other forced
-        value keeps the scatter, and 'auto' asks the planner. Filters of
-        2^31 cells or more are never planned onto 'segment': its int32
-        codes cannot hold their one-past-the-end sentinel."""
+    def _plan_bits(self, nkeys: int, m: int, plane_bytes: int = 0,
+                   raw_per_key: int = 8, allow_delta: bool = False) -> str:
+        """Set-bits strategy of a Bloom / BitSet write: 'scatter' |
+        'segment', or 'delta' | 'tape' from the delta dispatch. A forced
+        'segment' carries over from the config, forced 'delta' / 'tape'
+        apply to delta-dispatch calls, every other forced value keeps the
+        scatter (the Bloom host mirror is decided by its own policy), and
+        'auto' asks the planner: with `allow_delta` a delta candidate is
+        priced from the link profile (the host fold plus the plane upload,
+        at most 5 B per touched byte sparse) against device paths that each
+        ship `raw_per_key` bytes. Filters of 2^31 cells or more are never
+        planned onto 'segment': its int32 codes cannot hold their
+        one-past-the-end sentinel."""
         if self.ingest == "segment":
             return "segment"
+        if self.ingest in ("delta", "tape"):
+            return self.ingest if allow_delta else "scatter"
         if self.ingest != "auto":
             return "scatter"
         exclude = ("segment",) if m > ingest_kernels.MAX_SEGMENT_CELLS else ()
-        return self.planner.plan("bits", nkeys, exclude=exclude).path
+        extra = None
+        overhead = 0.0
+        if allow_delta and plane_bytes and nkeys >= HOSTFOLD_MIN_KEYS:
+            prof = link_profile(self.device)
+            overhead = prof.transfer_ns_per_byte * raw_per_key
+            ship = min(plane_bytes, nkeys * delta_mod.SPARSE_ENTRY_BYTES)
+            extra = {"delta": prof.fold_ns_per_key
+                     + prof.transfer_ns_per_byte * ship / max(nkeys, 1)}
+            # The tape ships the whole power-of-two plane but saves the
+            # delta path's launch train: priced from observed launches only.
+            credit = self._tape_credit_ns()
+            if credit > 0.0:
+                pad = 1 << max(0, int(plane_bytes - 1).bit_length())
+                extra["tape"] = max(
+                    prof.fold_ns_per_key
+                    + prof.transfer_ns_per_byte * pad / max(nkeys, 1)
+                    - credit, 0.0)
+        return self.planner.plan("bits", nkeys, exclude=exclude,
+                                 extra_costs=extra,
+                                 device_overhead=overhead).path
+
+    def _tape_credit_ns(self) -> float:
+        """Observed per-key saving of the tape: (delta launches per window
+        - 1) x the measured host cost per launch, over the mean folded keys
+        per window. Zero until the delta path has measured itself, so
+        'auto' never picks the tape on an unmeasured promise."""
+        c = self.counters
+        runs = c["delta_runs"]
+        if not runs or not c["window_launches"] or not c["delta_keys"]:
+            return 0.0
+        per_launch_us = c["launch_us"] / c["window_launches"]
+        # Tape windows count one launch each: leave them out of the train.
+        delta_launches = c["window_launches"] - c["tape_runs"]
+        extra_launches = delta_launches / runs - 1.0
+        if extra_launches <= 0.0:
+            return 0.0
+        keys_per_window = c["delta_keys"] / max(runs + c["tape_runs"], 1)
+        return extra_launches * per_launch_us * 1e3 / max(keys_per_window, 1.0)
 
     # -- state carry-over ---------------------------------------------------
 
@@ -410,6 +609,13 @@ class TorchBackend:
         with them: name -> (otype, cells as numpy uint8, meta, ...), what
         the JAX backend's `bits_export` returns. Run on the dispatcher
         (`execute_barrier`) when the executor is live."""
+        if objects is None:
+            # The store stays: push pending mirror bits down before the
+            # mirrors go.
+            for name in list(self._bloom_mirrors):
+                if self.store.get(name) is not None:
+                    self._bloom_device_sync(name)
+        self._bloom_mirrors.clear()
         if objects is not None:
             self.store.flushall()
             for name, (otype, cells, meta, *_rest) in objects.items():
@@ -444,10 +650,10 @@ class TorchBackend:
 
     def run(self, kind: str, target: str, ops: List[Op]) -> None:
         device_mod.bind_thread(self.device)
-        if kind in self.GLOBAL_COALESCE:
-            # A stolen run spans targets; the delta/tape slice will plan
-            # groups of it onto the fused merge before this fallback.
-            self._classic_group_run(ops)
+        if kind in self.COALESCE_GROUPS:
+            # A group-coalesced run may span kinds and targets: the delta
+            # dispatch splits it into host-folded planes and classic groups.
+            self._delta_dispatch(target, ops)
             return
         handler = getattr(self, "_op_" + kind, None)
         if handler is None:
@@ -473,9 +679,388 @@ class TorchBackend:
             try:
                 getattr(self, "_op_" + kind)(tname, tops)
             except Exception as exc:  # noqa: BLE001 — never strand futures
-                for op in tops:
-                    if not op.future.done():
-                        op.future.set_exception(exc)
+                _fail(tops, exc)
+
+    # -- delta ingest (host-folded planes, one stacked merge) ---------------
+    #
+    # The three group-coalesced write kinds share one retire path: each
+    # (target, kind) group of a window folds on the host into one byte
+    # plane (ingest/delta.py), the planes cross the link instead of the key
+    # batches, and every plane becomes a row of one [T, L] uint8 stack
+    # merged by the delta_merge kernel (or, under "tape", the whole window
+    # by one window_merge). State commits on this thread; per-op results
+    # resolve on the completer.
+
+    #: planner results that retire through the delta window
+    _DELTA_PATHS = frozenset({"delta", "tape"})
+
+    def _delta_eligible(self, op: Op) -> bool:
+        if self.ingest not in ("auto", "delta", "tape"):
+            return False
+        if op.kind == "hll_add" and self.family == "redis":
+            return False  # the host fold implements the murmur3 family
+        return delta_mod.foldable(op.kind, op.payload)
+
+    def _delta_planned(self, kind: str, tname: str,
+                       tops: List[Op]) -> Optional[str]:
+        """Per-target gate of the delta window: the target must be
+        type-clean (WRONGTYPE and uninitialized filters surface through the
+        classic handlers, which isolate them per target) and the planner
+        must pick 'delta' or 'tape'. Returns that path, or None for the
+        classic path."""
+        nkeys = sum(op.nkeys or delta_mod.payload_nkeys(kind, op.payload)
+                    for op in tops)
+        if kind == "hll_add":
+            if tname not in self._rows and self.store.get(tname) is not None:
+                return None  # the name holds a BitSet / Bloom: WRONGTYPE
+            path = self._plan_ingest(nkeys, allow_delta=True)
+            return path if path in self._DELTA_PATHS else None
+        if tname in self._rows:
+            return None  # the name holds an HLL: WRONGTYPE
+        obj = self.store.get(tname)
+        if kind == "bloom_add":
+            if (obj is None or obj.otype != ObjectType.BLOOM
+                    or obj.meta.get("blocked")):
+                return None
+            # A valid host mirror folds with no link traffic at all: under
+            # 'auto' that beats shipping any plane; forced delta / tape keep
+            # the device copy current instead.
+            if self.ingest not in ("delta", "tape") and self._bloom_use_host(
+                    tname, obj, nkeys):
+                return None
+            m = obj.meta["size"]
+            path = self._plan_bits(nkeys, m, plane_bytes=(m + 7) // 8,
+                                   raw_per_key=8, allow_delta=True)
+            return path if path in self._DELTA_PATHS else None
+        # bitset_set: the plane covers the allocation after growth
+        if obj is not None and obj.otype != ObjectType.BITSET:
+            return None
+        nbits = obj.state.shape[0] if obj is not None else 1024
+        mx = self._max_index(tops)
+        if mx >= nbits:
+            nbits = max(1024, 1 << int(mx).bit_length())
+        path = self._plan_bits(nkeys, nbits, plane_bytes=(nbits + 7) // 8,
+                               raw_per_key=4, allow_delta=True)
+        return path if path in self._DELTA_PATHS else None
+
+    def _delta_dispatch(self, target: str, ops: List[Op]) -> None:
+        """Split a coalesced run (across kinds and targets) into (target,
+        kind) groups and route each whole group through the delta window or
+        the classic handlers: a target's ops never split across the two."""
+        groups: "OrderedDict[tuple, List[Op]]" = OrderedDict()
+        for op in ops:
+            groups.setdefault((op.target, op.kind), []).append(op)
+        delta_groups, classic = [], []
+        use_tape = self.ingest == "tape"
+        for (tname, kind), tops in groups.items():
+            path = (self._delta_planned(kind, tname, tops)
+                    if all(self._delta_eligible(op) for op in tops) else None)
+            if path:
+                delta_groups.append((tname, kind, tops))
+                use_tape = use_tape or path == "tape"
+            else:
+                classic.extend(tops)
+        if delta_groups:
+            self._delta_window(delta_groups, tape=use_tape)
+        if classic:
+            self._classic_group_run(classic)
+
+    @staticmethod
+    def _pad_cells(cells: int) -> int:
+        """The lane count a plane pads to in a stack: a power of two, at
+        least the engine's smallest bucket."""
+        return max(engine.MIN_BUCKET, 1 << max(0, int(cells - 1).bit_length()))
+
+    def _delta_window(self, groups, tape: bool = False) -> None:
+        """Fold every (target, kind) group into its plane, then retire the
+        window: under `tape` in one window_merge launch unless the window
+        overflows the cell budget, else in as few stacked delta_merge
+        launches as the budget allows (normally one)."""
+        t0 = time.perf_counter()
+        planes, specs = [], []
+        for tname, kind, tops in groups:
+            try:
+                plane, spec = self._delta_fold_group(tname, kind, tops,
+                                                     tape=tape)
+            except Exception as exc:  # noqa: BLE001 — per-target isolation
+                _fail(tops, exc)
+                continue
+            planes.append(plane)
+            specs.append(spec)
+        self.counters["delta_fold_s"] += time.perf_counter() - t0
+        if not planes:
+            return
+        for p in planes:
+            self.counters["raw_bytes"] += p.raw_bytes
+            self.counters["delta_keys"] += p.nkeys
+        if tape:
+            t2 = 1 << max(0, (len(planes) - 1).bit_length())
+            lanes = max(self._pad_cells(p.cells) for p in planes)
+            if t2 * lanes <= self.DELTA_STACK_CELLS:
+                self.counters["tape_runs"] += 1
+                try:
+                    self._tape_retire(planes, specs)
+                except Exception as exc:  # noqa: BLE001
+                    # The one launch is the unit of failure; nothing was
+                    # committed before it.
+                    for spec in specs:
+                        _fail(spec["ops"], exc)
+                return
+            # Over the budget: the chunked path. The folds skipped the
+            # SETBIT pre-merge packs (the tape's own pack carries them).
+            for p, spec in zip(planes, specs):
+                if p.kind == "bitset_set" and spec.get("old_packed") is None:
+                    spec["old_packed"] = Readback(engine.bitset_pack(
+                        self.store.get(p.target).state))
+                    self.counters["window_launches"] += 1
+        for p in planes:
+            self.counters["link_bytes"] += p.link_bytes
+        self.counters["delta_runs"] += 1
+        # Chunks under the cell budget; sorting by cell count keeps small
+        # planes from padding to a large neighbour's lanes.
+        order = sorted(range(len(planes)), key=lambda i: planes[i].cells)
+        chunks: List[List[int]] = []
+        cur: List[int] = []
+        for i in order:
+            lmax = self._pad_cells(max(
+                [planes[j].cells for j in cur] + [planes[i].cells]))
+            t2 = 1 << len(cur).bit_length()  # power-of-two ceil of len + 1
+            if cur and t2 * lmax > self.DELTA_STACK_CELLS:
+                chunks.append(cur)
+                cur = [i]
+            else:
+                cur.append(i)
+        if cur:
+            chunks.append(cur)
+        for chunk in chunks:
+            try:
+                self._delta_merge_chunk([planes[i] for i in chunk],
+                                        [specs[i] for i in chunk])
+            except Exception as exc:  # noqa: BLE001 — per-chunk isolation
+                for i in chunk:
+                    _fail(specs[i]["ops"], exc)
+
+    def _delta_fold_group(self, tname: str, kind: str, tops: List[Op],
+                          tape: bool = False):
+        """Fold one (target, kind) group into its DeltaPlane and completion
+        spec, on the host. The only device work it queues is a SETBIT
+        group's pre-merge pack (skipped under `tape`: the tape's pack of
+        every row carries the same bits)."""
+        payloads = [op.payload for op in tops]
+        nkeys = sum(delta_mod.payload_nkeys(kind, p) for p in payloads)
+        raw = sum(delta_mod.payload_raw_bytes(kind, p) for p in payloads)
+        if kind == "hll_add":
+            self._hll_row(tname)  # allocate the bank row (may grow the bank)
+            plane = delta_mod.fold_hll(payloads, self.seed)
+            dp = delta_mod.encode(kind, tname, plane, cells=delta_mod.HLL_M,
+                                  packed=False, nkeys=nkeys, raw_bytes=raw)
+            return dp, {"kind": kind, "ops": tops}
+        if kind == "bloom_add":
+            obj, m, k = self._bloom_meta(tname)
+            # Bring the device current (pending mirror bits would be missing
+            # from the old row), then refresh the mirror to equal the device
+            # filter: the plane is then exactly the bits this batch sets.
+            self._bloom_device_sync(tname)
+            obj = self.store.get(tname, ObjectType.BLOOM)
+            mir = self._bloom_mirror(tname, obj, m)
+            scratch = mir["bits"].copy()
+            newly = []
+            for p in payloads:
+                # In-order folds: a key's newly flag sees the keys before it
+                # in the batch, as in _bloom_host_add.
+                if "packed" in p:
+                    res = native.bloom_fold_u64(p["packed"], scratch, k, m,
+                                                self.seed)
+                else:
+                    res = native.bloom_fold_rows(p["data"], p["lengths"],
+                                                 scratch, k, m, self.seed)
+                newly.append(res.view(np.bool_))
+            plane = scratch & ~mir["bits"]
+            dp = delta_mod.encode(kind, tname, plane, cells=m, packed=True,
+                                  nkeys=nkeys, raw_bytes=raw)
+            return dp, {"kind": kind, "ops": tops, "newly": newly,
+                        "scratch": scratch, "mirror": mir}
+        # bitset_set
+        obj = self._bitset(tname, nbits=1024)
+        mx = self._max_index(tops)
+        obj = self._grow_for(obj, mx if mx >= 0 else 0)
+        if mx >= 0:
+            self._extend(obj, mx)
+        nbits = obj.state.shape[0]
+        plane = delta_mod.fold_bitset(payloads, nbits)
+        # SETBIT results are the pre-merge bits: pack the state now; the
+        # completer slices each key's bit from the packed copy.
+        old_packed = None
+        if not tape:
+            old_packed = Readback(engine.bitset_pack(obj.state))
+            self.counters["window_launches"] += 1
+        dp = delta_mod.encode(kind, tname, plane, cells=nbits, packed=True,
+                              nkeys=nkeys, raw_bytes=raw)
+        return dp, {"kind": kind, "ops": tops, "old_packed": old_packed}
+
+    def _delta_merge_chunk(self, planes, specs) -> None:
+        """Retire one chunk of planes in one stacked merge: the [T, L] uint8
+        stack of old rows (HLL rows gathered from the bank, store cells) and
+        the delta stack (sparse planes expanded, packed ones unpacked on the
+        device), one delta_merge launch in place, every row written back.
+        A chunk is its own unit of failure: state commits only after its
+        launch."""
+        t0 = time.perf_counter()
+        launches = 0
+        lanes = max(self._pad_cells(p.cells) for p in planes)
+        t = len(planes)
+        t2 = 1 << max(0, (t - 1).bit_length())
+        old = torch.zeros((t2, lanes), dtype=torch.uint8, device=self.device)
+        delta = torch.zeros((t2, lanes), dtype=torch.uint8, device=self.device)
+        hll_ix = [i for i, p in enumerate(planes) if p.kind == "hll_add"]
+        rows_pad = None
+        if hll_ix:
+            rows_pad = engine.pad_rows_repeat(np.array(
+                [self._rows[planes[i].target] for i in hll_ix], np.int32))
+            gathered = engine.hll_bank_rows_u8(self._ensure_bank(), rows_pad)
+            launches += 1
+            old[hll_ix, : delta_mod.HLL_M] = gathered[: len(hll_ix)]
+        for i, p in enumerate(planes):
+            if p.kind != "hll_add":
+                old[i, : p.cells] = self.store.get(p.target).state
+            if p.sparse:
+                plane = engine.delta_scatter_bytes(
+                    self._to_device(p.idx), self._to_device(p.val), p.plane_bytes)
+                launches += 1
+            else:
+                plane = self._to_device(p.dense)
+            if p.packed:
+                plane = engine.delta_unpack(plane, p.cells)
+                launches += 1
+            delta[i, : p.cells] = plane
+        merged, changed = engine.delta_merge_stack(old, delta)
+        del delta, plane  # free the window's temporaries before the next
+        self.counters["merge_launches"] += 1
+        launches += 1
+        # HLL rows go back in one write through the same padded row vector
+        # as the gather: its repeats rewrite the first row with its own
+        # merged registers.
+        if hll_ix:
+            sel = hll_ix + [hll_ix[0]] * (rows_pad.shape[0] - len(hll_ix))
+            self.bank = engine.hll_bank_set_rows(
+                self.bank, merged[sel, : delta_mod.HLL_M], rows_pad)
+            launches += 1
+            for i in hll_ix:
+                self._bump(planes[i].target)
+        for i, p in enumerate(planes):
+            if p.kind != "hll_add":
+                self._commit_store_row(p, specs[i], merged[i])
+        self.counters["window_launches"] += launches
+        self.counters["launch_us"] += (time.perf_counter() - t0) * 1e6
+        flag = Readback(changed)
+        entries = list(zip(range(t), planes, specs))
+
+        def run():
+            try:
+                host_changed = flag.wait().numpy()
+                host_old = {i: spec["old_packed"].wait().numpy()
+                            for i, p, spec in entries if p.kind == "bitset_set"}
+            except Exception as exc:  # noqa: BLE001
+                for _i, _p, spec in entries:
+                    _fail(spec["ops"], exc)
+                return
+            self._complete_entries(entries, host_changed, host_old)
+
+        self.completer.submit(run)
+
+    def _commit_store_row(self, p, spec, merged_row: torch.Tensor) -> None:
+        """Install a merged BitSet / Bloom row (a copy: the stack is a
+        window temporary). A Bloom mirror then equals the device filter:
+        mirror + this batch, the fold's scratch."""
+        self.store.swap(p.target, merged_row[: p.cells].clone())
+        self._touch(p.target)
+        if p.kind == "bloom_add":
+            spec["mirror"]["bits"] = spec["scratch"]
+            spec["mirror"]["synced_dev"] = self.store.get(p.target).version
+
+    @staticmethod
+    def _complete_entries(entries, host_changed, host_old) -> None:
+        """Resolve a retired window's ops: PFADD -> did the target's row
+        rise; Bloom add -> the fold's per-key newly flags; SETBIT -> each
+        key's pre-merge bit from the packed old row."""
+        for i, p, spec in entries:
+            if p.kind == "hll_add":
+                values = [bool(host_changed[i])] * len(spec["ops"])
+            elif p.kind == "bloom_add":
+                values = spec["newly"]
+            else:
+                old = host_old[i]
+                values = []
+                for op in spec["ops"]:
+                    idx = np.asarray(op.payload["idx"], np.int64)
+                    values.append(((old[idx >> 3] >> (7 - (idx & 7))) & 1
+                                   ).astype(bool))
+            for op, value in zip(spec["ops"], values):
+                if not op.future.done():
+                    op.future.set_result(value)
+
+    def _tape_retire(self, planes, specs) -> None:
+        """Retire a whole window with one window_merge launch: encode every
+        plane into the command tape (ingest/tape.py) and run
+        engine.tape_apply, which gathers the old rows, packs their pre-merge
+        bits for SETBIT results, merges every row by its op code and writes
+        the HLL rows back to the bank."""
+        t0 = time.perf_counter()
+        spec_by = {id(p): s for p, s in zip(planes, specs)}
+        tp = tape_mod.encode_window(planes, self._hll_row)
+        self.counters["link_bytes"] += tp.link_bytes
+        n_hll = tp.n_hll
+        wire = self._to_device(tp.wire)
+        table = self._to_device(tp.table)
+        if n_hll:
+            bank = self._ensure_bank()
+            rows_pad = self._to_device(engine.pad_rows_repeat(tp.hll_rows))
+        else:
+            bank = None
+            rows_pad = torch.zeros((1,), dtype=torch.int32, device=self.device)
+        store_planes = tp.planes[n_hll:]
+        store_old = [self.store.get(p.target).state for p in store_planes]
+        want_old = any(p.kind == "bitset_set" for p in store_planes)
+        new_bank, merged, changed, old_packed = engine.tape_apply(
+            bank, wire, table, rows_pad, store_old, n_hll=n_hll,
+            lanes=tp.lanes, want_old=want_old)
+        self.counters["merge_launches"] += 1
+        self.counters["window_launches"] += 1
+        if n_hll:
+            self.bank = new_bank
+            for p in tp.planes[:n_hll]:
+                self._bump(p.target)
+        for j, p in enumerate(store_planes):
+            self._commit_store_row(p, spec_by[id(p)], merged[n_hll + j])
+        self.counters["launch_us"] += (time.perf_counter() - t0) * 1e6
+        flag = Readback(changed)
+        old_host = Readback(old_packed) if want_old else None
+        entries = [(i, p, spec_by[id(p)]) for i, p in enumerate(tp.planes)]
+
+        def run():
+            try:
+                host_changed = flag.wait().numpy()
+                host_old = old_host.wait().numpy() if old_host else None
+            except Exception as exc:  # noqa: BLE001
+                for _i, _p, spec in entries:
+                    _fail(spec["ops"], exc)
+                return
+            self._complete_entries(entries, host_changed, host_old)
+
+        self.completer.submit(run)
+
+    def ingest_stats(self) -> dict:
+        """The delta-ingest counters plus the derived link bytes per key and
+        the observed dispatch cost per window (launches, host us)."""
+        out = dict(self.counters)
+        out["delta_bytes_per_key"] = (
+            self.counters["link_bytes"] / max(self.counters["delta_keys"], 1))
+        windows = self.counters["delta_runs"] + self.counters["tape_runs"]
+        out["launches_per_window"] = (
+            self.counters["window_launches"] / max(windows, 1))
+        out["launch_us_per_window"] = (
+            self.counters["launch_us"] / max(windows, 1))
+        return out
 
     # -- helpers ------------------------------------------------------------
 
@@ -614,9 +1199,12 @@ class TorchBackend:
         if host_ops:
             path = self._plan_ingest(sum(op.nkeys or self._payload_nkeys(op)
                                          for op in host_ops))
-            for group in (packed_ops, byte_ops):
-                if group:
-                    self._hll_add_group(group, path)
+            if path == "hostfold":
+                self._hll_add_hostfold(host_ops)
+            else:
+                for group in (packed_ops, byte_ops):
+                    if group:
+                        self._hll_add_group(group, path)
         if device_ops:
             self._hll_add_device(device_ops, self._plan_ingest(
                 sum(int(op.payload["device_packed"].shape[0])
@@ -636,6 +1224,37 @@ class TorchBackend:
             if key in op.payload:
                 return op.payload[key].shape[0]
         return 0
+
+    def _hll_add_hostfold(self, ops: List[Op]) -> None:
+        """Fold each target's keys into 16 KB of host registers (the host
+        fold library), ship the folded sketches, and absorb them into their
+        bank rows in one max-scatter. `changed` keeps its meaning: any
+        register of the target raised by this run."""
+        folds: dict = {}  # target -> host registers
+        for op in ops:
+            regs = folds.get(op.target)
+            if regs is None:
+                regs = folds[op.target] = np.zeros(delta_mod.HLL_M, np.uint8)
+            p = op.payload
+            if "packed" in p:
+                native.hll_fold_u64(p["packed"], regs, self.seed)
+            else:
+                native.hll_fold_rows(p["data"], p["lengths"], regs, self.seed)
+        names = list(folds)
+        # The sketch count pads to a power of two; zero rows absorb as
+        # no-ops under max.
+        rows = engine.pad_rows_repeat(
+            np.array([self._rows[n] for n in names], np.int32))
+        stack = np.zeros((rows.shape[0], delta_mod.HLL_M), np.uint8)
+        for i, n in enumerate(names):
+            stack[i] = folds[n]
+        self.bank, changed = engine.hll_bank_absorb_rows(
+            self._ensure_bank(), self._to_device(stack), rows)
+        for n in names:
+            self._bump(n)
+        lane_of = {n: i for i, n in enumerate(names)}
+        complete_changed_rows(self.completer, ops,
+                              [lane_of[op.target] for op in ops], [changed])
 
     def _one_row(self, ops: List[Op]):
         """The row when every op targets one sketch, else None."""
@@ -1063,6 +1682,114 @@ class TorchBackend:
             raise RuntimeError(f"bloom filter '{target}' is not initialized")
         return obj, obj.meta["size"], obj.meta["hash_iterations"]
 
+    # -- Bloom host mirror ----------------------------------------------------
+    #
+    # A filter may be dual-resident: a packed host replica (the "mirror")
+    # takes host folds and answers membership with no link traffic, and the
+    # device copy is brought current (one packed upload and an OR) only
+    # when a device-side op needs it. Invariants:
+    #   * mirror valid   <=> mir["synced_dev"] == obj.version (no device
+    #     write since the mirror was built or synced);
+    #   * device current <=> mir["host_v"] == mir["absorbed_v"] (no host
+    #     fold waiting to be absorbed).
+    # Every device-side Bloom op syncs first, so when a device write bumps
+    # the version no host bits are pending. Classic layout only.
+
+    def _bloom_use_host(self, target: str, obj, nkeys: int) -> bool:
+        if self.ingest == "device" or obj.meta.get("blocked"):
+            return False
+        if not native.available():
+            return False
+        mir = self._bloom_mirrors.get(target)
+        if mir is not None and mir["synced_dev"] == obj.version:
+            return True  # sticky: a valid mirror keeps serving host ops
+        if self.ingest == "hostfold":
+            return True
+        return hostfold_policy(self.ingest, nkeys, self.device)
+
+    def _bloom_mirror(self, target: str, obj, m: int) -> dict:
+        """The current host replica, rebuilt when a device write made it
+        stale: zeros for a never-written filter, else the device cells
+        packed on the device and pulled once (m/8 bytes)."""
+        mir = self._bloom_mirrors.get(target)
+        if mir is not None and mir["synced_dev"] == obj.version:
+            return mir
+        if mir is not None and mir["host_v"] != mir["absorbed_v"]:
+            # Pending host bits under a stale mirror: push them down first
+            # (ORing true bits is always safe), then rebuild from the device.
+            self._bloom_device_sync(target)
+            obj = self.store.get(target, ObjectType.BLOOM)
+        nbytes = (m + 7) // 8
+        if obj.version == 0:
+            bits = np.zeros(nbytes, np.uint8)
+        else:
+            bits = engine.bitset_pack(obj.state)[:nbytes].cpu().numpy().copy()
+        mir = {"bits": bits, "synced_dev": obj.version,
+               "host_v": 0, "absorbed_v": 0}
+        self._bloom_mirrors[target] = mir
+        return mir
+
+    def _bloom_device_sync(self, target: str) -> None:
+        """Absorb pending mirror bits into the device filter (one packed
+        upload and an in-place OR). Device-side Bloom ops and the
+        `bloom_sync` op call this."""
+        mir = self._bloom_mirrors.get(target)
+        if mir is None or mir["host_v"] == mir["absorbed_v"]:
+            return
+        obj = self.store.get(target, ObjectType.BLOOM)
+        was_valid = mir["synced_dev"] == obj.version
+        self.store.swap(target, engine.bitset_absorb_packed(
+            obj.state, self._to_device(mir["bits"])))
+        self._touch(target)
+        mir["absorbed_v"] = mir["host_v"]
+        if was_valid:
+            mir["synced_dev"] = obj.version  # device == mirror now
+        # else the mirror was already missing device writes: it stays stale
+        # and the next host-side op rebuilds it from the device.
+
+    def _op_bloom_sync(self, target: str, ops: List[Op]) -> None:
+        """Barrier: make the device filter hold every host-mirror write (a
+        no-op when nothing is pending or the name is no Bloom filter)."""
+        obj = self.store.get(target)
+        if obj is not None and obj.otype == ObjectType.BLOOM:
+            self._bloom_device_sync(target)
+        for op in ops:
+            op.future.set_result(None)
+
+    def _bloom_host_add(self, target: str, obj, m: int, k: int,
+                        ops: List[Op]) -> None:
+        mir = self._bloom_mirror(target, obj, m)
+        for op in ops:
+            p = op.payload
+            if "packed" in p:
+                newly = native.bloom_fold_u64(p["packed"], mir["bits"], k, m,
+                                              self.seed)
+            else:
+                newly = native.bloom_fold_rows(p["data"], p["lengths"],
+                                               mir["bits"], k, m, self.seed)
+            # Through the completer: per-target results stay in order.
+            self.completer.submit(_complete_all(
+                [op], lambda v=newly.view(np.bool_): v))
+        mir["host_v"] += 1
+        self._touch(target)
+
+    def _bloom_host_contains(self, target: str, obj, m: int, k: int,
+                             ops: List[Op], count_only: bool = False,
+                             on_result=None) -> None:
+        mir = self._bloom_mirror(target, obj, m)
+        for op in ops:
+            p = op.payload
+            if "packed" in p:
+                hits = native.bloom_contains_u64(p["packed"], mir["bits"], k,
+                                                 m, self.seed)
+            else:
+                hits = native.bloom_contains_rows(p["data"], p["lengths"],
+                                                  mir["bits"], k, m, self.seed)
+            res = int(hits.sum()) if count_only else hits.view(np.bool_)
+            if on_result is not None:
+                on_result(op, res)
+            self.completer.submit(_complete_all([op], lambda v=res: v))
+
     @staticmethod
     def _bloom_kernels(obj):
         """(add_packed, contains_packed, add_bytes, contains_bytes) for the
@@ -1126,6 +1853,12 @@ class TorchBackend:
             self._slice_results(ops, outs, spans, on_result=on_result))
 
     def _op_bloom_add(self, target: str, ops: List[Op]) -> None:
+        obj, m, k = self._bloom_meta(target)
+        if self._bloom_use_host(target, obj,
+                                sum(op.nkeys or _op_lanes(op) for op in ops)):
+            self._bloom_host_add(target, obj, m, k, ops)
+            return
+        self._bloom_device_sync(target)
         self._bloom_run(target, ops, mutate=True)
 
     # Probe payloads above this many keys are not memoized: digesting them
@@ -1158,7 +1891,13 @@ class TorchBackend:
         return h.digest()
 
     def _op_bloom_contains(self, target: str, ops: List[Op]) -> None:
-        self._bloom_meta(target)
+        obj, m, k = self._bloom_meta(target)
+        use_host = self._bloom_use_host(
+            target, obj, sum(op.nkeys or _op_lanes(op) for op in ops))
+        if not use_host:
+            # Sync before reading the epoch: an absorb bumps it, and the
+            # cache entries filled below must stay servable after.
+            self._bloom_device_sync(target)
         epoch = self._epoch(target)
         pending: List[Op] = []
         digests = {}
@@ -1182,12 +1921,26 @@ class TorchBackend:
                 self.read_cache.put(target, "bloom_contains", epoch,
                                     np.array(value, copy=True), extra=dig)
 
+        if use_host:
+            self._bloom_host_contains(target, obj, m, k, pending,
+                                      on_result=remember)
+            return
         self._bloom_run(target, pending, mutate=False, on_result=remember)
 
     def _op_bloom_contains_count(self, target: str, ops: List[Op]) -> None:
         """Hit count per op, for host keys or keys already on the device
         (int64 tensor): chunks reduce on the device, one scalar comes back."""
         obj, m, k = self._bloom_meta(target)
+        host_ops = [op for op in ops if "device_packed" not in op.payload]
+        if host_ops and self._bloom_use_host(
+                target, obj, sum(op.nkeys or _op_lanes(op) for op in host_ops)):
+            self._bloom_host_contains(target, obj, m, k, host_ops,
+                                      count_only=True)
+            ops = [op for op in ops if "device_packed" in op.payload]
+            if not ops:
+                return
+        self._bloom_device_sync(target)
+        obj = self.store.get(target, ObjectType.BLOOM)
         count_fn = (engine.blocked_bloom_contains_count_packed
                     if obj.meta.get("blocked")
                     else engine.bloom_contains_count_packed)
@@ -1211,9 +1964,23 @@ class TorchBackend:
             op.future.set_result(meta)
 
     def _op_bloom_count(self, target: str, ops: List[Op]) -> None:
-        """count(): -m/k ln(1 - BITCOUNT/m), BITCOUNT read from the device
-        (the popcount kernel on a card)."""
+        """count(): -m/k ln(1 - BITCOUNT/m), BITCOUNT from a valid host
+        mirror, else read from the device (the popcount kernel on a
+        card)."""
         obj, m, k = self._bloom_meta(target)
+        mir = self._bloom_mirrors.get(target)
+        if mir is not None and mir["synced_dev"] == obj.version:
+            # The valid mirror holds every bit: a host popcount, no device.
+            epoch = self._epoch(target)
+            value = self.read_cache.get(target, "bloom_count", epoch)
+            if not self.read_cache.is_hit(value):
+                value = int(round(bloom_math.count_estimate(
+                    native.popcount(mir["bits"]), m, k)))
+                self.read_cache.put(target, "bloom_count", epoch, value)
+            self.completer.submit(_complete_all(ops, lambda v=value: v))
+            return
+        self._bloom_device_sync(target)
+        obj = self.store.get(target, ObjectType.BLOOM)
         self._cached_read(
             target, "bloom_count", ops,
             lambda: engine.bitset_cardinality_partials(obj.state),
@@ -1232,7 +1999,9 @@ class TorchBackend:
         obj = self.store.get_or_create(name, otype, lambda: arr, meta)
         self.store.swap(name, arr)
         obj.meta.update(meta)
-        # The whole object was replaced: no earlier read may be served.
+        # The whole object was replaced: no earlier read may be served, and
+        # a host mirror of the old filter is void.
+        self._bloom_mirrors.pop(name, None)
         self._touch(name)
         self.read_cache.invalidate(name)
 
@@ -1243,6 +2012,9 @@ class TorchBackend:
             for op in ops:
                 op.future.set_result(None)
             return
+        if obj.otype == ObjectType.BLOOM:
+            self._bloom_device_sync(target)
+            obj = self.store.get(target)
         snapshot = Readback(obj.state.clone())
         otype, meta, version = obj.otype, dict(obj.meta), obj.version
         self.completer.submit(_complete_all(
@@ -1263,6 +2035,7 @@ class TorchBackend:
             self.bank = engine.hll_bank_zero_row(self.bank, row)
             res = True
         else:
+            self._bloom_mirrors.pop(target, None)
             res = self.store.delete(target)
         self._touch(target)
         self.read_cache.invalidate(target)
@@ -1293,12 +2066,16 @@ class TorchBackend:
             if row is not None:
                 self.bank = engine.hll_bank_zero_row(self.bank, row)
             self.store.delete(new)
+            self._bloom_mirrors.pop(new, None)
             if target in self._rows:
                 self._alloc.rows[new] = self._alloc.rows.pop(target)
                 self._alloc.versions[new] = (
                     self._alloc.versions.pop(target, 0) + 1)
             else:
                 self.store.rename(target, new)
+                mir = self._bloom_mirrors.pop(target, None)
+                if mir is not None:
+                    self._bloom_mirrors[new] = mir
             for name in (target, new):
                 self._touch(name)
                 self.read_cache.invalidate(name)
@@ -1308,6 +2085,7 @@ class TorchBackend:
         # The bank is dropped, not zeroed: reallocated on the next HLL touch.
         self._alloc.clear()
         self.bank = None
+        self._bloom_mirrors.clear()
         self._epochs.clear()
         self.read_cache.clear()
         self.store.flushall()

@@ -11,23 +11,22 @@ from __future__ import annotations
 from dataclasses import dataclass, fields
 from typing import Optional
 
-#: ingest paths this slice implements: "auto" lets the planner pick per
-#: batch size from timings taken on the device; "device" uses `hll_impl`;
-#: the other three force that device insert ("segment" = the CUDA
-#: segmented-insert kernel).
-INGEST_CHOICES = ("auto", "device", "scatter", "sort", "segment")
-#: ingest paths of the JAX package that wait for the delta/tape slice
-INGEST_LATER = ("hostfold", "delta", "tape")
+#: ingest paths: "auto" lets the planner pick per batch size from timings
+#: taken on the device and the measured link profile; "device" uses
+#: `hll_impl`; "scatter" / "sort" / "segment" force that device insert
+#: ("segment" = the CUDA segmented-insert kernel); "hostfold" folds keys on
+#: the host (HLL registers, the Bloom host mirror); "delta" folds the three
+#: write kinds into planes merged on the device by the delta_merge kernel;
+#: "tape" retires such a window with one window_merge launch.
+INGEST_CHOICES = ("auto", "device", "hostfold", "delta", "scatter", "sort",
+                  "segment", "tape")
+#: ingest paths that need the host fold library (`native.py`)
+HOST_INGEST = ("hostfold", "delta", "tape")
 HLL_IMPLS = ("scatter", "sort", "segment")
 HLL_HASHES = ("murmur3", "redis")
 
 
 def check_ingest(ingest: str) -> None:
-    if ingest in INGEST_LATER:
-        raise NotImplementedError(
-            f"ingest={ingest!r} is not ported yet: it arrives with the "
-            "delta/tape ingest slice (host fold library, delta_merge and "
-            "window_merge kernels); use one of " + ", ".join(INGEST_CHOICES))
     if ingest not in INGEST_CHOICES:
         raise ValueError(f"unknown ingest policy: {ingest!r}")
 

@@ -25,9 +25,13 @@ SETBIT, CLEAR and the Bloom scatter add write it in place (JAX donates
 it); the segment-OR add (`ingest="segment"`) returns a fresh tensor, like
 the kernel, and the backend installs whichever comes back. The hand
 kernels of this half: `popcount_partials` (BITCOUNT), `bitop_cells`
-(BITOP) and `bits_insert_segmented` (the segment-OR). The host-mirror
-pack / absorb and the delta functions (`engine.py:565-686` of the JAX
-package) arrive with the delta/tape slice.
+(BITOP) and `bits_insert_segmented` (the segment-OR).
+
+The delta half (`engine.py:564-686` of the JAX package): the Bloom host
+mirror's pack / absorb, and the device side of the delta / tape ingest,
+whose hand kernels are `delta_merge` (`delta_merge_stack`) and
+`window_merge` (`tape_apply`). Both merge in place into a window's stack of
+old rows, where JAX donated it.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import torch
 
 from redisson_tpu_torch.ops import bitset, bloom, hashing, hll
 from redisson_tpu_torch.ops import kernels as pk
+from redisson_tpu_torch.ops import window_kernel as wk
 
 # Batch-size buckets: powers of two between MIN_BUCKET and MAX_BUCKET keys.
 MIN_BUCKET = 1 << 10
@@ -340,6 +345,93 @@ def hll_bank_grow(bank, new_cap: int):
     out = torch.zeros((new_cap, m), dtype=bank.dtype, device=bank.device)
     out[:s] = bank
     return out
+
+
+# ---------------------------------------------------------------------------
+# Host mirror and delta ingest: the device half (ingest/delta.py and
+# ingest/tape.py are the host half). Bit order everywhere is numpy's
+# packbits: cell i lives in byte i >> 3 at bit 7 - (i & 7).
+# ---------------------------------------------------------------------------
+
+_PACK_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
+
+
+def _pack_rows(cells):
+    """[..., 8n] uint8 cells -> [..., n] packed bytes: the weighted sum of
+    each 8 cells, modulo 256 (JAX's int32 sum cast to uint8)."""
+    w = torch.tensor(_PACK_WEIGHTS, dtype=torch.uint8, device=cells.device)
+    return (cells.reshape(*cells.shape[:-1], -1, 8) * w).sum(
+        dim=-1, dtype=torch.uint8)
+
+
+def bitset_pack(bits):
+    """[m] uint8 cells -> (m+7)//8 packed bytes: pulling a Bloom filter to
+    its host mirror moves one bit per cell, not one byte."""
+    pad = (-bits.shape[0]) % 8
+    if pad:
+        bits = torch.cat([bits, bits.new_zeros((pad,))])
+    return _pack_rows(bits)
+
+
+def delta_unpack(packed, cells: int):
+    """Packed bytes -> [cells] uint8 cells."""
+    sh = torch.tensor([7, 6, 5, 4, 3, 2, 1, 0], dtype=torch.uint8,
+                      device=packed.device)
+    return ((packed[:, None] >> sh) & 1).reshape(-1)[:cells]
+
+
+def bitset_absorb_packed(bits, packed):
+    """OR a packed bitmap into [m] uint8 cells, in place (the device half of
+    a Bloom mirror sync)."""
+    torch.maximum(bits, delta_unpack(packed, bits.shape[0]), out=bits)
+    return bits
+
+
+def delta_scatter_bytes(idx, val, nbytes: int):
+    """A sparse (idx, val) byte plane made dense. Padding entries (0, 0)
+    are a no-op under the max."""
+    out = torch.zeros((nbytes,), dtype=torch.uint8, device=idx.device)
+    return out.scatter_reduce_(0, idx.long(), val, reduce="amax")
+
+
+def delta_merge_stack(old, delta):
+    """One multi-target delta merge: max of the [T, L] uint8 stack of old
+    rows with the delta stack, in place into `old` -> (merged [T, L],
+    changed [T] bool). The delta_merge kernel on a card."""
+    return pk.delta_merge(old, delta)
+
+
+def tape_apply(bank, wire, table, hll_rows, store_old, *, n_hll: int,
+               lanes: int, want_old: bool = False):
+    """Retire one encoded window tape.
+
+    Gathers the HLL entries' bank rows (uint8) and the store entries' cell
+    tensors into a zero-padded [T2, lanes] stack of old rows, packs their
+    pre-merge bits when `want_old` (SETBIT results; formed before the merge
+    overwrites the stack), merges the whole tape with ONE `window_merge`,
+    and writes the HLL rows back through `hll_rows`, the bank rows
+    repeat-padded with the first (the repeats write equal values).
+
+    `bank` [S, m] int32 (None when `n_hll` is 0), `wire` uint8 [T2, W] and
+    `table` int32 [T2, 5] from the encode, `store_old` the store entries'
+    cell tensors in row order. Returns (bank, merged [T2, lanes], changed
+    [T2] bool, old_packed [T2, lanes // 8] | None).
+    """
+    t2 = table.shape[0]
+    old = torch.zeros((t2, lanes), dtype=torch.uint8, device=wire.device)
+    rows = hll_rows.long()
+    if n_hll:
+        m = bank.shape[1]
+        old[:n_hll, :m] = bank[rows[:n_hll]].to(torch.uint8)
+    for j, cells in enumerate(store_old):
+        old[n_hll + j, : cells.shape[0]] = cells
+    old_packed = _pack_rows(old.clamp(max=1)) if want_old else None
+    merged, changed = wk.window_merge(old, wire, table)
+    if n_hll:
+        sel = torch.arange(rows.shape[0], device=rows.device)
+        sel = torch.where(sel < n_hll, sel, 0)
+        bank.index_copy_(0, rows, merged[sel, :m].to(torch.int32))
+    return bank, merged, changed, old_packed
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,9 @@ Dispatch model:
   * one dispatcher thread drains the queues, coalescing consecutive
     same-kind key-batch ops on one object into one run, and stealing the
     queue heads of other targets for GLOBAL_COALESCE kinds (one device call
-    then carries keys for many sketches);
+    then carries keys for many sketches); kinds the backend aliases in
+    COALESCE_GROUPS steal one another (one delta window mixes hll_add,
+    bloom_add and bitset_set);
   * dispatch is pipelined: the dispatcher only stages a run (`backend.run`
     returns without waiting on device results), a bounded in-flight window
     (`inflight_runs`) keeps the device busy, and the backend's completer
@@ -105,6 +107,9 @@ class CommandExecutor:
         self._max_batch_keys = max_batch_keys
         self._clock = clock or time.monotonic
         self._global_kinds = frozenset(getattr(backend, "GLOBAL_COALESCE", ()))
+        # Kinds that share one gate and steal group (the delta window mixes
+        # hll_add, bloom_add and bitset_set runs of many targets).
+        self._coalesce_groups = dict(getattr(backend, "COALESCE_GROUPS", {}))
         self._window = max(1, int(inflight_runs))
         self._eager_release = bool(getattr(backend, "DISPATCH_TIME_STATE", False))
         self._inflight: set = set()  # _InflightRun tokens
@@ -190,11 +195,17 @@ class CommandExecutor:
             if target in self._inflight_targets:
                 continue
             head_kind = self._queues[target][0].kind
-            if head_kind in self._global_kinds and head_kind in self._inflight_kinds:
+            if (head_kind in self._global_kinds
+                    and self._group_of(head_kind) in self._inflight_kinds):
                 continue
             self._ready.remove(target)
             return target
         return None
+
+    def _group_of(self, kind: str) -> str:
+        """Gate and steal key of a global kind: its COALESCE_GROUPS alias,
+        or the kind itself."""
+        return self._coalesce_groups.get(kind, kind)
 
     def _admit_locked(self, kind: str, target: str,
                       run: List[Op]) -> _InflightRun:
@@ -204,7 +215,7 @@ class CommandExecutor:
         self._inflight.add(token)
         self._inflight_targets |= targets
         if is_global:
-            self._inflight_kinds.add(kind)
+            self._inflight_kinds.add(self._group_of(kind))
         return token
 
     def _collect_run_locked(self, target: str) -> Tuple[str, str, List[Op]]:
@@ -218,8 +229,10 @@ class CommandExecutor:
         if kind in COALESCABLE:
             keys = self._drain_same_kind(q, kind, run, keys, cap)
         if kind in self._global_kinds:
-            # Mutate _ready/_queues only after the scan: removing entries
-            # while walking the round-robin drops targets.
+            # Steal the heads of other targets in the same group. Mutate
+            # _ready/_queues only after the scan: removing entries while
+            # walking the round-robin drops targets.
+            group = self._group_of(kind)
             emptied: List[str] = []
             for other in list(self._ready):
                 if keys >= cap:
@@ -229,7 +242,9 @@ class CommandExecutor:
                     # completion order.
                     continue
                 oq = self._queues[other]
-                while oq and oq[0].kind == kind and keys + oq[0].nkeys <= cap:
+                while (oq and oq[0].kind in self._global_kinds
+                       and self._group_of(oq[0].kind) == group
+                       and keys + oq[0].nkeys <= cap):
                     op = oq.popleft()
                     keys += op.nkeys
                     run.append(op)
@@ -308,7 +323,7 @@ class CommandExecutor:
         token.gates_held = False
         self._inflight_targets.difference_update(token.targets)
         if token.is_global:
-            self._inflight_kinds.discard(token.kind)
+            self._inflight_kinds.discard(self._group_of(token.kind))
 
     def _release_gates(self, token: _InflightRun) -> None:
         with self._cv:

@@ -9,7 +9,10 @@ card the timing uses CUDA events around the launches; on the CPU, the host
 clock. Size classes follow the engine's batch buckets (powers of two,
 2^10..2^21); measurement batches are capped at 2^18 keys.
 
-The host-fold, delta and tape candidates arrive with the delta/tape slice.
+Candidates the planner cannot time itself, the host fold and the delta /
+tape windows (priced by the backend from its measured link profile), come
+in per call as `extra_costs`; `device_overhead` (ns/key, the link cost of
+shipping the raw keys) is added to every measured device path first.
 """
 
 from __future__ import annotations
@@ -122,7 +125,17 @@ class IngestPlanner:
         self.device = torch.device(device)
         self._measure = measure or measure_device_paths
         self._table: Dict[tuple, Dict[str, float]] = {}
+        # Advisory costs (say, an earlier process's table): they only fill
+        # paths the first-use measurement cannot time, never replace it.
+        self._priors: Dict[tuple, Dict[str, float]] = {}
         self._lock = threading.Lock()
+
+    def set_prior(self, structure: str, nkeys: int,
+                  costs: Dict[str, float]) -> None:
+        """Seed advisory ns/key costs for one (structure, size class) row."""
+        key = (structure, self.size_class(nkeys))
+        with self._lock:
+            self._priors.setdefault(key, {}).update(costs)
 
     @staticmethod
     def size_class(nkeys: int) -> int:
@@ -130,19 +143,26 @@ class IngestPlanner:
         c = max(1, int(nkeys) - 1).bit_length()
         return min(max(c, _MIN_CLASS), _MAX_CLASS)
 
-    def plan(self, structure: str, nkeys: int, exclude=()) -> IngestPlan:
+    def plan(self, structure: str, nkeys: int, exclude=(),
+             extra_costs: Optional[Dict[str, float]] = None,
+             device_overhead: float = 0.0) -> IngestPlan:
         """Pick the insert path for one batch: the (structure, size class)
-        row is measured on first use and the cheapest path not in
-        `exclude` wins."""
+        row is measured on first use; every measured path pays
+        `device_overhead` ns/key, `extra_costs` join as they are, and the
+        cheapest candidate not in `exclude` wins."""
         key = (structure, self.size_class(nkeys))
         with self._lock:
             costs = self._table.get(key)
         if costs is None:
             fresh = self._measure(structure, 1 << key[1], self.device)
             with self._lock:
-                costs = self._table.setdefault(key, dict(fresh))
-        best = min((p for p in costs if p not in exclude), key=costs.get)
-        return IngestPlan(path=best, costs=dict(costs))
+                row = dict(self._priors.get(key, {}))
+                row.update(fresh)
+                costs = self._table.setdefault(key, row)
+        all_costs = {p: c + device_overhead for p, c in costs.items()}
+        all_costs.update(extra_costs or {})
+        best = min((p for p in all_costs if p not in exclude), key=all_costs.get)
+        return IngestPlan(path=best, costs=all_costs)
 
     def table(self) -> Dict[str, Dict[str, float]]:
         """Snapshot for reporting: {'hll@16': {...}, ...}."""

@@ -23,7 +23,8 @@ from typing import Dict, Iterable, Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("seg_insert", "merge_stack", "popcount", "bitop")
+SOURCES = ("seg_insert", "merge_stack", "popcount", "bitop", "delta_merge",
+           "window_merge")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

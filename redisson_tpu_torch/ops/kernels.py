@@ -1,11 +1,13 @@
 """The ops-level kernel wrappers: PFMERGE's `merge_stack`, BITCOUNT's
-`popcount_partials` and BITOP's `bitop_cells`.
+`popcount_partials`, BITOP's `bitop_cells` and the delta ingest's
+`delta_merge`.
 
 Counterparts of the same functions in `redisson_tpu.ops.pallas_kernels`.
 On a CUDA tensor each wrapper launches its hand-written kernel
-(`csrc/merge_stack.cu`, `csrc/popcount.cu`, `csrc/bitop.cu`) or raises; on
-a CPU tensor it runs its plain PyTorch version (`*_plain`), which is also
-what the kernel is held against on the card.
+(`csrc/merge_stack.cu`, `csrc/popcount.cu`, `csrc/bitop.cu`,
+`csrc/delta_merge.cu`) or raises; on a CPU tensor it runs its plain
+PyTorch version (`*_plain`), which is also what the kernel is held against
+on the card.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import torch
 from redisson_tpu_torch.ops import _build
 
 #: kernel launches since the last `reset_launches()`
-launches = {"merge_stack": 0, "popcount_partials": 0, "bitop_cells": 0}
+launches = {"merge_stack": 0, "popcount_partials": 0, "bitop_cells": 0,
+            "delta_merge": 0}
 
 # Enough row blocks to put ~4 blocks of 256 threads on each of 132 SMs.
 _TARGET_BLOCKS = 528
@@ -31,6 +34,9 @@ _SIGNATURES = {
     "merge_stack_i32": ("merge_stack", [_P, _P, _I, _I, _I, _I, _P]),
     "popcount_partials_u8": ("popcount", [_P, _LL, _I, _P, _I, _P]),
     "bitop_u8": ("bitop", [_P, _P, _I, _LL, _I, _I, _I, _P]),
+    "delta_merge_u8": ("delta_merge", [_P, _P, _P, _LL, _LL, _I, _P]),
+    "window_merge_u8": ("window_merge", [_P, _P, _P, _P, _LL, _LL, _LL, _I, _I,
+                                         _P]),
 }
 
 
@@ -203,3 +209,46 @@ def bitop_cells(stack: torch.Tensor, op: str) -> torch.Tensor:
         raise RuntimeError(f"bitop_cells launch failed: CUDA error {rc}")
     launches["bitop_cells"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# delta_merge: in-place max of two [T, L] uint8 stacks + per-row changed
+# ---------------------------------------------------------------------------
+
+
+def delta_merge_plain(old: torch.Tensor, delta: torch.Tensor):
+    """`old = max(old, delta)` in place -> (old, changed [T] bool), changed
+    where any cell of the row rose."""
+    merged = torch.maximum(old, delta)
+    changed = (merged != old).any(dim=1)
+    old.copy_(merged)
+    return old, changed
+
+
+def delta_merge(old: torch.Tensor, delta: torch.Tensor):
+    """The delta ingest's retire: merge the [T, L] uint8 `delta` stack into
+    `old` in place (one row per target) -> (old, changed [T] bool)."""
+    if (old.dim() != 2 or old.dtype != torch.uint8 or delta.shape != old.shape
+            or delta.dtype != torch.uint8):
+        raise ValueError(
+            f"delta_merge needs two [T, L] uint8 stacks, got "
+            f"{tuple(old.shape)} {old.dtype} and {tuple(delta.shape)} "
+            f"{delta.dtype}")
+    if _on_cpu("delta_merge", old):
+        return delta_merge_plain(old, delta)
+    t, l = old.shape
+    if l % 16 or not old.is_contiguous() or old.data_ptr() % 16:
+        raise ValueError("delta_merge: old must be contiguous and 16-byte "
+                         "aligned with L % 16 == 0")
+    if not delta.is_contiguous() or delta.data_ptr() % 16:
+        delta = delta.clone(memory_format=torch.contiguous_format)
+    changed = torch.zeros((t,), dtype=torch.int32, device=old.device)
+    if t == 0:
+        return old, changed != 0
+    rc = _kernel("delta_merge_u8")(old.data_ptr(), delta.data_ptr(),
+                                   changed.data_ptr(), t, l, old.device.index,
+                                   _stream(old))
+    if rc:
+        raise RuntimeError(f"delta_merge launch failed: CUDA error {rc}")
+    launches["delta_merge"] += 1
+    return old, changed != 0

@@ -21,6 +21,7 @@ class RoutingBackend:
     def __init__(self, sketch_backend):
         self.sketch = sketch_backend
         self.GLOBAL_COALESCE = frozenset(getattr(sketch_backend, "GLOBAL_COALESCE", ()))
+        self.COALESCE_GROUPS = dict(getattr(sketch_backend, "COALESCE_GROUPS", {}))
         self.DISPATCH_TIME_STATE = bool(
             getattr(sketch_backend, "DISPATCH_TIME_STATE", False))
         self.BLOOM_STRICT_MOD = bool(

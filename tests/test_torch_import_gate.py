@@ -35,6 +35,10 @@ _GATE = textwrap.dedent("""
         rc = exc.code
     leaked = sorted(m for m in sys.modules if m == "redisson_tpu"
                     or m.startswith(("redisson_tpu.", "jax.")))
+    slice3 = {"redisson_tpu_torch.native", "redisson_tpu_torch.ingest.delta",
+              "redisson_tpu_torch.ingest.tape",
+              "redisson_tpu_torch.ops.window_kernel"}
+    print("SLICE3", sorted(slice3 - set(mods)))
     print("MODULES", len(mods), "SMOKE_RC", rc, "LEAKED", leaked)
 """)
 
@@ -46,7 +50,8 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert out.returncode == 0, out.stderr
     line = [ln for ln in out.stdout.splitlines() if ln.startswith("MODULES")][-1]
     _, nmods, _, rc, _, leaked = line.split(" ", 5)
-    assert int(nmods) >= 18
+    assert int(nmods) >= 22
+    assert "SLICE3 []" in out.stdout  # the walk covered this slice's modules
     assert rc == "2"  # chip_smoke refuses to run without a card
     assert leaked == "[]"
     assert '"ok"' not in out.stdout
@@ -65,10 +70,9 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
         device_mod.resolve("mps")
 
 
-def test_config_names_the_later_slice_for_unported_ingest_paths():
-    for later in ("hostfold", "delta", "tape"):
-        with pytest.raises(NotImplementedError, match="delta/tape"):
-            Config().use_cuda(device="cpu", ingest=later)
+def test_config_accepts_the_host_ingest_paths():
+    for ingest in ("hostfold", "delta", "tape"):
+        assert Config().use_cuda(device="cpu", ingest=ingest).ingest == ingest
     with pytest.raises(ValueError):
         Config().use_cuda(ingest="bogus")
     with pytest.raises(TypeError):
@@ -76,3 +80,17 @@ def test_config_names_the_later_slice_for_unported_ingest_paths():
     cfg = Config()
     assert cfg.use_cuda(ingest="segment") is cfg.cuda
     assert cfg.cuda.device == "cuda:0"
+
+
+@pytest.mark.parametrize("ingest", ["hostfold", "delta", "tape"])
+def test_forced_host_ingest_raises_without_the_fold_library(monkeypatch, ingest):
+    from redisson_tpu_torch import native
+
+    monkeypatch.setattr(native, "available", lambda: False)
+    with pytest.raises(RuntimeError, match="host fold library"):
+        RedissonTorch.create(Config().use_cuda(device="cpu", ingest=ingest))
+    c = RedissonTorch.create(Config().use_cuda(device="cpu", ingest="auto"))
+    c.shutdown()  # auto falls back to the device paths
+    with pytest.raises(ValueError, match="redis"):
+        RedissonTorch.create(Config().use_cuda(device="cpu", ingest=ingest,
+                                               hll_hash="redis"))

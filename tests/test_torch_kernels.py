@@ -213,6 +213,41 @@ def test_planner_times_the_bits_paths():
     assert p.plan("bits", 5000, exclude=("segment",)).path == "scatter"
 
 
+def test_planner_prices_host_candidates_and_priors():
+    """Measured device paths pay `device_overhead`; `extra_costs` join as
+    they are; a prior fills only paths the measurement did not time."""
+    from redisson_tpu_torch.ingest import planner
+
+    p = planner.IngestPlanner("cpu", measure=lambda s, n, d: {"scatter": 2.0,
+                                                              "sort": 3.0})
+    p.set_prior("hll", 5000, {"scatter": 99.0, "segment": 0.5})
+    plan = p.plan("hll", 5000, extra_costs={"delta": 4.0}, device_overhead=1.5)
+    assert plan.costs == {"scatter": 3.5, "sort": 4.5, "segment": 2.0, "delta": 4.0}
+    assert plan.path == "segment"
+    plan = p.plan("hll", 5000, exclude=("segment",), extra_costs={"delta": 3.0},
+                  device_overhead=1.5)
+    assert plan.path == "delta"
+    assert p.plan("hll", 5000, exclude=("segment",)).path == "scatter"
+    p.set_prior("hll", 5000, {"segment": 0.1})  # the row is measured: no effect
+    assert p.plan("hll", 5000).costs["segment"] == 0.5
+
+
+def test_delta_wrappers_refuse_what_they_cannot_run():
+    from redisson_tpu_torch.ops import window_kernel as wk
+
+    meta = torch.zeros((2, 1024), dtype=torch.uint8, device="meta")
+    table = torch.zeros((2, 5), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ok.delta_merge(meta, meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        wk.window_merge(meta, meta, table)
+    cells = torch.zeros((2, 1024), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        wk.window_merge(cells, cells, torch.zeros((2, 3), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        wk.window_merge(cells, cells[:1], torch.zeros((2, 5), dtype=torch.int32))
+
+
 def test_wrappers_refuse_devices_they_cannot_run_on():
     """Off the CPU a wrapper launches its kernel or raises; it never falls
     back to the plain version (here: a meta tensor, no card needed)."""
