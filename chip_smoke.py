@@ -12,8 +12,12 @@ Phases, each of which fails the run on error:
   2. hold every kernel against its plain PyTorch version on the card at the
      main paths' shapes (bit-identical), and time kernel, plain version,
      the kernel's bound and one PyTorch library call with CUDA events
-     (delta_merge at [256, 16384], [1, 2^28] and [3, 1024]; window_merge
-     on a mixed [64, 2^20] tape and an HLL [256, 16384] tape);
+     (delta_merge at [256, 16384], [1, 2^28], [64, 2^20], [3, 1024] and
+     [2, 16], timed at the first two, also as device-only time from
+     torch.profiler and as host microseconds per call; the in-place
+     segment-OR at m = 257,296,945 with 2^21 x 7 codes, each call merging
+     into a fresh copy of the cells; window_merge on a mixed [64, 2^20]
+     tape and an HLL [256, 16384] tape);
   3. drive the HLL path through the client at full width: 1024 named HLLs
      (a 64 MiB bank), 40,000 distinct keys each, one 8M-key PFADD, PFCOUNT,
      PFMERGE and PFMERGE+PFCOUNT over 1000 sketches, and
@@ -239,9 +243,10 @@ def _same(name: str, got, want) -> int:
     return err
 
 
-def check_bits_kernels(seed: int):
+def check_bits_kernels(seed: int, deferred: list):
     """The BitSet / Bloom kernels against their plain versions at the Bloom
-    and BitSet paths' shapes, and their times."""
+    and BitSet paths' shapes, and their times (device-only times appended
+    to `deferred`)."""
     import torch
     from redisson_tpu_torch.ingest import kernels as ik
     from redisson_tpu_torch.ops import kernels as ok
@@ -296,25 +301,28 @@ def check_bits_kernels(seed: int):
     idx[: n // 10] = idx[n // 10: 2 * (n // 10)]  # duplicates
     idx[torch.rand(n, device=dev, generator=g) < 0.05] = BLOOM_M  # sentinels
     seg_err = _same(f"bits_insert_segmented m={BLOOM_M} n={n}",
-                    ik.bits_insert_segmented(cells, idx),
-                    ik.bits_insert_segmented_plain(cells, idx))
-    small = cells_of(4096 + 7, 0.01)
-    sidx = torch.randint(0, small.numel() + 1, (5000,), device=dev, generator=g)
-    seg_err = max(seg_err, _same("bits_insert_segmented m=4103 (ragged tile)",
-                                 ik.bits_insert_segmented(small, sidx),
-                                 ik.bits_insert_segmented_plain(small, sidx)))
-    codes, starts = ik.sort_codes(idx.to(torch.int32), BLOOM_M, 0, ik.BITS_TILE)
-    scratch = cells.clone()
+                    ik.bits_insert_segmented(cells.clone(), idx),
+                    ik.bits_insert_segmented_plain(cells.clone(), idx))
+    small = cells_of(3 * (1 << 16) + 7, 0.01)
+    sidx = torch.randint(-5, small.numel() + 3, (50_000,), device=dev, generator=g)
+    for name, lo in (("m=196615 (ragged slab)", 0), ("odd-offset view", 1)):
+        got, want = small.clone(), small.clone()
+        ik.bits_insert_segmented(got[lo:], sidx)
+        ik.bits_insert_segmented_plain(want[lo:], sidx)
+        seg_err = max(seg_err, _same(f"bits_insert_segmented {name}", got, want))
+    # In place: each timed call merges into a fresh copy of the same cells.
     vidx = idx[idx < BLOOM_M]  # the library call takes no sentinel
-    seg = {"ms": cuda_ms(lambda: ik.seg_insert_launch(
-               cells, codes, starts, 0, ik.BITS_TILE, "bits_insert_segmented")),
-           "sort_ms": cuda_ms(lambda: ik.sort_codes(idx.to(torch.int32), BLOOM_M, 0,
-                                                    ik.BITS_TILE)),
-           "plain_ms": cuda_ms(lambda: ik.bits_insert_segmented_plain(cells, idx)),
-           "library_ms": cuda_ms(lambda: scratch.scatter_(0, vidx, 1)),
-           "max_abs_err": seg_err}
-    seg["bound_ms"], seg["bound_by"] = bound_ms(
-        n * 4 + starts.numel() * 4 + 2 * BLOOM_M, n)
+    seg = timed_merge(lambda c: ik.bits_insert_segmented(c, idx),
+                      lambda c: ik.bits_insert_segmented_plain(c, idx),
+                      lambda c: c.scatter_(0, vidx, 1), cells)
+    deferred.append(("bits_insert_segmented", seg, "device_ms",
+                     lambda c: ik.bits_insert_segmented(c, idx), cells, 5))
+    # Each code read once, each 32-byte sector it touches read and written once.
+    sectors = int(torch.unique(vidx >> 5).numel())
+    seg["bound_ms"], seg["bound_by"] = bound_ms(n * idx.element_size() + 64 * sectors, n)
+    seg["max_abs_err"] = seg_err
+    log(f"bits_insert_segmented m={BLOOM_M}, {n} int64 codes touching {sectors} "
+        f"sectors: " + json.dumps(seg))
     return pop, bop, seg
 
 
@@ -769,6 +777,51 @@ def ring_ms(fn, bufs) -> float:
     return start.elapsed_time(end) / (len(bufs) - 1)
 
 
+def device_ms(fn, bufs):
+    """Device time per call of `fn(buf)` over distinct buffers, from
+    torch.profiler's kernel and memset events (host issue excluded), after a
+    warm-up on the first -> (total ms per call, {event: ms per call}). Each
+    event of a call runs once per call; its time is the mean over the
+    occurrences the profiler recorded, which may be fewer than the calls
+    (it can drop events), so a dropped event does not thin the mean."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(bufs[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for b in bufs[1:]:
+            fn(b)
+        torch.cuda.synchronize()
+    calls = len(bufs) - 1
+    parts, seen = {}, {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        if us:
+            parts[e.key[:60]] = us / 1e3 / e.count
+            seen[e.key[:60]] = e.count
+    if not parts:
+        raise AssertionError("torch.profiler recorded no device time")
+    if any(n != calls for n in seen.values()):
+        log(f"torch.profiler recorded {json.dumps(seen)} events of {calls} calls")
+    return sum(parts.values()), parts
+
+
+def host_us(fn, reps: int = 50) -> float:
+    """Host microseconds per call of `fn()`: the host clock around `reps`
+    calls with no synchronisation, so the time to issue them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def timed_merge(kernel, plain, library, src, reps: int = 10):
     """ms of the kernel, its plain version and a library call, each merging
     into fresh copies of `src`."""
@@ -816,9 +869,10 @@ def tape_bound(table: np.ndarray, lanes: int, width: int) -> int:
     return int(2 * valid.sum() + wire.sum() + table.nbytes + table.shape[0] * 4)
 
 
-def check_delta_kernels(seed: int):
+def check_delta_kernels(seed: int, deferred: list):
     """delta_merge and window_merge against their plain versions at the
-    delta paths' shapes, and their times."""
+    delta paths' shapes, and their times (device-only times appended to
+    `deferred`)."""
     import torch
     from redisson_tpu_torch.ingest import tape
     from redisson_tpu_torch.ops import kernels as ok
@@ -827,28 +881,45 @@ def check_delta_kernels(seed: int):
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(seed + 5)
     dm_err, dm = 0, {}
-    for t, l, high in ((256, 16384, 60), (1, 1 << 28, 2), (3, 1024, 60)):
+    for t, l, high in ((256, 16384, 60), (1, 1 << 28, 2), (64, 1 << 20, 2), (3, 1024, 60),
+                       (2, 16, 60)):
         old = torch.randint(0, high, (t, l), dtype=torch.uint8, device=dev, generator=g)
         delta = torch.randint(0, high, (t, l), dtype=torch.uint8, device=dev, generator=g)
         delta[torch.rand((t, l), device=dev, generator=g) < 0.6] = 0
-        if t > 2:
+        if t >= 2:
             delta[1] = 0  # a row that cannot rise
+        if t >= 3:  # a row in which only the last cell rises
+            old[2].fill_(1)
+            delta[2] = 0
+            old[2, -1], delta[2, -1] = 0, 1
         want_m, want_c = ok.delta_merge_plain(old.clone(), delta)
         got_m, got_c = ok.delta_merge(old.clone(), delta)
+        if got_c.dtype != torch.bool:
+            raise AssertionError(f"delta_merge returned {got_c.dtype} flags")
         dm_err = max(dm_err, _same(f"delta_merge [{t}, {l}]", got_m, want_m),
                      _same(f"delta_merge [{t}, {l}] changed", got_c, want_c))
-        if l == 1024:
+        if (t, l) not in ((256, 16384), (1, 1 << 28)):
             continue
-        times = timed_merge(lambda o: ok.delta_merge(o, delta),
-                            lambda o: ok.delta_merge_plain(o, delta),
-                            lambda o: torch.maximum(o, delta, out=o), old,
-                            reps=10 if l > 16384 else 20)
+        reps = 10 if l > 16384 else 20
+        times = timed_merge(lambda o, delta=delta: ok.delta_merge(o, delta),
+                            lambda o, delta=delta: ok.delta_merge_plain(o, delta),
+                            lambda o, delta=delta: torch.maximum(o, delta, out=o), old,
+                            reps=reps)
         times["bound_ms"], times["bound_by"] = bound_ms(3 * t * l, t * l)
+        scratch = old.clone()
+        times["host_us"] = host_us(lambda: ok.delta_merge(scratch, delta))
+        times["library_host_us"] = host_us(lambda: torch.maximum(scratch, delta, out=scratch))
+        times["shape"] = f"[{t}, {l}]"
+        del scratch
         log(f"delta_merge [{t}, {l}]: " + json.dumps(times))
+        deferred.append((f"delta_merge [{t}, {l}]", times, "device_ms",
+                         lambda o, delta=delta: ok.delta_merge(o, delta), old, reps))
+        deferred.append((f"torch.maximum(out=old) [{t}, {l}]", times, "library_device_ms",
+                         lambda o, delta=delta: torch.maximum(o, delta, out=o), old, reps))
         dm[(t, l)] = times
-    dmerge = dict(dm[(1, 1 << 28)], max_abs_err=dm_err)
-    log(f"delta_merge at [256, 16384] (HLL window): {json.dumps(dm[(256, 16384)])}; "
-        "library call torch.maximum(out=old) has no changed flag")
+    dmerge = dm[(1, 1 << 28)]
+    dmerge.update(max_abs_err=dm_err, hll_window=dm[(256, 16384)])
+    log("delta_merge library call torch.maximum(out=old) has no changed flag")
 
     wm_err, wm = 0, {}
     for name, planes in (("mixed", mixed_planes(seed, 32, 15, 14)),
@@ -1297,9 +1368,10 @@ def main() -> int:
     log(f"host fold library: {native.target().name}, built and loaded in "
         f"{time.perf_counter() - t0:.2f} s {native.BUILD_LOG.strip()}")
 
+    deferred = []  # (what, row, key, fn, src, reps): device-only times, taken last
     phases = [("kernels", lambda: check_kernels(args.seed)),
-              ("bits kernels", lambda: check_bits_kernels(args.seed)),
-              ("delta kernels", lambda: check_delta_kernels(args.seed)),
+              ("bits kernels", lambda: check_bits_kernels(args.seed, deferred)),
+              ("delta kernels", lambda: check_delta_kernels(args.seed, deferred)),
               ("hll path", lambda: main_path(args.seed)),
               ("hll rates", lambda: rates(args.seed, card)),
               ("hll auto", lambda: auto_path(args.seed)),
@@ -1319,6 +1391,15 @@ def main() -> int:
         t = time.perf_counter()
         out[name] = fn()
         log(f"phase {name}: {time.perf_counter() - t:.1f} s")
+    # Once torch.profiler has run in a process, every later launch costs the
+    # host more: the device-only times come after every host-timed phase.
+    t = time.perf_counter()
+    for what, row, key, fn, src, reps in deferred:
+        row[key], parts = device_ms(fn, [src.clone() for _ in range(reps + 1)])
+        log(f"{what}: device-only {row[key]:.5f} ms per call, by event: "
+            + json.dumps(parts))
+    del deferred
+    log(f"phase device times: {time.perf_counter() - t:.1f} s")
     if args.profile:
         profile_path(args.seed)
     seg, mrg = out["kernels"]
@@ -1343,7 +1424,7 @@ def main() -> int:
         dict(name="merge_stack", route="cuda", source=src + "merge_stack.cu",
              replaces="redisson_tpu/ops/pallas_kernels.py:67",
              launches=launches["merge_stack"], **mrg),
-        dict(name="bits_insert_segmented", route="cuda", source=src + "seg_insert.cu",
+        dict(name="bits_insert_segmented", route="cuda", source=src + "bits_insert.cu",
              replaces="redisson_tpu/ingest/kernels.py:145",
              launches=bloom_l["bits_insert_segmented"], **bseg),
         dict(name="popcount_partials", route="cuda", source=src + "popcount.cu",

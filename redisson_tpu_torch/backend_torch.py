@@ -1822,7 +1822,7 @@ class TorchBackend:
         def emit(res, n):
             if mutate:
                 new, res = res
-                self.store.swap(target, new)  # a fresh tensor under segment
+                self.store.swap(target, new)  # the same tensor: inserts are in place
             outs.append(res)
             spans.append(n)
 

@@ -1,9 +1,10 @@
 // Segmented insert: fold sorted `bucket << shift | value` codes into a
 // register / cell array, `out = max(regs, segment_max(codes))`.
 //
-// Replaces: redisson_tpu/ingest/kernels.py::_seg_kernel (the Pallas body of
-// hll_insert_segmented with shift=6 and int32 registers; bits_insert_segmented
-// is the same body with shift=0, value 1 and uint8 cells).
+// Replaces: redisson_tpu/ingest/kernels.py::_seg_kernel as called by
+// hll_insert_segmented (shift=6, int32 registers). The Bloom segment-OR,
+// the same Pallas body at shift=0, has its own sort-free kernel in
+// bits_insert.cu.
 //
 // Bound on the H100: memory. The kernel reads each sorted code once (4 B),
 // the tile spans, the old registers, and writes the new registers: about
@@ -18,12 +19,10 @@
 // the codes are sorted by (bucket, value), so the last code of each bucket
 // run carries that bucket's maximum, and only that code stores into the
 // tile with a plain store. A hot bucket (Zipf keys) therefore costs nothing
-// extra. For HLL, padding and invalid lanes arrive as code 0 (bucket 0,
-// value 0); a value of 0 never raises a register, so they are no-ops as in
-// JAX. For the bit cells (shift 0, every code sets its cell) code 0 would
-// set cell 0, so there invalid lanes carry code m, one past the end: it
-// sorts last, lies in no span or in the ragged last tile's, and the write
-// guard `r < m` drops it. Codes past the last tile are in no span.
+// extra. Padding and invalid lanes arrive as code 0 (bucket 0, value 0); a
+// value of 0 never raises a register, so they are no-ops as in JAX. Codes
+// past the last tile are in no span, and the write guard `r < m` covers a
+// ragged last tile.
 // The block writes a fresh output array, so the caller can compare old and
 // new registers for PFADD's "changed" flag.
 
@@ -89,12 +88,5 @@ extern "C" int seg_insert_i32(const void* codes, int n, const void* starts,
                               const void* regs, void* out, int m, int tile,
                               int shift, int device, void* stream) {
   return launch<int32_t>(codes, n, starts, regs, out, m, tile, shift, device,
-                         stream);
-}
-
-extern "C" int seg_insert_u8(const void* codes, int n, const void* starts,
-                             const void* regs, void* out, int m, int tile,
-                             int shift, int device, void* stream) {
-  return launch<uint8_t>(codes, n, starts, regs, out, m, tile, shift, device,
                          stream);
 }

@@ -492,11 +492,11 @@ def bitset_not_masked(bits, n: int):
 
 
 def _set_indexes(bits, idx, valid, impl: str = "scatter"):
-    """Set a batch's [N, k] cell indexes -> (bits, added). `added` is
-    any(old == 0) over cells gathered before the insert. The scatter path
-    writes `bits` in place (padded lanes: index 0, value 0); the segment
-    path sends padded lanes to the one-past-end cell m, which the kernel
-    and its plain version drop, and returns a fresh tensor."""
+    """Set a batch's [N, k] cell indexes in place -> (bits, added). `added`
+    is any(old == 0) over cells gathered before the insert, so it is taken
+    against the batch start. The scatter path writes padded lanes as index
+    0, value 0; the segment path sends them to the one-past-end cell m,
+    which the kernel and its plain version drop."""
     idx = torch.where(valid[:, None], idx, 0)
     old = bits[idx.reshape(-1)].reshape(idx.shape)
     vals = valid[:, None].expand(idx.shape)

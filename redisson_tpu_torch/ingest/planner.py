@@ -24,6 +24,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from redisson_tpu_torch import device as device_mod
 from redisson_tpu_torch.ingest import kernels
 from redisson_tpu_torch.ops import hll
 
@@ -117,12 +118,14 @@ def measure_device_paths(structure: str, n: int,
 class IngestPlanner:
     """Per-device path planner with a lazily measured cost table.
 
-    `measure` is a test seam: `(structure, n, device) -> {path: ns_per_key}`.
+    `device` is required (`device.resolve`: a card, or "cpu" by name), so a
+    planner times the paths where its batches run. `measure` is a test
+    seam: `(structure, n, device) -> {path: ns_per_key}`.
     """
 
-    def __init__(self, device="cpu",
+    def __init__(self, device,
                  measure: Optional[Callable[..., Dict[str, float]]] = None):
-        self.device = torch.device(device)
+        self.device = device_mod.resolve(device)
         self._measure = measure or measure_device_paths
         self._table: Dict[tuple, Dict[str, float]] = {}
         # Advisory costs (say, an earlier process's table): they only fill
@@ -175,9 +178,9 @@ _PLANNERS: Dict[str, IngestPlanner] = {}
 _PLANNERS_LOCK = threading.Lock()
 
 
-def default_planner(device="cpu") -> IngestPlanner:
+def default_planner(device) -> IngestPlanner:
     """Process-wide planner per device (backends share its table)."""
-    key = str(torch.device(device))
+    key = str(device_mod.resolve(device))
     with _PLANNERS_LOCK:
         planner = _PLANNERS.get(key)
         if planner is None:

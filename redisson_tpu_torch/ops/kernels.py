@@ -67,7 +67,10 @@ def _on_cpu(name: str, t: torch.Tensor) -> bool:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of the current CUDA stream on `t`'s card: the
+    `cuda_stream` of `torch.cuda.current_stream(t.device)`, read without
+    building a Stream object (host time on the small-merge path)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def merge_stack_plain(stack: torch.Tensor) -> torch.Tensor:
@@ -227,28 +230,36 @@ def delta_merge_plain(old: torch.Tensor, delta: torch.Tensor):
 
 def delta_merge(old: torch.Tensor, delta: torch.Tensor):
     """The delta ingest's retire: merge the [T, L] uint8 `delta` stack into
-    `old` in place (one row per target) -> (old, changed [T] bool)."""
-    if (old.dim() != 2 or old.dtype != torch.uint8 or delta.shape != old.shape
-            or delta.dtype != torch.uint8):
+    `old` in place (one row per target) -> (old, changed [T] bool). On a card
+    this is one foreign call; `changed` is the bool tensor allocated here,
+    and the kernel writes every flag."""
+    if (old.dtype != torch.uint8 or delta.dtype != torch.uint8 or old.dim() != 2
+            or delta.shape != old.shape):
         raise ValueError(
             f"delta_merge needs two [T, L] uint8 stacks, got "
             f"{tuple(old.shape)} {old.dtype} and {tuple(delta.shape)} "
             f"{delta.dtype}")
-    if _on_cpu("delta_merge", old):
-        return delta_merge_plain(old, delta)
+    # The small-merge path is host-bound: each tensor attribute read below
+    # costs host time, so each is read once.
+    if not old.is_cuda:
+        if old.device.type == "cpu":
+            return delta_merge_plain(old, delta)
+        raise ValueError(f"delta_merge: unsupported device {old.device}")
     t, l = old.shape
-    if l % 16 or not old.is_contiguous() or old.data_ptr() % 16:
+    old_ptr, delta_ptr = old.data_ptr(), delta.data_ptr()
+    if l % 16 or old_ptr % 16 or not old.is_contiguous():
         raise ValueError("delta_merge: old must be contiguous and 16-byte "
                          "aligned with L % 16 == 0")
-    if not delta.is_contiguous() or delta.data_ptr() % 16:
+    if delta_ptr % 16 or not delta.is_contiguous():
         delta = delta.clone(memory_format=torch.contiguous_format)
-    changed = torch.zeros((t,), dtype=torch.int32, device=old.device)
+        delta_ptr = delta.data_ptr()
+    index = old.get_device()
+    changed = torch.empty(t, dtype=torch.bool, device=index)
     if t == 0:
-        return old, changed != 0
-    rc = _kernel("delta_merge_u8")(old.data_ptr(), delta.data_ptr(),
-                                   changed.data_ptr(), t, l, old.device.index,
-                                   _stream(old))
+        return old, changed
+    rc = _kernel("delta_merge_u8")(old_ptr, delta_ptr, changed.data_ptr(), t, l,
+                                   index, torch._C._cuda_getCurrentRawStream(index))
     if rc:
         raise RuntimeError(f"delta_merge launch failed: CUDA error {rc}")
     launches["delta_merge"] += 1
-    return old, changed != 0
+    return old, changed

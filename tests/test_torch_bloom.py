@@ -151,6 +151,36 @@ def test_engine_add_and_contains_bytes(impl):
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
 
 
+@pytest.mark.parametrize("m,k", [(M_SMALL, 7), (4096, 3)])
+def test_set_indexes_segment_in_place_matches_jax(m, k):
+    """The segment path of `_set_indexes` sets the cells in place and
+    returns the same tensor; cells equal JAX's segment-OR (Pallas in
+    interpret mode, and its lax fallback) on the same indexes, and `added`
+    is taken against the batch start (a key whose cells earlier keys of
+    the batch set is still added)."""
+    from redisson_tpu.ingest import kernels as jk
+
+    rng = np.random.default_rng(m + k)
+    cells = (rng.random(m) < 0.05).astype(np.uint8)
+    idx = rng.integers(0, m, (2000, k))
+    idx[100:200] = idx[:100]  # whole keys repeated inside the batch
+    valid = np.arange(2000) < 1900
+    flat = np.where(valid[:, None], idx, m).reshape(-1).astype(np.int32)
+    want = np.asarray(jk.bits_insert_segmented(jnp.asarray(cells), jnp.asarray(flat),
+                                               interpret=True))
+    np.testing.assert_array_equal(
+        np.asarray(jk.bits_insert_segmented_lax(jnp.asarray(cells), jnp.asarray(flat))),
+        want)
+    want_added = (cells[np.where(valid[:, None], idx, 0)] == 0).any(axis=1) & valid
+    bits = torch.from_numpy(cells.copy())
+    got, added = te._set_indexes(bits, torch.from_numpy(idx), torch.from_numpy(valid),
+                                 "segment")
+    assert got is bits
+    np.testing.assert_array_equal(bits.numpy(), want)
+    np.testing.assert_array_equal(added.numpy(), want_added)
+    assert added[100:200].equal(added[:100])
+
+
 def test_engine_blocked_layout():
     m = tbloom.blocked_geometry(M_SMALL)
     keys = _keys(2500, 8)

@@ -1,9 +1,10 @@
 """On-card tests of the hand-written CUDA kernels and the client (marker
 `cuda`): each kernel against its plain version at the main path's shapes
-(segmented insert, merge_stack, popcount partials, bitop, segment-OR,
-delta_merge, window_merge), and the client (HLL, Bloom, BitSet, the delta /
-tape / hostfold ingest) on the card against the client on the CPU. They
-skip where no card is visible. Run them on a machine with one:
+(segmented insert, merge_stack, popcount partials, bitop, the segment-OR
+and its edge cases, delta_merge, window_merge), and the client (HLL,
+Bloom, BitSet, the delta / tape / hostfold ingest) on the card against the
+client on the CPU. They skip where no card is visible. Run them on a
+machine with one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -82,10 +83,55 @@ def test_segment_or_matches_plain(dev, m):
     idx = torch.randint(0, m, (n,), device=dev, generator=g)
     idx[: n // 10] = idx[n // 10: 2 * (n // 10)]  # duplicates
     idx[torch.rand(n, device=dev, generator=g) < 0.1] = m  # sentinels
+    want = ik.bits_insert_segmented_plain(cells.clone(), idx)
     before = ik.launches["bits_insert_segmented"]
     got = ik.bits_insert_segmented(cells, idx)
-    assert torch.equal(got, ik.bits_insert_segmented_plain(cells, idx))
+    assert got.data_ptr() == cells.data_ptr()  # in place
+    assert torch.equal(got, want)
     assert ik.launches["bits_insert_segmented"] == before + 1
+
+
+def _segment_or_case(dev, case):
+    """(cells, idx) of one edge case of the segment-OR."""
+    g = torch.Generator(device=dev).manual_seed(len(case))
+    m = {"below_one_slab": 40_000, "ragged_m": 3 * (1 << 16) + 9,
+         "full_width": 257_296_945}.get(case, 200_003)
+    cells = (torch.rand(m + 1, device=dev, generator=g) < 0.02).to(torch.uint8)
+    cells = cells[1:] if case == "odd_offset_view" else cells[:m]
+    n = (1 << 21) * 7 if case == "full_width" else 50_000
+    idx = torch.randint(0, m, (n,), device=dev, generator=g)
+    if case == "no_codes":
+        idx = idx[:0]
+    elif case == "only_sentinels":
+        idx.fill_(m)
+    elif case in ("negative_codes", "int32_codes"):
+        idx[::3] = -torch.randint(1, 1 << 30, (idx[::3].numel(),), device=dev,
+                                  generator=g)
+        if case == "int32_codes":
+            idx = idx.to(torch.int32)
+    elif case == "hot_cell":
+        idx.fill_(m - 1)
+    elif case == "ragged_m":
+        idx[:100] = m - 1 - torch.arange(100, device=dev)  # the ragged tail
+    elif case == "full_width":
+        idx[: n // 10] = idx[n // 10: 2 * (n // 10)]  # duplicates
+        idx[torch.rand(n, device=dev, generator=g) < 0.05] = m  # sentinels
+    return cells, idx
+
+
+@pytest.mark.parametrize("case", ["no_codes", "only_sentinels", "negative_codes",
+                                  "int32_codes", "hot_cell", "below_one_slab", "ragged_m",
+                                  "odd_offset_view", "full_width"])
+def test_segment_or_edge_cases(dev, case):
+    cells, idx = _segment_or_case(dev, case)
+    want = ik.bits_insert_segmented_plain(cells.clone(), idx)
+    before = ik.launches["bits_insert_segmented"]
+    got = ik.bits_insert_segmented(cells, idx)
+    torch.cuda.synchronize()
+    assert got is cells and torch.equal(cells, want)
+    assert ik.launches["bits_insert_segmented"] == before + (1 if idx.numel() else 0)
+    if case == "only_sentinels":
+        assert torch.equal(want, _segment_or_case(dev, case)[0])
 
 
 def test_bloom_and_bitset_on_card_match_cpu(dev):
@@ -131,20 +177,36 @@ def _cells(dev, shape, seed, high=65):
     return torch.randint(0, high, shape, dtype=torch.uint8, device=dev, generator=g)
 
 
-@pytest.mark.parametrize("t,l", [(256, 16384), (1, 1 << 28), (3, 1024)])
-def test_delta_merge_matches_plain(dev, t, l):
+def _merge_stacks(dev, t, l):
+    """old and delta stacks: random rows, and for t >= 2 a row that cannot
+    rise and a row in which only the last cell (of the last sector) rises."""
     high = 65 if l == 16384 else 2
     old, delta = _cells(dev, (t, l), t, high), _cells(dev, (t, l), l, high)
-    if t > 2:
-        delta[1] = 0  # an unchanged row
+    if t >= 2:
+        quiet, last = 1, (2 if t >= 3 else 0)
+        delta[quiet] = 0
+        old[last].fill_(1)
+        delta[last] = 0
+        old[last, -1], delta[last, -1] = 0, 1
+    return old, delta
+
+
+@pytest.mark.parametrize("t,l", [(256, 16384), (1, 1 << 28), (3, 1024), (64, 1 << 20),
+                                 (2, 16)])
+def test_delta_merge_matches_plain(dev, t, l):
+    old, delta = _merge_stacks(dev, t, l)
     want_old, want = ok.delta_merge_plain(old.clone(), delta)
     before = ok.launches["delta_merge"]
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
     got_old, got = ok.delta_merge(old, delta)
+    # The one allocation of the call is the flag tensor it returns.
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == allocs + 1
+    assert got.dtype == torch.bool and got.shape == (t,)
     assert got_old.data_ptr() == old.data_ptr()  # in place
     assert torch.equal(got_old, want_old) and torch.equal(got, want)
     assert ok.launches["delta_merge"] == before + 1
-    if t > 2:
-        assert not got[1]
+    if t >= 2:
+        assert not got[1] and got[2 if t >= 3 else 0]
 
 
 def _tape(dev, t, lanes, width, seed):

@@ -2,7 +2,8 @@
 library (`redisson_tpu_torch.native` against `redisson_tpu.native`), the
 plane folds and their dense / sparse encode, `delta_merge` (its plain
 version against the Pallas kernel in interpret mode and the engine's XLA
-merge), and the engine's delta helpers (unpack, sparse scatter, pack,
+merge, and the CUDA kernel's row / chunk decomposition emulated in numpy
+against the plain version), and the engine's delta helpers (unpack, sparse scatter, pack,
 absorb). Every comparison is exact."""
 
 import jax.numpy as jnp
@@ -201,6 +202,67 @@ def test_delta_merge_plain_matches_pallas_and_engine(t, l, high):
     wm, wc = te.delta_merge_stack(torch.from_numpy(old.copy()), torch.from_numpy(delta))
     np.testing.assert_array_equal(wm.numpy(), tm.numpy())
     np.testing.assert_array_equal(wc.numpy(), tc.numpy())
+
+
+def _emulate_delta_merge_kernel(old, delta, owner_vecs, chunk_vecs, threads):
+    """csrc/delta_merge.cu's algorithm in numpy over 16-byte vectors: rows
+    of at most `owner_vecs` vectors take one block each, which writes the
+    row's flag 0 or 1; longer rows are cut into `chunk_vecs`-vector chunks
+    over flags cleared first, each block storing 1 where it saw a rise. A
+    block steps `threads` vectors at a time, the last step ragged; a vector
+    is stored when it or its sector partner (lane ^ 1) rose."""
+    t, l = old.shape
+    row_vecs = l // 16
+    out = old.reshape(t, row_vecs, 16).copy()
+    dv = delta.reshape(t, row_vecs, 16)
+    owned = row_vecs <= owner_vecs
+    chunk = row_vecs if owned else chunk_vecs
+    chunks = -(-row_vecs // chunk)
+    changed = np.full(t, 7 if owned else 0, np.uint8)  # an owned flag is written
+    covered = np.zeros((t, row_vecs), np.int64)
+    for block in range(t * chunks):
+        row, first = divmod(block, chunks)
+        first *= chunk
+        last = min(first + chunk, row_vecs)
+        rose_any = False
+        for step in range(first, last, threads):
+            v = np.arange(step, step + threads)
+            inside = v < last
+            vi = v[inside]
+            merged = np.maximum(out[row, vi], dv[row, vi])
+            rose = np.zeros(threads, bool)
+            rose[inside] = (merged != out[row, vi]).any(axis=1)
+            sector = rose | rose[np.arange(threads) ^ 1]
+            store = vi[sector[inside]]
+            out[row, store] = np.maximum(out[row, store], dv[row, store])
+            covered[row, vi] += 1
+            rose_any |= bool(rose.any())
+        if owned:
+            changed[row] = rose_any
+        elif rose_any:
+            changed[row] = 1
+    assert (covered == 1).all()  # every vector merged exactly once
+    return out.reshape(t, l), changed.astype(bool)
+
+
+@pytest.mark.parametrize("t,l", [(256, 16384), (2, 16), (5, 16400), (3, 1040),
+                                 (2, 1 << 17), (3, 70_000)])
+def test_delta_merge_kernel_algorithm(t, l):
+    """The CUDA kernel's row / chunk / step decomposition (emulated at its
+    own constants and at small ones) merges every vector once and sets the
+    same cells and flags as the plain version, for rows that a block owns
+    and rows cut into chunks, with ragged last steps and odd row lengths."""
+    old, delta = _stacks(t, l, t + l, 65)
+    want_m, want_c = ok.delta_merge_plain(torch.from_numpy(old.copy()),
+                                          torch.from_numpy(delta))
+    configs = [(4096, 512, 256)]  # the kernel's own constants
+    if t * l <= 1 << 18:
+        configs += [(64, 48, 32), (1, 7, 2)]
+    for owner_vecs, chunk_vecs, threads in configs:
+        got_m, got_c = _emulate_delta_merge_kernel(old, delta, owner_vecs, chunk_vecs,
+                                                   threads)
+        np.testing.assert_array_equal(got_m, want_m.numpy())
+        np.testing.assert_array_equal(got_c, want_c.numpy())
 
 
 def test_delta_merge_refuses_bad_stacks():

@@ -1,7 +1,8 @@
 """The kernel modules' plain versions against the JAX package's Pallas
 kernels in interpret mode (segmented insert, merge_stack, popcount
 partials, bitop, the segment-OR), and the host-side code around the CUDA
-kernels (code sorting, tile spans, row blocking, sentinels). The CUDA kernels themselves run
+kernels (code sorting, tile spans, row blocking, sentinels, the
+segment-OR's slab binning). The CUDA kernels themselves run
 only on a card: `chip_smoke.py` and tests/test_torch_cuda.py hold them
 against these plain versions there."""
 
@@ -164,37 +165,105 @@ def test_bits_segmented_plain_matches_pallas(m, n):
     ref = cells.copy()
     ref[idx[idx < m]] = 1
     np.testing.assert_array_equal(want, ref)
+    np.testing.assert_array_equal(
+        np.asarray(jk.bits_insert_segmented_lax(jnp.asarray(cells), jnp.asarray(idx))), want)
     before = ik.launches["bits_insert_segmented"]
     tcells = torch.from_numpy(cells.copy())
     got = ik.bits_insert_segmented(tcells, torch.from_numpy(idx))
-    np.testing.assert_array_equal(got.numpy(), want)
-    np.testing.assert_array_equal(tcells.numpy(), cells)  # fresh output
-    np.testing.assert_array_equal(
-        ik.segmented_bits_set(torch.from_numpy(cells), torch.from_numpy(idx)).numpy(), want)
+    assert got is tcells  # in place: JAX's new array and these cells hold the same values
+    np.testing.assert_array_equal(tcells.numpy(), want)
+    again = torch.from_numpy(cells.copy())
+    assert ik.segmented_bits_set(again, torch.from_numpy(idx)) is again
+    np.testing.assert_array_equal(again.numpy(), want)
     assert ik.launches["bits_insert_segmented"] == before
+
+
+@pytest.mark.parametrize("case", ["no_codes", "only_sentinels", "negative_codes",
+                                  "hot_cell", "ragged_m", "int64_codes"])
+def test_bits_segment_or_drops_what_pallas_drops(case):
+    """Codes outside [0, m) are dropped, compared as unsigned: the sentinel
+    m, anything larger and negative codes, as the Pallas kernel drops them
+    (`bits_insert_segmented_lax` wraps a negative index, so it is not the
+    reference here)."""
+    m = 4103 if case == "ragged_m" else 4096
+    rng = np.random.default_rng(len(case))
+    cells = (rng.random(m) < 0.02).astype(np.uint8)
+    idx = rng.integers(0, m, 3000).astype(np.int32)
+    if case == "no_codes":
+        idx = idx[:0]
+    elif case == "only_sentinels":
+        idx[:] = m
+    elif case == "negative_codes":
+        idx[::3] = -rng.integers(1, 1 << 30, idx[::3].shape[0])
+        idx[1::7] = m + rng.integers(0, 1 << 20, idx[1::7].shape[0])
+    elif case == "hot_cell":
+        idx[:] = m - 1
+    elif case == "ragged_m":
+        idx[:50] = m - 1 - np.arange(50)
+    want = np.asarray(jk.bits_insert_segmented(jnp.asarray(cells), jnp.asarray(idx),
+                                               interpret=True)) if idx.size else cells
+    tidx = torch.from_numpy(idx.astype(np.int64) if case == "int64_codes" else idx)
+    tcells = torch.from_numpy(cells.copy())
+    assert ik.bits_insert_segmented(tcells, tidx) is tcells
+    np.testing.assert_array_equal(tcells.numpy(), want)
+    np.testing.assert_array_equal(
+        _emulate_slab_kernel(cells, idx, 10, 3), want)
+
+
+def _emulate_slab_kernel(cells, codes, shift, grid):
+    """csrc/bits_insert.cu's algorithm in numpy, with `shift`-bit slabs and
+    `grid` code chunks: per-chunk slab counts reserve bin ranges (in reverse
+    chunk order: the kernel's atomics land in any order), a scan gives the
+    bin offsets, each chunk writes its codes' in-slab offsets into its
+    ranges, and each slab applies its bin as marks, max into the cells."""
+    m, n = cells.shape[0], codes.shape[0]
+    slabs = (m + (1 << shift) - 1) >> shift
+    u = codes.astype(np.int64) & (0xFFFFFFFF if codes.dtype == np.int32 else -1)
+    u = np.where(u < 0, m, u)  # an int64 negative is >= m as unsigned
+    per = -(-n // grid) if n else 0
+    chunks = [u[b * per:(b + 1) * per] for b in range(grid)]
+    chunks = [c[c < m] for c in chunks]
+    count = np.zeros(slabs, np.int64)
+    base = np.zeros((grid, slabs), np.int64)
+    for b in reversed(range(grid)):
+        base[b] = count
+        count += np.bincount(chunks[b] >> shift, minlength=slabs)
+    start = np.concatenate([[0], np.cumsum(count)])
+    bins = np.full(int(start[-1]), -1, np.int64)
+    for b in range(grid):
+        cursor = start[:-1] + base[b]
+        for v in chunks[b]:
+            bins[cursor[v >> shift]] = v & ((1 << shift) - 1)
+            cursor[v >> shift] += 1
+    assert (bins >= 0).all()  # the ranges tile the bins exactly
+    out = cells.copy()
+    for s in range(slabs):
+        marks = np.zeros(1 << shift, np.uint8)
+        marks[bins[start[s]:start[s + 1]]] = 1
+        lo, hi = s << shift, min((s + 1) << shift, m)
+        out[lo:hi] = np.maximum(out[lo:hi], marks[: hi - lo])
+    return out
 
 
 @pytest.mark.parametrize("m", [70001, 4096, 1000])
 def test_bits_tile_spans_and_kernel_algorithm(m):
-    """The kernel's algorithm at shift 0 drops the sentinel m, also when it
-    lands in a ragged last tile."""
+    """The segment-OR kernel's binning and slab apply, at the kernel's own
+    16-bit slabs and at small ones (many slabs, a ragged last slab), drop
+    the sentinel m and set exactly the plain version's cells."""
     idx = _bit_codes(m, 5000, 4)
     cells = (np.random.default_rng(1).random(m) < 0.01).astype(np.uint8)
-    sorted_codes, starts = ik.sort_codes(torch.from_numpy(idx), m, 0, ik.BITS_TILE)
-    g = -(-m // ik.BITS_TILE)
-    np.testing.assert_array_equal(
-        starts.numpy(), np.searchsorted(sorted_codes.numpy(), np.arange(g + 1) * ik.BITS_TILE))
-    want = ik.bits_insert_segmented_plain(torch.from_numpy(cells),
+    want = ik.bits_insert_segmented_plain(torch.from_numpy(cells.copy()),
                                           torch.from_numpy(idx)).numpy()
-    np.testing.assert_array_equal(
-        _emulate_seg_kernel(sorted_codes.numpy(), starts.numpy(), cells.astype(np.int32),
-                            ik.BITS_TILE, 0).astype(np.uint8), want)
+    for shift in (16, 10, 7):  # 16: the kernel's own 64 KiB slabs (kSlabShift)
+        for grid in (1, 3, 64):
+            np.testing.assert_array_equal(_emulate_slab_kernel(cells, idx, shift, grid),
+                                          want)
 
 
 def test_tile_bounds_stay_in_int32_for_the_largest_arrays():
     codes = torch.tensor([0, 5, ik.MAX_SEGMENT_CELLS - 1, ik.MAX_SEGMENT_CELLS],
                          dtype=torch.int32)
-    _, starts = ik.sort_codes(codes, ik.MAX_SEGMENT_CELLS, 0, ik.BITS_TILE)
+    _, starts = ik.sort_codes(codes, ik.MAX_SEGMENT_CELLS, 0, 1024)
     assert starts.dtype == torch.int32
     assert starts[0] == 0 and starts[-1] == 3  # the sentinel lies in no span
     assert (starts[1:] >= starts[:-1]).all()
