@@ -12,12 +12,17 @@ Phases, each of which fails the run on error:
   2. hold every kernel against its plain PyTorch version on the card at the
      main paths' shapes (bit-identical), and time kernel, plain version,
      the kernel's bound and one PyTorch library call with CUDA events
-     (delta_merge at [256, 16384], [1, 2^28], [64, 2^20], [3, 1024] and
-     [2, 16], timed at the first two, also as device-only time from
-     torch.profiler and as host microseconds per call; the in-place
-     segment-OR at m = 257,296,945 with 2^21 x 7 codes, each call merging
-     into a fresh copy of the cells; window_merge on a mixed [64, 2^20]
-     tape and an HLL [256, 16384] tape);
+     (the in-place HLL insert, registers and changed flag, for uniform,
+     hot-bucket, empty, all-invalid, no-raise and client batches, timed at
+     2^21 pairs and at the client's 40,000 keys in 2^16 lanes, and its
+     direct and shared kernels from 2^16 to 2^21 lanes; delta_merge at [256, 16384], [1, 2^28],
+     [64, 2^20], [3, 1024] and [2, 16], timed at the first two; the
+     in-place segment-OR at m = 257,296,945 with 2^21 x 7 codes;
+     window_merge on a mixed [64, 2^20] tape, an HLL [256, 16384] tape and
+     a [2, 16] tape, timed at the first two; each in-place call merging
+     into a fresh copy of its input; the timed shapes also as device-only
+     time from torch.profiler, taken last, and as host microseconds per
+     call);
   3. drive the HLL path through the client at full width: 1024 named HLLs
      (a 64 MiB bank), 40,000 distinct keys each, one 8M-key PFADD, PFCOUNT,
      PFMERGE and PFMERGE+PFCOUNT over 1000 sketches, and
@@ -163,7 +168,22 @@ def keys_for(lo: int, n: int, seed: int) -> np.ndarray:
 # -- phase 2: kernels against their plain versions ---------------------------
 
 
-def check_kernels(seed: int):
+def hashed_pairs(n: int, valid: int, g):
+    """(bucket, rank) of n random 64-bit hashes at p = 14, as the engine
+    passes them: lanes at or past `valid` are padding with rank 0."""
+    import torch
+    from redisson_tpu_torch.ops import hll
+
+    h = torch.randint(-(1 << 62), 1 << 62, (n,), dtype=torch.int64, device=g.device,
+                      generator=g)
+    bucket, rank = hll.bucket_rank(h, hll.P)
+    rank[valid:] = 0
+    return bucket, rank
+
+
+def check_kernels(seed: int, deferred: list):
+    """seg_insert and merge_stack against their plain versions and their
+    times (device-only times appended to `deferred`)."""
     import torch
     from redisson_tpu_torch.ingest import kernels as ik
     from redisson_tpu_torch.ops import hll
@@ -174,39 +194,91 @@ def check_kernels(seed: int):
     m = hll.M
     n = 1 << 21
     regs = torch.randint(0, 20, (m,), dtype=torch.int32, device=dev, generator=g)
+    uniform = torch.randint(0, m, (n,), dtype=torch.int32, device=dev, generator=g)
+    rank = torch.randint(0, 52, (n,), dtype=torch.int32, device=dev, generator=g)
+    rank[: n // 8] = 0  # invalid lanes
+    raised = regs.clone().scatter_reduce_(0, uniform.long(), rank, reduce="amax")
+    client = hashed_pairs(1 << 16, KEYS, g)
+    # name -> (start registers, bucket, rank, whether a register must rise)
     cases = {
-        "uniform": torch.randint(0, m, (n,), dtype=torch.int32, device=dev, generator=g),
-        "hot_bucket": torch.full((n,), 12345, dtype=torch.int32, device=dev),
-        "empty": torch.zeros((0,), dtype=torch.int32, device=dev),
+        "uniform": (regs, uniform, rank, True),
+        "hot_bucket": (regs, torch.full((n,), 12345, dtype=torch.int32, device=dev),
+                       rank, True),
+        "empty": (regs, uniform[:0], rank[:0], False),
+        "all_invalid": (regs, uniform, torch.zeros_like(rank), False),
+        "no_raise": (raised, uniform, rank, False),
+        f"client batch ({KEYS} keys in 2^16 lanes)": (regs, *client, True),
     }
     seg_err = 0
-    for name, bucket in cases.items():
-        rank = torch.randint(0, 52, bucket.shape, dtype=torch.int32, device=dev,
-                             generator=g)
-        rank[: rank.numel() // 8] = 0  # invalid lanes
-        got = ik.hll_insert_segmented(regs, bucket, rank)
-        want = ik.hll_insert_segmented_plain(regs, bucket, rank)
-        torch.cuda.synchronize()
-        err = int((got - want).abs().max()) if got.numel() else 0
-        log(f"seg_insert {name} n={bucket.numel()}: max_abs_err={err}")
-        if not torch.equal(got, want):
-            raise AssertionError(f"seg_insert {name} disagrees with its plain version")
-        seg_err = max(seg_err, err)
-    bucket = cases["uniform"]
-    rank = torch.randint(1, 52, (n,), dtype=torch.int32, device=dev, generator=g)
-    codes = bucket * 64 + rank
-    sorted_codes, starts = ik.sort_codes(codes, m)
-    scratch = regs.clone()
-    idx = bucket.long()
-    seg = {
-        "ms": cuda_ms(lambda: ik.seg_insert_launch(regs, sorted_codes, starts)),
-        "sort_ms": cuda_ms(lambda: ik.sort_codes(codes, m)),
-        "plain_ms": cuda_ms(lambda: ik.hll_insert_segmented_plain(regs, bucket, rank)),
-        "library_ms": cuda_ms(lambda: scratch.scatter_reduce_(0, idx, rank, reduce="amax")),
-    }
-    seg["bound_ms"], seg["bound_by"] = bound_ms(
-        n * 4 + starts.numel() * 4 + 2 * m * 4, n)
-    seg["max_abs_err"] = seg_err
+    for name, (start, bucket, rk, rises) in cases.items():
+        got, want = start.clone(), start.clone()
+        got_flag = torch.zeros((1,), dtype=torch.bool, device=dev)  # set where one rose
+        want_flag = got_flag.clone()
+        if ik.hll_insert_segmented(got, bucket, rk, got_flag) is not got:
+            raise AssertionError("seg_insert did not return the registers it was given")
+        ik.hll_insert_segmented_plain(want, bucket, rk, want_flag)
+        seg_err = max(seg_err, _same(f"seg_insert {name} n={bucket.numel()}", got, want),
+                      _same(f"seg_insert {name} changed", got_flag, want_flag))
+        if bool(got_flag) != rises:
+            raise AssertionError(f"seg_insert {name}: changed is {bool(got_flag)}")
+
+    # Timed as the engine calls it: in place into fresh copies of a sketch
+    # holding one client batch, with the row's flag.
+    sketch = torch.zeros((m,), dtype=torch.int32, device=dev)
+    ik.hll_insert_segmented_plain(sketch, *hashed_pairs(KEYS, KEYS, g))
+    flag = torch.zeros((1,), dtype=torch.bool, device=dev)
+    seg = {}
+    for shape, (bucket, rk) in ((f"[{n}] pairs", hashed_pairs(n, n, g)),
+                                ("client batch", client)):
+        idx = bucket.long()
+        reps = 20 if shape == "client batch" else 10
+        times = timed_merge(
+            lambda c, b=bucket, r=rk: ik.hll_insert_segmented(c, b, r, flag),
+            lambda c, b=bucket, r=rk: ik.hll_insert_segmented_plain(c, b, r, flag),
+            lambda c, i=idx, r=rk: c.scatter_reduce_(0, i, r, reduce="amax"), sketch,
+            reps=reps)
+        # bucket and rank read once, the registers read and written once
+        times["bound_ms"], times["bound_by"] = bound_ms(bucket.numel() * 8 + 2 * m * 4,
+                                                        bucket.numel())
+        scratch = sketch.clone()
+        times["host_us"] = host_us(lambda: ik.hll_insert_segmented(scratch, bucket, rk, flag))
+        times["library_host_us"] = host_us(
+            lambda: scratch.scatter_reduce_(0, idx, rk, reduce="amax"))
+        times["shape"] = shape
+        times["grid"] = list(ik.seg_plan(bucket.numel(), m))  # [0, 0]: direct
+        del scratch
+        log(f"seg_insert {shape}: " + json.dumps(times))
+        deferred.append((f"seg_insert {shape}", times, "device_ms",
+                         lambda c, b=bucket, r=rk: ik.hll_insert_segmented(c, b, r, flag),
+                         sketch, reps))
+        deferred.append((f"scatter_reduce_ amax {shape}", times, "library_device_ms",
+                         lambda c, i=idx, r=rk: c.scatter_reduce_(0, i, r, reduce="amax"),
+                         sketch, reps))
+        seg[shape] = times
+    # The row is the timed dict itself: its device-only time is filled in last.
+    row = seg[f"[{n}] pairs"]
+    row.update(client_batch=seg["client batch"], max_abs_err=seg_err)
+    # The basis of `seg_plan`: device-only times of the direct kernel beside
+    # the shared one at batch sizes around the switch, and of other grids of
+    # the shared kernel at 2^21 pairs.
+    shared = ik._kernel("seg_insert_shared_i32")
+    direct = ik._kernel("seg_insert_direct_i32")
+    for lanes, grids in ((1 << 16, ((0, 0), (8, 8))), (1 << 18, ((0, 0), (32, 8))),
+                         (1 << 19, ((0, 0), (64, 8))),
+                         (n, ((0, 0), (64, 8), (128, 8), (64, 4), (32, 8)))):
+        bucket, rk = client if lanes == 1 << 16 else hashed_pairs(lanes, lanes, g)
+        for blocks, cluster in grids:
+            def raw(c, blocks=blocks, cluster=cluster, b=bucket, r=rk):
+                stream = torch.cuda.current_stream().cuda_stream
+                rc = (shared(c.data_ptr(), m, b.data_ptr(), r.data_ptr(), b.numel(), blocks,
+                             cluster, flag.data_ptr(), 0, stream) if blocks else
+                      direct(c.data_ptr(), m, b.data_ptr(), r.data_ptr(), b.numel(),
+                             flag.data_ptr(), 0, stream))
+                if rc:
+                    raise RuntimeError(f"seg_insert launch failed: CUDA error {rc}")
+            what = f"{blocks} x {cluster} shared" if blocks else "direct"
+            deferred.append((f"seg_insert {what} kernel at [{lanes}] lanes", {}, "device_ms",
+                             raw, sketch, 10))
 
     merge_err = 0
     for s in (SKETCHES, SKETCHES - 24, 0):
@@ -228,7 +300,7 @@ def check_kernels(seed: int):
     mrg["bound_ms"], mrg["bound_by"] = bound_ms(
         SKETCHES * m * 4 + m * 4, SKETCHES * m)
     mrg["max_abs_err"] = merge_err
-    return seg, mrg
+    return row, mrg
 
 
 def _same(name: str, got, want) -> int:
@@ -935,21 +1007,48 @@ def check_delta_kernels(seed: int, deferred: list):
         old[torch.from_numpy(hll_rows).to(dev)] *= 20  # registers 0 / 20
         wire = torch.from_numpy(tp.wire).to(dev)
         tab = torch.from_numpy(table).to(dev)
-        want_m, want_c = wk.window_merge_plain(old.clone(), wire, tab)
-        got_m, got_c = wk.window_merge(old.clone(), wire, tab)
         shape = f"[{t2}, {tp.lanes}]"
-        wm_err = max(wm_err, _same(f"window_merge {name} {shape}", got_m, want_m),
-                     _same(f"window_merge {name} {shape} changed", got_c, want_c))
-        times = timed_merge(lambda o: wk.window_merge(o, wire, tab),
-                            lambda o: wk.window_merge_plain(o, wire, tab), None, old,
-                            reps=10 if name == "mixed" else 20)
+        wm_err = max(wm_err, check_window_merge(f"{name} {shape}", old, wire, tab))
+        reps = 10 if name == "mixed" else 20
+        times = timed_merge(lambda o, wire=wire, tab=tab: wk.window_merge(o, wire, tab),
+                            lambda o, wire=wire, tab=tab: wk.window_merge_plain(o, wire, tab),
+                            None, old, reps=reps)
         nbytes = tape_bound(table, tp.lanes, tp.wire.shape[1])
         times["bound_ms"], times["bound_by"] = bound_ms(nbytes, nbytes // 2)
+        scratch = old.clone()
+        times["host_us"] = host_us(lambda: wk.window_merge(scratch, wire, tab))
+        times["shape"] = shape
+        del scratch
         log(f"window_merge {name} tape {shape} (wire {tp.wire.shape[1]} B/row, "
             f"{int((table[:, 0] == wk.OP_PAD).sum())} PAD rows, {nbytes} bytes "
             f"to move): " + json.dumps(times))
+        deferred.append((f"window_merge {name} tape {shape}", times, "device_ms",
+                         lambda o, wire=wire, tab=tab: wk.window_merge(o, wire, tab),
+                         old, reps))
         wm[name] = times
-    return dmerge, dict(wm["mixed"], max_abs_err=wm_err)
+    # A [2, 16] tape: a packed row whose length ends inside its only vector
+    # and a dense row of length 0.
+    tab = torch.tensor([[wk.OP_BLOOM, 0, 0, 13, 0], [wk.OP_HLL, 1, 0, 0, 0]],
+                       dtype=torch.int32, device=dev)
+    wire = torch.randint(0, 256, (2, 16), dtype=torch.uint8, device=dev, generator=g)
+    old = torch.zeros((2, 16), dtype=torch.uint8, device=dev)
+    wm_err = max(wm_err, check_window_merge("[2, 16]", old, wire, tab))
+    wm["mixed"].update(hll_window=wm["hll"], max_abs_err=wm_err)
+    return dmerge, wm["mixed"]
+
+
+def check_window_merge(what: str, old, wire, tab) -> int:
+    """window_merge against its plain version on copies of `old`: cells and
+    the bool flags it returns."""
+    import torch
+    from redisson_tpu_torch.ops import window_kernel as wk
+
+    want_m, want_c = wk.window_merge_plain(old.clone(), wire, tab)
+    got_m, got_c = wk.window_merge(old.clone(), wire, tab)
+    if got_c.dtype != torch.bool:
+        raise AssertionError(f"window_merge returned {got_c.dtype} flags")
+    return max(_same(f"window_merge {what}", got_m, want_m),
+               _same(f"window_merge {what} changed", got_c, want_c))
 
 
 # -- phases 10-12: the delta / tape / hostfold ingest -------------------------
@@ -1369,7 +1468,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s {native.BUILD_LOG.strip()}")
 
     deferred = []  # (what, row, key, fn, src, reps): device-only times, taken last
-    phases = [("kernels", lambda: check_kernels(args.seed)),
+    phases = [("kernels", lambda: check_kernels(args.seed, deferred)),
               ("bits kernels", lambda: check_bits_kernels(args.seed, deferred)),
               ("delta kernels", lambda: check_delta_kernels(args.seed, deferred)),
               ("hll path", lambda: main_path(args.seed)),

@@ -137,17 +137,21 @@ def _hll_h1_bytes(data, lengths, seed: int, family: str) -> torch.Tensor:
 
 def _insert_impl(regs, bucket, rank, valid, impl):
     """One register-array insert by strategy, as a fresh tensor: 'scatter'
-    (scatter_reduce amax), 'sort' (sort-compress + small scatter) or
-    'segment' (the CUDA segmented-insert kernel; its plain version on the
-    CPU). Padded lanes carry rank 0."""
+    (scatter_reduce amax) or 'sort' (sort-compress + small scatter). Padded
+    lanes carry rank 0. ('segment' inserts in place: `_segment_insert`.)"""
     if impl == "scatter":
         return hll.insert_scatter(regs, bucket, rank)
     bucket = torch.where(valid, bucket, 0)
-    if impl == "segment":
-        from redisson_tpu_torch.ingest import kernels as ingest_kernels
-
-        return ingest_kernels.segmented_hll_add(regs, bucket, rank)
     return hll.insert_sorted(regs, bucket, rank)
+
+
+def _segment_insert(regs, bucket, rank, changed):
+    """`ingest="segment"`: the in-place segmented insert (the CUDA kernel; its
+    plain version on the CPU) writes PFADD's flag into `changed`, one bool
+    element. Padded lanes carry rank 0, whatever their bucket."""
+    from redisson_tpu_torch.ingest import kernels as ingest_kernels
+
+    ingest_kernels.hll_insert_segmented(regs, bucket, rank, changed)
 
 
 def _valid_prefix(n: int, count: int, device) -> torch.Tensor:
@@ -157,6 +161,10 @@ def _valid_prefix(n: int, count: int, device) -> torch.Tensor:
 def _hll_add(regs, h1, valid, impl):
     bucket, rank = hll.bucket_rank(h1, hll.p_of(regs.shape[0]))
     rank = torch.where(valid, rank, 0)
+    if impl == "segment":
+        changed = torch.zeros((), dtype=torch.bool, device=regs.device)
+        _segment_insert(regs, bucket, rank, changed)
+        return regs, changed
     new = _insert_impl(regs, bucket, rank, valid, impl)
     changed = (new != regs).any()
     regs.copy_(new)  # in place: the JAX version donates regs
@@ -234,14 +242,19 @@ def _bank_add(bank, h1, rows, valid):
 
 
 def _bank_add_row(bank, h1, row: int, valid, impl: str = "scatter"):
-    """Single-target insert into bank row `row`: insert into a fresh 16K
-    row, then write it back in place. Returns (bank, changed_rows[S])."""
+    """Single-target insert into bank row `row`, in place. Returns (bank,
+    changed_rows[S]). Under 'segment' the kernel folds into the row and
+    writes its flag itself; the other strategies insert into a fresh row
+    and write it back."""
     s, m = bank.shape
     bucket, rank = hll.bucket_rank(h1, hll.p_of(m))
     rank = torch.where(valid, rank, 0)
     old_row = bank[row]
-    new_row = _insert_impl(old_row, bucket, rank, valid, impl)
     changed_rows = torch.zeros(s, dtype=torch.bool, device=bank.device)
+    if impl == "segment":
+        _segment_insert(old_row, bucket, rank, changed_rows[row:row + 1])
+        return bank, changed_rows
+    new_row = _insert_impl(old_row, bucket, rank, valid, impl)
     changed_rows[row] = (new_row != old_row).any()
     old_row.copy_(new_row)
     return bank, changed_rows

@@ -1,20 +1,16 @@
 """Segmented inserts: the HLL `seg_insert` kernel (`hll_insert_segmented`)
 and the Bloom segment-OR (`bits_insert_segmented`).
 
-Counterparts of the same functions in `redisson_tpu.ingest.kernels`. The
-HLL insert turns the random scatter of a key batch into a streaming pass:
+Counterparts of the same functions in `redisson_tpu.ingest.kernels`. JAX
+sorts `bucket << 6 | rank` codes and folds each register tile's span of
+them into a fresh output. Here neither insert sorts, and both work in place:
 
-  1. encode each update as `code = bucket << 6 | rank` and sort ascending
-     (`torch.sort`, outside the kernel, as JAX left it to XLA);
-  2. find, per register tile, the span of sorted codes that land in it
-     (`torch.searchsorted` on the tile boundaries);
-  3. one thread block per tile folds its span into the registers
-     (`csrc/seg_insert.cu`; the kernel reads exactly its span, so the
-     sentinel padding the TPU's fixed-size chunk loads needed is gone).
-
-The segment-OR sorts nothing: `csrc/bits_insert.cu` bins the raw cell
-indexes by 64 KiB slab of cells and applies each bin to its slab in place
-(see that file's note).
+* `hll_insert_segmented`: the (bucket, rank) pairs raise the registers
+  with atomics taken only where a register rises, directly for a small
+  batch, through block copies of the registers in shared memory for a
+  large one, and set PFADD's changed flag (`csrc/seg_insert.cu`);
+* `bits_insert_segmented`: the raw cell indexes are binned by 64 KiB slab
+  of cells and each bin applied to its slab (`csrc/bits_insert.cu`).
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version (`*_plain`), which is also what the kernel
@@ -33,9 +29,17 @@ from redisson_tpu_torch.ops.kernels import _stream
 #: kernel launches since the last `reset_launches()`
 launches = {"seg_insert": 0, "bits_insert_segmented": 0}
 
-#: registers per thread block: m = 16384 gives 128 blocks, one wave on 132 SMs
-TILE = 128
-HLL_SHIFT = 6
+#: the largest register count whose int32 copy fits one block's shared
+#: memory (128 KiB of the H100's 227 KB): p <= 15
+MAX_SHARED_REGISTERS = 1 << 15
+#: batches up to this many pairs, and every batch into more registers than
+#: MAX_SHARED_REGISTERS, take the direct kernel (PERF.md)
+MAX_DIRECT_PAIRS = 1 << 18
+#: the shared kernel's pairs per block, its most blocks (more multiply the
+#: flush of the block copies), and its largest thread block cluster
+PAIRS_PER_BLOCK = 8192
+MAX_BLOCKS = 64
+MAX_CLUSTER = 8
 #: invalid lanes carry code m, compared as a 32-bit cell offset: m must stay
 #: below 2^31
 MAX_SEGMENT_CELLS = (1 << 31) - 1
@@ -43,7 +47,8 @@ MAX_SEGMENT_CELLS = (1 << 31) - 1
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C entry point -> (source, argtypes, restype)
 _SIGNATURES = {
-    "seg_insert_i32": ("seg_insert", [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "seg_insert_direct_i32": ("seg_insert", [_P, _I, _P, _P, _LL, _P, _I, _P], _I),
+    "seg_insert_shared_i32": ("seg_insert", [_P, _I, _P, _P, _LL, _I, _I, _P, _I, _P], _I),
     "bits_insert_scratch_bytes": ("bits_insert", [_LL, _LL, _I], _LL),
     "bits_insert_u8": ("bits_insert", [_P, _LL, _P, _LL, _I, _P, _LL, _I, _P], _I),
 }
@@ -66,78 +71,93 @@ def _kernel(name: str):
     return fn
 
 
-def sort_codes(codes: torch.Tensor, m: int, shift: int = HLL_SHIFT,
-               tile: int = TILE):
-    """Sort int32 codes and compute the g+1 tile span offsets (int32)."""
-    codes = torch.sort(codes).values
-    g = -(-m // tile)
-    # Formed in int64 and clamped: (g * tile) << shift may pass 2^31 - 1 for
-    # large cell arrays, and no int32 code lies beyond the clamp anyway.
-    bounds = (torch.arange(g + 1, dtype=torch.int64, device=codes.device)
-              * tile) << shift
-    bounds = bounds.clamp_(max=(1 << 31) - 1).to(torch.int32)
-    return codes, torch.searchsorted(codes, bounds, out_int32=True)
-
-
-def seg_insert_launch(cells: torch.Tensor, codes: torch.Tensor,
-                      starts: torch.Tensor, shift: int = HLL_SHIFT,
-                      tile: int = TILE) -> torch.Tensor:
-    """Launch the kernel on pre-sorted codes and their tile spans; returns a
-    fresh [m] int32 tensor `max(cells, segment_max(codes))`."""
-    m = cells.shape[0]
-    g = -(-m // tile)
-    for name, t, dt in (("cells", cells, cells.dtype), ("codes", codes, torch.int32),
-                        ("starts", starts, torch.int32)):
-        if t.device != cells.device or t.dtype != dt or not t.is_contiguous() \
-                or t.dim() != 1:
-            raise ValueError(
-                f"seg_insert: {name} must be a contiguous 1-D {dt} tensor on "
-                f"{cells.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if cells.dtype != torch.int32:
-        raise ValueError(f"seg_insert: unsupported cell type {cells.dtype}")
-    if starts.shape[0] != g + 1:
-        raise ValueError(f"seg_insert: starts must hold {g + 1} offsets")
-    if cells.device.type != "cuda":
-        raise ValueError(f"seg_insert: needs a CUDA tensor, got {cells.device}")
-    out = torch.empty_like(cells)
-    stream = torch.cuda.current_stream(cells.device).cuda_stream
-    rc = _kernel("seg_insert_i32")(codes.data_ptr(), codes.shape[0], starts.data_ptr(),
-                                   cells.data_ptr(), out.data_ptr(), m, tile, shift,
-                                   cells.device.index, stream)
-    if rc:
-        raise RuntimeError(f"seg_insert launch failed: CUDA error {rc}")
-    launches["seg_insert"] += 1
-    return out
+def seg_plan(n: int, m: int):
+    """How the HLL insert runs n pairs into m registers: (0, 0) for the
+    direct kernel (at most MAX_DIRECT_PAIRS pairs, or m past
+    MAX_SHARED_REGISTERS), else (blocks, cluster) of the shared kernel:
+    about PAIRS_PER_BLOCK pairs a block, at most MAX_BLOCKS blocks, in
+    clusters of the largest power of two up to MAX_CLUSTER that the block
+    count allows (blocks is a multiple of it)."""
+    if n <= MAX_DIRECT_PAIRS or m > MAX_SHARED_REGISTERS or m % 4:
+        return 0, 0
+    blocks = max(1, min(MAX_BLOCKS, -(-n // PAIRS_PER_BLOCK)))
+    cluster = 1
+    while cluster * 2 <= min(blocks, MAX_CLUSTER):
+        cluster *= 2
+    return blocks - blocks % cluster, cluster
 
 
 def hll_insert_segmented_plain(registers: torch.Tensor, bucket: torch.Tensor,
-                               rank: torch.Tensor) -> torch.Tensor:
-    """Sort + run-compress + scatter of the survivors (fresh tensor)."""
-    return hll.insert_sorted(registers, bucket, rank)
+                               rank: torch.Tensor,
+                               changed: torch.Tensor = None) -> torch.Tensor:
+    """Sort + run-compress + scatter of the survivors, written back into
+    `registers` -> `registers`; `changed` (one bool element), when given,
+    is set where a register rose and left as it was otherwise."""
+    new = hll.insert_sorted(registers, bucket, rank)
+    if changed is not None:
+        changed.logical_or_((new != registers).any().reshape(changed.shape))
+    return registers.copy_(new)
 
 
 def hll_insert_segmented(registers: torch.Tensor, bucket: torch.Tensor,
-                         rank: torch.Tensor) -> torch.Tensor:
-    """Segment-max fold of a (bucket, rank) batch into [m] int32 registers;
-    returns a fresh tensor. Padding and invalid lanes carry code 0
-    (bucket 0, rank 0), which never raises a register."""
+                         rank: torch.Tensor,
+                         changed: torch.Tensor = None) -> torch.Tensor:
+    """Segment-max fold of a (bucket, rank) batch into [m] int32 registers
+    (>= 0), in place, and return `registers`. JAX's function returns a new
+    array with the same values. `changed`, when given, is one bool element
+    (for example `changed_rows[row:row + 1]` of a bank's zeroed flags) set
+    to True where a register rose and left as it was otherwise: PFADD's
+    reply. Padding and invalid lanes carry rank 0, which never raises a
+    register. On a card this is one kernel launch (`seg_plan` picks it)."""
     if registers.dtype != torch.int32 or registers.dim() != 1:
         raise ValueError("hll_insert_segmented needs [m] int32 registers")
-    if registers.device.type == "cpu":
-        return hll_insert_segmented_plain(registers, bucket, rank)
-    if registers.device.type != "cuda":
+    if not registers.is_cuda:
+        if registers.device.type == "cpu":
+            return hll_insert_segmented_plain(registers, bucket, rank, changed)
         raise ValueError(f"hll_insert_segmented: unsupported device {registers.device}")
-    if bucket.numel() == 0:
-        return registers.clone()
-    codes = bucket.to(torch.int32) * 64 + rank.to(torch.int32)
-    codes, starts = sort_codes(codes, registers.shape[0])
-    return seg_insert_launch(registers.contiguous(), codes, starts)
-
-
-def segmented_hll_add(registers: torch.Tensor, bucket: torch.Tensor,
-                      rank: torch.Tensor) -> torch.Tensor:
-    """The engine's `ingest="segment"` insert."""
-    return hll_insert_segmented(registers, bucket, rank)
+    m = registers.shape[0]
+    n = bucket.numel()
+    index = registers.get_device()
+    pairs = []
+    for name, t in (("bucket", bucket), ("rank", rank)):
+        if (t.dtype != torch.int32 or not t.is_cuda or t.get_device() != index
+                or t.numel() != n):
+            raise ValueError(f"hll_insert_segmented: {name} must be [{n}] int32 on "
+                             f"{registers.device}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            t = t.contiguous() if not t.is_contiguous() else t.clone()
+        pairs.append(t)
+    flag = None
+    if changed is not None:
+        if (changed.dtype != torch.bool or changed.numel() != 1 or not changed.is_cuda
+                or changed.get_device() != index):
+            raise ValueError("hll_insert_segmented: changed must be one bool element "
+                             f"on {registers.device}")
+        flag = changed.data_ptr()
+    if n == 0:
+        return registers
+    blocks, cluster = seg_plan(n, m)
+    # The shared kernel takes 16-byte aligned registers; a view at another
+    # offset is merged through an aligned copy and written back.
+    target = registers
+    if not registers.is_contiguous() or (blocks and registers.data_ptr() % 16):
+        target = registers.clone(memory_format=torch.contiguous_format)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if blocks:
+        rc = _kernel("seg_insert_shared_i32")(
+            target.data_ptr(), m, pairs[0].data_ptr(), pairs[1].data_ptr(), n, blocks,
+            cluster, flag, index, stream)
+    else:
+        rc = _kernel("seg_insert_direct_i32")(
+            target.data_ptr(), m, pairs[0].data_ptr(), pairs[1].data_ptr(), n, flag,
+            index, stream)
+    if rc:
+        raise RuntimeError(f"hll_insert_segmented launch failed: CUDA error {rc}")
+    launches["seg_insert"] += 1
+    if target is not registers:
+        registers.copy_(target)
+    return registers
 
 
 def bits_insert_segmented_plain(cells: torch.Tensor,

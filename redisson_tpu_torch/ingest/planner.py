@@ -53,7 +53,7 @@ _PATHS = {
     "hll": {
         "scatter": hll.insert_scatter,
         "sort": hll.insert_sorted,
-        "segment": kernels.segmented_hll_add,
+        "segment": kernels.hll_insert_segmented,
     },
     "bits": {
         "scatter": _bits_scatter,

@@ -94,25 +94,35 @@ def window_merge_plain(old: torch.Tensor, wire: torch.Tensor,
 def window_merge(old: torch.Tensor, wire: torch.Tensor, table: torch.Tensor):
     """Retire one tape: merge every row of `wire` into `old` ([T, L] uint8,
     in place) by the table's op codes and lengths -> (old, changed [T]
-    bool). The kernel on a CUDA tensor, the plain version on a CPU one."""
+    bool). On a card this is one foreign call; `changed` is the bool tensor
+    allocated here, and the kernel writes every flag. The plain version on
+    a CPU tensor."""
     _check(old, wire, table)
-    if pk._on_cpu("window_merge", old):
-        return window_merge_plain(old, wire, table)
+    # The HLL window's call is host-bound: each tensor attribute read below
+    # costs host time, so each is read once.
+    if not old.is_cuda:
+        if old.device.type == "cpu":
+            return window_merge_plain(old, wire, table)
+        raise ValueError(f"window_merge: unsupported device {old.device}")
     t, lanes = old.shape
-    if lanes % 16 or not old.is_contiguous() or old.data_ptr() % 16:
+    width, cols = wire.shape[1], table.shape[1]
+    old_ptr, wire_ptr = old.data_ptr(), wire.data_ptr()
+    if lanes % 16 or old_ptr % 16 or not old.is_contiguous():
         raise ValueError("window_merge: old must be contiguous and 16-byte "
                          "aligned with L % 16 == 0")
-    if not wire.is_contiguous() or wire.data_ptr() % 16:
+    if wire_ptr % 16 or not wire.is_contiguous():
         wire = wire.clone(memory_format=torch.contiguous_format)
-    table = table.contiguous()
-    changed = torch.zeros((t,), dtype=torch.int32, device=old.device)
+        wire_ptr = wire.data_ptr()
+    if not table.is_contiguous():
+        table = table.contiguous()
+    index = old.get_device()
+    changed = torch.empty(t, dtype=torch.bool, device=index)
     if t == 0:
-        return old, changed != 0
+        return old, changed
     rc = pk._kernel("window_merge_u8")(
-        old.data_ptr(), wire.data_ptr(), table.data_ptr(), changed.data_ptr(),
-        t, lanes, wire.shape[1], table.shape[1], old.device.index,
-        pk._stream(old))
+        old_ptr, wire_ptr, table.data_ptr(), changed.data_ptr(), t, lanes,
+        width, cols, index, torch._C._cuda_getCurrentRawStream(index))
     if rc:
         raise RuntimeError(f"window_merge launch failed: CUDA error {rc}")
     launches["window_merge"] += 1
-    return old, changed != 0
+    return old, changed

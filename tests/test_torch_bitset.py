@@ -4,6 +4,8 @@ bitset op through both clients driven with one seeded op sequence, then
 compared through `bits_export`. Also the state carry-over from the JAX
 store into the port. Every result is compared bit for bit."""
 
+import threading
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -242,9 +244,23 @@ def test_group_coalesced_runs_isolate_failures():
     try:
         c.get_bloom_filter("ok").try_init(1000, 0.01)
         c.get_hyper_log_log("h").add("x")
-        futs = [c.get_bloom_filter(n).add_ints_async(np.arange(10, dtype=np.uint64))
-                for n in ("ok", "uninit", "h", "ok")]
-        futs += [c.get_bit_set(n).set_bits_async([3, 4]) for n in ("s1", "h", "s2")]
+        # The dispatcher waits on a barrier while the ops are submitted, so
+        # they are all queued when it picks the first one.
+        release, entered = threading.Event(), threading.Event()
+
+        def hold():
+            entered.set()
+            release.wait(60)
+
+        held = c._executor.execute_barrier(hold)
+        assert entered.wait(60), "the dispatcher never reached the barrier"
+        try:
+            futs = [c.get_bloom_filter(n).add_ints_async(np.arange(10, dtype=np.uint64))
+                    for n in ("ok", "uninit", "h", "ok")]
+            futs += [c.get_bit_set(n).set_bits_async([3, 4]) for n in ("s1", "h", "s2")]
+        finally:
+            release.set()
+        held.result()
         # Both "ok" ops coalesce into one run: each sees the run-start state.
         assert futs[0].result().all() and futs[3].result().all()
         with pytest.raises(RuntimeError, match="not initialized"):

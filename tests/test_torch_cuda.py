@@ -32,18 +32,55 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("n,hot", [(1 << 21, False), (1 << 16, True), (0, False)])
-def test_seg_insert_matches_plain(dev, n, hot):
+@pytest.mark.parametrize("n,case,m", [(1 << 21, "uniform", 16384), (1 << 16, "hot", 16384),
+                                      (0, "uniform", 16384), (40_000, "uniform", 16384),
+                                      (40_003, "uniform", 16384),
+                                      (1 << 16, "all_invalid", 16384),
+                                      (1 << 16, "no_raise", 16384),
+                                      (1 << 21, "no_raise", 16384), (1 << 21, "hot", 16384),
+                                      ((1 << 18) + 5, "uniform", 16384),
+                                      (1 << 20, "uniform", 1 << 15),
+                                      (1 << 20, "uniform", 1 << 16)])
+def test_seg_insert_matches_plain(dev, n, case, m):
+    """Both kernels (`seg_plan`: direct up to 2^17 pairs and for m > 2^15,
+    shared above), registers and flag."""
     g = torch.Generator(device=dev).manual_seed(n)
-    regs = torch.randint(0, 20, (16384,), dtype=torch.int32, device=dev, generator=g)
-    bucket = torch.randint(0, 16384, (n,), dtype=torch.int32, device=dev, generator=g)
-    if hot:
+    regs = torch.randint(0, 20, (m,), dtype=torch.int32, device=dev, generator=g)
+    bucket = torch.randint(0, m, (n,), dtype=torch.int32, device=dev, generator=g)
+    if case == "hot":
         bucket.fill_(77)
     rank = torch.randint(0, 52, (n,), dtype=torch.int32, device=dev, generator=g)
+    if case == "all_invalid":
+        rank.zero_()
+    elif case == "no_raise":  # the registers already hold the batch
+        regs.scatter_reduce_(0, bucket.long(), rank, reduce="amax")
+    want = regs.clone()
+    want_flag = torch.zeros((1,), dtype=torch.bool, device=dev)
+    ik.hll_insert_segmented_plain(want, bucket, rank, want_flag)
+    flag = torch.zeros((1,), dtype=torch.bool, device=dev)
     before = ik.launches["seg_insert"]
-    got = ik.hll_insert_segmented(regs, bucket, rank)
-    assert torch.equal(got, ik.hll_insert_segmented_plain(regs, bucket, rank))
+    got = ik.hll_insert_segmented(regs, bucket, rank, flag)
+    assert got is regs  # in place
+    assert torch.equal(regs, want) and torch.equal(flag, want_flag)
+    assert bool(flag) == (case in ("uniform", "hot") and n > 0)
     assert ik.launches["seg_insert"] == before + (1 if n else 0)
+
+
+def test_seg_insert_writes_a_bank_rows_flag(dev):
+    """A bank row and its slot of the [S] flags, as `_bank_add_row` passes
+    them; the other rows and flags stay as they were."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    bank = torch.randint(0, 20, (4, 16384), dtype=torch.int32, device=dev, generator=g)
+    bucket = torch.randint(0, 16384, (1 << 20,), dtype=torch.int32, device=dev, generator=g)
+    rank = torch.randint(0, 52, (1 << 20,), dtype=torch.int32, device=dev, generator=g)
+    rank[: 1 << 16] += 12  # the second batch still raises some registers
+    want = bank.clone()
+    for n in (1 << 16, 1 << 20):  # the direct and the shared kernel
+        changed = torch.zeros(4, dtype=torch.bool, device=dev)
+        ik.hll_insert_segmented(bank[2], bucket[:n], rank[:n], changed[2:3])
+        ik.hll_insert_segmented_plain(want[2], bucket[:n], rank[:n])
+        assert torch.equal(bank, want)
+        assert changed.tolist() == [False, False, True, False]
 
 
 @pytest.mark.parametrize("s", [1024, 1000, 5, 0])
@@ -215,6 +252,8 @@ def _tape(dev, t, lanes, width, seed):
     lengths = rng.integers(0, lanes + 1, t).astype(np.int32)
     lengths[ops == wk.OP_PAD] = 0
     lengths[: t // 4] = lanes - rng.integers(0, 8, t // 4)  # not a multiple of 8
+    ops[-1], lengths[-1] = wk.OP_HLL, 0  # a real row of length 0
+    ops[0], lengths[0] = wk.OP_BLOOM, min(lanes, 13)  # ends inside the first vector
     table = np.stack([ops, rng.integers(-1, 9, t), rng.integers(-10**6, 10**6, t),
                       lengths, np.zeros(t)], axis=1).astype(np.int32)
     old = torch.from_numpy(rng.integers(0, 2, (t, lanes)).astype(np.uint8)).to(dev)
@@ -224,13 +263,17 @@ def _tape(dev, t, lanes, width, seed):
 
 @pytest.mark.parametrize("t,lanes,width", [(64, 1 << 20, 1 << 17), (256, 16384, 16384),
                                            (8, 4096, 128), (4, 2048, 4096),
-                                           (4, 1024, 100)])
+                                           (4, 1024, 100), (2, 16, 16), (2, 16, 2),
+                                           (3, 1 << 17, 1 << 14)])
 def test_window_merge_matches_plain(dev, t, lanes, width):
     old, wire, table = _tape(dev, t, lanes, width, t + lanes)
     want_old, want = wk.window_merge_plain(old.clone(), wire, table)
     before = wk.launches["window_merge"]
     got_old, got = wk.window_merge(old, wire, table)
+    assert got.dtype == torch.bool and got.shape == (t,)
+    assert got_old.data_ptr() == old.data_ptr()  # in place
     assert torch.equal(got_old, want_old) and torch.equal(got, want)
+    assert not got[-1]  # a row of length 0 cannot rise
     assert wk.launches["window_merge"] == before + 1
 
 

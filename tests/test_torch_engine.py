@@ -113,6 +113,46 @@ def test_flat_adds(impl):
     _same(tr, jr, tc, jc)
 
 
+@pytest.mark.parametrize("batch", ["fresh", "no_raise", "all_invalid"])
+@pytest.mark.parametrize("target", ["bank_row", "flat"])
+def test_segment_insert_in_place_matches_sort_and_jax(batch, target):
+    """`segment` folds into the row in place and the kernel's flag is the
+    PFADD reply: the same registers and flags as `sort` and as JAX, also for
+    a batch that raises nothing and one whose every lane is padding."""
+    bank = _bank(6)
+    keys, count = te.pad_rows(_keys(2500, 8))
+    if batch == "all_invalid":
+        count = 0
+    elif batch == "no_raise":  # the registers already hold the batch
+        bank = te.hll_bank_add_packed(torch.from_numpy(bank), _i64(keys), count, 2,
+                                      7, "m3", "sort")[0].numpy()
+    row = bank[2] if target == "flat" else bank
+    out = {}
+    for impl in ("segment", "sort"):
+        regs = torch.from_numpy(row.copy())
+        if target == "flat":
+            got, changed = te.hll_add_packed(regs, _i64(keys), count, impl, 7)
+        else:
+            got, changed = te.hll_bank_add_packed(regs, _i64(keys), count, 2, 7,
+                                                  "m3", impl)
+        assert got is regs
+        out[impl] = (regs, changed)
+    if target == "flat":
+        jr, jc = je.hll_add_packed(jnp.asarray(row), jpack(keys), np.int32(count),
+                                   "segment", 7)
+    else:
+        jr, jc = je.hll_bank_add_packed(jnp.asarray(row), jpack(keys), np.int32(count),
+                                        np.int32(2), 7, "m3", "segment")
+    for regs, changed in out.values():
+        _same(regs, jr, changed, jc)
+    changed = out["segment"][1]
+    assert bool(changed.any()) == (batch == "fresh")
+    if target == "bank_row":
+        assert changed.dtype == torch.bool and changed.shape == (S,)
+        assert int(changed.sum()) == (batch == "fresh") and bool(changed[2]) == (
+            batch == "fresh")
+
+
 def test_bank_reads_and_merges():
     bank = _bank(5)
     tbank = torch.from_numpy(bank.copy())

@@ -1,10 +1,13 @@
 """The kernel modules' plain versions against the JAX package's Pallas
 kernels in interpret mode (segmented insert, merge_stack, popcount
 partials, bitop, the segment-OR), and the host-side code around the CUDA
-kernels (code sorting, tile spans, row blocking, sentinels, the
-segment-OR's slab binning). The CUDA kernels themselves run
+kernels (the HLL insert's grid and its flush, row blocking, sentinels, the
+segment-OR's slab binning), with numpy emulations of the kernels'
+algorithms. The CUDA kernels themselves run
 only on a card: `chip_smoke.py` and tests/test_torch_cuda.py hold them
 against these plain versions there."""
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -31,64 +34,154 @@ def _batch(case: str, n: int, seed: int):
         dead = rng.random(n) < 0.5
         bucket[dead] = 0
         rank[dead] = 0
+    elif case == "all_invalid":
+        rank[:] = 0  # the engine's padded lanes keep their hash's bucket
     return bucket, rank
 
 
+def _start(case: str, bucket, rank) -> np.ndarray:
+    """Registers before the insert; under "no_raise" they already hold the
+    batch, so nothing rises."""
+    regs = np.random.default_rng(9).integers(0, 10, M).astype(np.int32)
+    if case == "no_raise":
+        np.maximum.at(regs, bucket, rank)
+    return regs
+
+
 CASES = [("uniform", 3000), ("hot", 3000), ("invalid", 3000), ("uniform", 0),
-         ("uniform", 1)]
+         ("uniform", 1), ("no_raise", 3000), ("all_invalid", 3000)]
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_insert(case: str, n: int):
+    """JAX's segmented insert (Pallas, interpret mode) of `case` -> (start
+    registers, bucket, rank, result)."""
+    bucket, rank = _batch(case, n, n + len(case))
+    start = _start(case, bucket, rank)
+    want = np.asarray(jk.hll_insert_segmented(
+        jnp.asarray(start), jnp.asarray(bucket), jnp.asarray(rank), interpret=True))
+    return start, bucket, rank, want
 
 
 @pytest.mark.parametrize("case,n", CASES)
 def test_segmented_insert_plain_matches_pallas(case, n):
-    bucket, rank = _batch(case, n, n + len(case))
-    start = np.random.default_rng(9).integers(0, 10, M).astype(np.int32)
-    want = np.asarray(jk.hll_insert_segmented(
-        jnp.asarray(start), jnp.asarray(bucket), jnp.asarray(rank), interpret=True))
+    start, bucket, rank, want = _pallas_insert(case, n)
     np.testing.assert_array_equal(
         want, np.asarray(jhll.insert_sorted(jnp.asarray(start), jnp.asarray(bucket),
                                             jnp.asarray(rank))))
     regs = torch.from_numpy(start.copy())
+    changed = torch.zeros((), dtype=torch.bool)
     before = ik.launches["seg_insert"]
-    got = ik.hll_insert_segmented(regs, torch.from_numpy(bucket), torch.from_numpy(rank))
-    np.testing.assert_array_equal(got.numpy(), want)
-    np.testing.assert_array_equal(regs.numpy(), start)  # fresh output
+    got = ik.hll_insert_segmented(regs, torch.from_numpy(bucket), torch.from_numpy(rank),
+                                  changed)
+    assert got is regs  # in place: JAX's new array and these registers hold the same values
+    np.testing.assert_array_equal(regs.numpy(), want)
+    assert bool(changed) == bool((want != start).any())
+    if case in ("no_raise", "all_invalid") or n == 0:
+        assert not bool(changed)
+    again = torch.from_numpy(start.copy())
+    assert ik.hll_insert_segmented_plain(again, torch.from_numpy(bucket),
+                                         torch.from_numpy(rank)) is again
+    np.testing.assert_array_equal(again.numpy(), want)
     assert ik.launches["seg_insert"] == before  # the CPU path launches nothing
 
 
-def _emulate_seg_kernel(codes, starts, regs, tile, shift):
-    """The CUDA kernel's algorithm in numpy: per tile, only the last code of
-    each bucket run stores its value into the tile accumulator."""
+def _emulate_seg_kernel(bucket, rank, regs, blocks, cluster, seed):
+    """csrc/seg_insert.cu's algorithms in numpy -> (registers, changed).
+
+    blocks == 0, the direct kernel: every pair raises its register itself.
+    Else the shared kernel: `blocks` contiguous slices of the pairs (`per`
+    rounded up to 4), each folded into a zeroed block copy; each cluster of
+    `cluster` blocks takes the max of its copies, and its block `me` flushes
+    the me-th slice of the registers. Ranks <= 0 and buckets outside
+    [0, m) never fold. Either way the raises (pairs, or flushes of combined
+    values) run in a random order, each reading the registers either from
+    before the call or as they stand (both are what a thread may see), and
+    raise a register only where the value exceeds what it read; `changed`
+    is whether any raise was issued."""
+    m, n = regs.shape[0], bucket.shape[0]
+    keep = (bucket >= 0) & (bucket < m) & (rank > 0)
+    raises = []  # (lo, hi, values): raise regs[lo:hi] to values
+    if blocks == 0:
+        raises = [(int(b), int(b) + 1, np.array([r], np.int32))
+                  for b, r in zip(bucket[keep], rank[keep])]
+    else:
+        per = -(-n // blocks)
+        per = (per + 3) & ~3
+        copies = np.zeros((blocks, m), np.int32)
+        for blk in range(blocks):
+            sl = slice(blk * per, (blk + 1) * per)
+            np.maximum.at(copies[blk], bucket[sl][keep[sl]], rank[sl][keep[sl]])
+        m4 = m // 4
+        for first in range(0, blocks, cluster):
+            combined = copies[first:first + cluster].max(axis=0)
+            for me in range(cluster):
+                lo, hi = 4 * (m4 * me // cluster), 4 * (m4 * (me + 1) // cluster)
+                raises.append((lo, hi, combined[lo:hi]))
+    rng = np.random.default_rng(seed)
     out = regs.copy()
-    n = codes.shape[0]
-    for t in range(starts.shape[0] - 1):
-        acc = np.zeros(tile, np.int32)
-        for i in range(starts[t], starts[t + 1]):
-            b = codes[i] >> shift
-            if i + 1 < n and (codes[i + 1] >> shift) == b:
-                continue
-            acc[b - t * tile] = codes[i] & ((1 << shift) - 1) if shift else 1
-        sl = slice(t * tile, min((t + 1) * tile, regs.shape[0]))
-        out[sl] = np.maximum(out[sl], acc[: sl.stop - sl.start])
-    return out
+    changed = False
+    for k in rng.permutation(len(raises)):
+        lo, hi, acc = raises[k]
+        seen = (regs if rng.random() < 0.5 else out)[lo:hi].copy()
+        issue = acc > seen
+        changed |= bool(issue.any())
+        out[lo:hi] = np.where(issue, np.maximum(out[lo:hi], acc), out[lo:hi])
+    return out, changed
 
 
-@pytest.mark.parametrize("case,n", CASES[:4])
-@pytest.mark.parametrize("tile", [128, 100])
-def test_tile_spans_and_kernel_algorithm(case, n, tile):
-    bucket, rank = _batch(case, n, 17)
-    codes = torch.from_numpy(bucket * 64 + rank)
-    sorted_codes, starts = ik.sort_codes(codes, M, ik.HLL_SHIFT, tile)
-    g = -(-M // tile)
-    assert starts.dtype == torch.int32 and starts.shape == (g + 1,)
-    s = sorted_codes.numpy()
-    assert (np.diff(s) >= 0).all()
-    np.testing.assert_array_equal(
-        starts.numpy(), np.searchsorted(s, (np.arange(g + 1) * tile) << 6))
-    regs = np.random.default_rng(2).integers(0, 10, M).astype(np.int32)
-    want = ik.hll_insert_segmented_plain(torch.from_numpy(regs), torch.from_numpy(bucket),
-                                         torch.from_numpy(rank)).numpy()
-    np.testing.assert_array_equal(
-        _emulate_seg_kernel(s, starts.numpy(), regs, tile, ik.HLL_SHIFT), want)
+@pytest.mark.parametrize("case,n", CASES[:3] + CASES[5:] + [("uniform", 0)])
+@pytest.mark.parametrize("blocks,cluster", [(0, 0), (1, 1), (3, 1), (132, 4), (128, 8)])
+def test_seg_insert_kernel_algorithm(case, n, blocks, cluster):
+    """The sort-free kernels (direct, and the shared kernel's slices, block
+    copies, cluster combine and flush) with their read-before-atomic raises
+    give the plain version's registers and flag, and JAX's registers,
+    whatever the order."""
+    start, bucket, rank, want = _pallas_insert(case, n)
+    plain = torch.from_numpy(start.copy())
+    flag = torch.zeros((1,), dtype=torch.bool)
+    ik.hll_insert_segmented_plain(plain, torch.from_numpy(bucket), torch.from_numpy(rank),
+                                  flag)
+    np.testing.assert_array_equal(plain.numpy(), want)
+    for seed in range(3):
+        got, changed = _emulate_seg_kernel(bucket, rank, start, blocks, cluster, seed)
+        np.testing.assert_array_equal(got, want)
+        assert changed == bool(flag[0])
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 8192, 40_000, 65_536, ik.MAX_DIRECT_PAIRS,
+                               ik.MAX_DIRECT_PAIRS + 1, 1 << 20, 1 << 21, (1 << 21) + 3])
+@pytest.mark.parametrize("m", [1 << 14, 1 << 15, 1 << 16])
+def test_seg_plan_covers_the_batch(n, m):
+    blocks, cluster = ik.seg_plan(n, m)
+    if n <= ik.MAX_DIRECT_PAIRS or m > ik.MAX_SHARED_REGISTERS:
+        assert (blocks, cluster) == (0, 0)  # the direct kernel: any m
+        return
+    assert 1 <= blocks <= ik.MAX_BLOCKS and 1 <= cluster <= ik.MAX_CLUSTER
+    assert blocks % cluster == 0 and cluster & (cluster - 1) == 0
+    per = -(-n // blocks)
+    per = (per + 3) & ~3  # as the entry rounds it: slices start on a 16-byte vector
+    assert per * blocks >= n and per * (blocks - 1) < n + 4 * blocks
+    if n >= ik.PAIRS_PER_BLOCK * ik.MAX_BLOCKS:
+        assert blocks == ik.MAX_BLOCKS and cluster == ik.MAX_CLUSTER
+
+
+def test_segmented_insert_takes_any_register_count():
+    """p = 16 registers do not fit one block's shared memory; they take the
+    direct kernel on a card and the plain version here, with JAX's values."""
+    m = 1 << 16
+    rng = np.random.default_rng(3)
+    start = rng.integers(0, 10, m).astype(np.int32)
+    bucket = rng.integers(0, m, 5000).astype(np.int32)
+    rank = rng.integers(0, 52, 5000).astype(np.int32)
+    want = np.asarray(jk.hll_insert_segmented(jnp.asarray(start), jnp.asarray(bucket),
+                                              jnp.asarray(rank), interpret=True))
+    regs = torch.from_numpy(start.copy())
+    changed = torch.zeros((), dtype=torch.bool)
+    ik.hll_insert_segmented(regs, torch.from_numpy(bucket), torch.from_numpy(rank), changed)
+    np.testing.assert_array_equal(regs.numpy(), want)
+    assert bool(changed)
+    assert ik.seg_plan(1 << 21, m) == (0, 0)
 
 
 @pytest.mark.parametrize("s", [0, 1, 7, 70, 130])
@@ -260,15 +353,6 @@ def test_bits_tile_spans_and_kernel_algorithm(m):
                                           want)
 
 
-def test_tile_bounds_stay_in_int32_for_the_largest_arrays():
-    codes = torch.tensor([0, 5, ik.MAX_SEGMENT_CELLS - 1, ik.MAX_SEGMENT_CELLS],
-                         dtype=torch.int32)
-    _, starts = ik.sort_codes(codes, ik.MAX_SEGMENT_CELLS, 0, 1024)
-    assert starts.dtype == torch.int32
-    assert starts[0] == 0 and starts[-1] == 3  # the sentinel lies in no span
-    assert (starts[1:] >= starts[:-1]).all()
-
-
 def test_planner_times_the_bits_paths():
     from redisson_tpu_torch.ingest import planner
 
@@ -328,9 +412,12 @@ def test_wrappers_refuse_devices_they_cannot_run_on():
     with pytest.raises(ValueError):
         ik.hll_insert_segmented(regs, b, b)
     with pytest.raises(ValueError):
-        ik.seg_insert_launch(torch.zeros(M, dtype=torch.int32),
-                             torch.zeros(8, dtype=torch.int32),
-                             torch.zeros(M // ik.TILE + 1, dtype=torch.int32))
+        ik.hll_insert_segmented(regs, b, b, torch.zeros((), dtype=torch.bool,
+                                                        device="meta"))
+    with pytest.raises(ValueError):  # int64 registers, on any device
+        ik.hll_insert_segmented(torch.zeros((M,), dtype=torch.int64),
+                                torch.zeros(8, dtype=torch.int32),
+                                torch.zeros(8, dtype=torch.int32))
     with pytest.raises(ValueError):
         ok.merge_stack(torch.zeros((4, M), dtype=torch.int64))
     cells = torch.zeros((M,), dtype=torch.uint8, device="meta")
