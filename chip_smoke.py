@@ -15,11 +15,17 @@ Phases, each of which fails the run on error:
      (the in-place HLL insert, registers and changed flag, for uniform,
      hot-bucket, empty, all-invalid, no-raise and client batches, timed at
      2^21 pairs and at the client's 40,000 keys in 2^16 lanes, and its
-     direct and shared kernels from 2^16 to 2^21 lanes; delta_merge at [256, 16384], [1, 2^28],
+     direct and shared kernels from 2^16 to 2^21 lanes; its multi-target
+     form, a row per pair, at a config 3 chunk (2^21 lanes over 256
+     sketches) and a window of 4096 x 8-key PFADDs to distinct sketches,
+     beside the flat scatter it replaces; merge_stack at S = 1024, 1000
+     and 256, and over 2 to 1001 listed rows of a bank, read in place,
+     beside the gather + amax it replaces; delta_merge at [256, 16384], [1, 2^28],
      [64, 2^20], [3, 1024] and [2, 16], timed at the first two; the
      in-place segment-OR at m = 257,296,945 with 2^21 x 7 codes;
      window_merge on a mixed [64, 2^20] tape, an HLL [256, 16384] tape and
-     a [2, 16] tape, timed at the first two; each in-place call merging
+     a [2, 16] tape, timed at the first two (the HLL tape beside
+     torch.maximum(old, wire, out=old)); each in-place call merging
      into a fresh copy of its input; the timed shapes also as device-only
      time from torch.profiler, taken last, and as host microseconds per
      call);
@@ -58,11 +64,32 @@ Phases, each of which fails the run on error:
      in state to "scatter";
  12. delta / tape / hostfold rates, warm, the link profile and what
      ingest="auto" picks at 2^21 keys;
- 13. with --profile, torch.profiler traces of short HLL and Bloom windows
+ 13. BASELINE config 3 (benchmarks/suite.py config3) on the default card
+     client (`RedissonTorch.create()`): 256 sketches x 40,000 seeded 8-byte
+     keys staged into one RBatch and executed, then PFMERGE + PFCOUNT over
+     the 256 (blocking, and 8 pipelined cycles); the bank equal to the
+     same keys added unbatched under ingest="sort", the merged row to the
+     host's max over those rows, the union within 2% of 10,240,000,
+     seg_insert and merge_stack launched; batched insert keys/s,
+     merge+count ms and the executor's run count for the batch; then the
+     same batch under ingest="scatter", and 8 batches of 4096 x 8-key
+     PFADDs into 4096 sketches alternating between a "scatter" and a
+     "segment" client (the multi-target kernel against the flat scatter,
+     end to end; replies and rows equal);
+ 14. the structures tier on the same client, each answer held against a
+     plain-Python model: a 1M-entry RMap (put_all in 10,000-entry chunks,
+     get_all of 100,000 keys), a 1M-member RScoredSortedSet (rank,
+     value_range, value_range_by_score), an RBlockingQueue between 4
+     producers and 4 consumers of 25,000 items each, 8 threads x 2,000
+     RLock-guarded RAtomicLong increments, a 100,000-entry RMapCache with a
+     1 s TTL swept empty by mc_evict_expired, 10,000 RTopic messages to 2
+     listeners, and a mixed RBatch (10,000 map puts, 8 PFADDs, a Bloom add)
+     equal to the same ops unbatched; host-tier ops/s of each;
+ 15. with --profile, torch.profiler traces of short HLL and Bloom windows
      (device busy share, device time by kernel).
 
-Each path (3, 7, 8, 10, 11) resets the launch counters just before it and
-reads them just after. The last lines are the card's name and power limit, a
+Each path (3, 7, 8, 10, 11, 13) resets the launch counters just before it
+and reads them just after. The last lines are the card's name and power limit, a
 JSON object with one entry per kernel, and `{"ok": true, "device": {...}}`.
 Exits non-zero, with no result, when no card is visible or the package is
 missing.
@@ -71,6 +98,7 @@ missing.
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import json
 import os
 import subprocess
@@ -79,6 +107,7 @@ import time
 
 import numpy as np
 
+RUN_LIMIT_S = 1100
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_OPS_PER_S = 67e12  # non-tensor 32-bit rate (the fp32 figure)
 GOLDEN = 0x9E3779B97F4A7C15
@@ -119,6 +148,34 @@ MASK63 = (1 << 63) - 1
 MIX_N = 16
 MIX_BLOOM_M = 958_505
 MIX_BITS = 1 << 20
+# BASELINE config 3 (benchmarks/suite.py config3): RBatch PFADD of 40,000
+# seeded 8-byte keys into each of 256 sketches, then PFMERGE + PFCOUNT over
+# the 256, blocking once and as 8 pipelined merge/count cycles.
+B3_SKETCHES = 256
+B3_KEYS = 40_000
+B3_SEED = 3  # suite.py's key seed
+B3_CYCLES = 8
+# The structures tier at sizes users run (host-side engine, no device work):
+# a 1M-entry map written in 10,000-entry put_all chunks and read with one
+# 100,000-key get_all; a 1M-member leaderboard; a blocking queue between 4
+# producers and 4 consumers of 25,000 items each; 8 threads x 2,000 locked
+# increments; a 100,000-entry map cache with a 1 s TTL swept empty; 10,000
+# topic messages to 2 listeners; one mixed RBatch of 10,000 map puts, 8
+# PFADDs and a Bloom add.
+ST_MAP = 1_000_000
+ST_MAP_CHUNK = 10_000
+ST_MAP_GET = 100_000
+ST_ZSET = 1_000_000
+ST_ZSET_PROBES = 3
+ST_QUEUE_THREADS = 4
+ST_QUEUE_ITEMS = 25_000
+ST_LOCK_THREADS = 8
+ST_LOCK_ITERS = 2_000
+ST_CACHE = 100_000
+ST_CACHE_TTL_S = 1.0
+ST_TOPIC = 10_000
+ST_BATCH_PUTS = 10_000
+ST_BATCH_HLLS = 8
 # Per-sketch estimates: the RMS error must stay below 2%, and at most this
 # share of sketches may exceed 2%. A single sketch is not held to 2%: the
 # standard error at p = 14 is 0.81%, so 2% is a 2.5-sigma draw, and among
@@ -280,17 +337,24 @@ def check_kernels(seed: int, deferred: list):
             deferred.append((f"seg_insert {what} kernel at [{lanes}] lanes", {}, "device_ms",
                              raw, sketch, 10))
 
+    row["multi_target"] = check_seg_rows(g, deferred)
+
     merge_err = 0
     for s in (SKETCHES, SKETCHES - 24, 0):
         stack = torch.randint(0, 52, (s, m), dtype=torch.int32, device=dev, generator=g)
-        got = ok.merge_stack(stack)
-        want = ok.merge_stack_plain(stack)
-        torch.cuda.synchronize()
-        err = int((got - want).abs().max())
-        log(f"merge_stack S={s}: max_abs_err={err}")
-        if not torch.equal(got, want):
-            raise AssertionError(f"merge_stack S={s} disagrees with its plain version")
-        merge_err = max(merge_err, err)
+        merge_err = max(merge_err, _same(f"merge_stack S={s}", ok.merge_stack(stack),
+                                         ok.merge_stack_plain(stack)))
+    # The client's merges read bank rows through a row list, at the paths'
+    # heights: config 3's 256 sketches and the target, the HLL path's 1000
+    # and the target; repeats, and a pair.
+    bank = torch.randint(0, 52, (SKETCHES + 4, m), dtype=torch.int32, device=dev,
+                         generator=g)
+    for r in (B3_SKETCHES + 1, MERGE_N + 1, 2):
+        rows = torch.randint(0, SKETCHES + 4, (r,), dtype=torch.int32, device=dev,
+                             generator=g)
+        merge_err = max(merge_err, _same(f"merge_stack over {r} bank rows",
+                                         ok.merge_stack(bank, rows),
+                                         ok.merge_stack_plain(bank, rows)))
     stack = torch.randint(0, 52, (SKETCHES, m), dtype=torch.int32, device=dev, generator=g)
     mrg = {
         "ms": cuda_ms(lambda: ok.merge_stack(stack)),
@@ -300,7 +364,115 @@ def check_kernels(seed: int, deferred: list):
     mrg["bound_ms"], mrg["bound_by"] = bound_ms(
         SKETCHES * m * 4 + m * 4, SKETCHES * m)
     mrg["max_abs_err"] = merge_err
+    # Stacks of config 3's and the HLL path's heights.
+    for s in (B3_SKETCHES, MERGE_N):
+        part = stack[:s].contiguous()
+        mrg[f"S={s}"] = {
+            "ms": cuda_ms(lambda: ok.merge_stack(part)),
+            "plain_ms": cuda_ms(lambda: ok.merge_stack_plain(part)),
+            "library_ms": cuda_ms(lambda: torch.amax(part, 0)),
+            "bound_ms": bound_ms(s * m * 4 + m * 4, s * m)[0]}
+        log(f"merge_stack S={s}: " + json.dumps(mrg[f"S={s}"]))
+    # What the client calls: R listed rows of the bank, read in place,
+    # against the gather + amax the client ran before (plain) and amax over
+    # the rows gathered beforehand (library), from 2 rows to the HLL path's
+    # 1001: the heights at which each is faster.
+    for r in (2, 16, 64, B3_SKETCHES + 1, MERGE_N + 1):
+        rows = torch.randperm(SKETCHES + 4, device=dev, generator=g)[:r].to(torch.int32)
+        gathered = bank[rows.long()]
+        # host-bound at these sizes: three samples of each, interleaved
+        part = {"ms": [], "plain_ms": [], "library_ms": []}
+        for _ in range(3):
+            part["ms"].append(cuda_ms(lambda: ok.merge_stack(bank, rows)))
+            part["plain_ms"].append(cuda_ms(lambda: ok.merge_stack_plain(bank, rows)))
+            part["library_ms"].append(cuda_ms(lambda: torch.amax(gathered, 0)))
+        part.update({
+            "host_us": host_us(lambda: ok.merge_stack(bank, rows)),
+            "plain_host_us": host_us(lambda: ok.merge_stack_plain(bank, rows)),
+            # the listed rows read once, the list read and the output written once
+            "bound_ms": bound_ms(r * m * 4 + r * 4 + m * 4, r * m)[0]})
+        mrg[f"rows R={r}"] = part
+        log(f"merge_stack over {r} bank rows: " + json.dumps(part))
+        if r in (B3_SKETCHES + 1, MERGE_N + 1):
+            deferred.append((f"merge_stack over {r} bank rows", part, "device_ms",
+                             lambda _b, rows=rows: ok.merge_stack(bank, rows), bank[:1], 10))
+            deferred.append((f"gather + amax over {r} bank rows", part, "plain_device_ms",
+                             lambda _b, rows=rows: ok.merge_stack_plain(bank, rows),
+                             bank[:1], 10))
     return row, mrg
+
+
+def check_seg_rows(g, deferred: list) -> dict:
+    """seg_insert's multi-target form against its plain version (the flat
+    scatter) and the engine's flat scatter with its flags, at a config 3
+    chunk (2^21 lanes over 256 sketches of a bank) and a window of 4096
+    small PFADDs of 8 keys to distinct sketches."""
+    import torch
+    from redisson_tpu_torch.ingest import kernels as ik
+    from redisson_tpu_torch.ops import hll
+
+    dev, m = g.device, hll.M
+
+    def flat_scatter(b, bucket, rank, rows):
+        # engine._bank_add's scatter branch, flags included
+        s = b.shape[0]
+        idx = rows.long() * m + bucket
+        flat = b.view(-1)
+        raised = (rank > flat[idx]).to(torch.int32)
+        changed = torch.zeros(s, dtype=torch.int32, device=b.device)
+        changed.scatter_reduce_(0, rows.long(), raised, reduce="amax")
+        flat.scatter_reduce_(0, idx, rank, reduce="amax")
+        return changed > 0
+
+    out, err = {}, 0
+    for shape, height, n, targets in (("config 3 chunk", B3_SKETCHES + 4, CHUNK, B3_SKETCHES),
+                                      ("4096 x 8-key window", 4096, 4096 * 8, 4096)):
+        bucket, rank = hashed_pairs(n, n, g)
+        rows = (torch.arange(n, device=dev, dtype=torch.int32) * targets // n
+                if targets == 4096 else
+                torch.randint(0, targets, (n,), dtype=torch.int32, device=dev, generator=g))
+        start = torch.randint(0, 12, (height, m), dtype=torch.int32, device=dev, generator=g)
+        held = start.clone().view(-1).scatter_reduce_(
+            0, rows.long() * m + bucket.long(), rank, reduce="amax").view(height, m)
+        for case, src in (("fresh", start), ("no_raise", held)):
+            got, want = src.clone(), src.clone()
+            gflag = torch.zeros(height, dtype=torch.bool, device=dev)
+            wflag = gflag.clone()
+            ik.hll_insert_segmented_rows(got, bucket, rank, rows, gflag)
+            ik.hll_insert_segmented_rows_plain(want, bucket, rank, rows, wflag)
+            err = max(err, _same(f"seg_insert rows {shape} {case}", got, want),
+                      _same(f"seg_insert rows {shape} {case} changed", gflag, wflag))
+            if bool(gflag.any()) != (case == "fresh"):
+                raise AssertionError(f"seg_insert rows {shape} {case}: flags {gflag.sum()}")
+        flags = torch.zeros(height, dtype=torch.bool, device=dev)
+        idx = rows.long() * m + bucket.long()
+        times = timed_merge(
+            lambda b, bk=bucket, r=rank, w=rows, f=flags: ik.hll_insert_segmented_rows(
+                b, bk, r, w, f),
+            lambda b, bk=bucket.long(), r=rank, w=rows: flat_scatter(b, bk, r, w),
+            lambda b, i=idx, r=rank: b.view(-1).scatter_reduce_(0, i, r, reduce="amax"),
+            start, reps=10)
+        # bucket, rank and row read once; each 32-byte sector of registers
+        # the pairs land on read and written once
+        sectors = int(torch.unique(idx >> 3).numel())
+        times["bound_ms"], times["bound_by"] = bound_ms(n * 12 + 2 * sectors * 32, n)
+        times["sectors"] = sectors
+        scratch = start.clone()
+        times["host_us"] = host_us(
+            lambda: ik.hll_insert_segmented_rows(scratch, bucket, rank, rows, flags))
+        times["plain_host_us"] = host_us(
+            lambda: flat_scatter(scratch, bucket.long(), rank, rows))
+        del scratch
+        log(f"seg_insert rows {shape}: " + json.dumps(times))
+        deferred.append((f"seg_insert rows {shape}", times, "device_ms",
+                         lambda b, bk=bucket, r=rank, w=rows, f=flags:
+                         ik.hll_insert_segmented_rows(b, bk, r, w, f), start, 10))
+        deferred.append((f"flat scatter + flags {shape}", times, "plain_device_ms",
+                         lambda b, bk=bucket.long(), r=rank, w=rows: flat_scatter(b, bk, r, w),
+                         start, 10))
+        out[shape] = times
+    out["max_abs_err"] = err
+    return out
 
 
 def _same(name: str, got, want) -> int:
@@ -1010,9 +1182,13 @@ def check_delta_kernels(seed: int, deferred: list):
         shape = f"[{t2}, {tp.lanes}]"
         wm_err = max(wm_err, check_window_merge(f"{name} {shape}", old, wire, tab))
         reps = 10 if name == "mixed" else 20
+        # The dense HLL tape has a library yardstick, as delta_merge's
+        # [256, 16384] does: torch.maximum(old, wire, out=old), no flag.
+        library = (None if wire.shape != old.shape else
+                   lambda o, wire=wire: torch.maximum(o, wire, out=o))
         times = timed_merge(lambda o, wire=wire, tab=tab: wk.window_merge(o, wire, tab),
                             lambda o, wire=wire, tab=tab: wk.window_merge_plain(o, wire, tab),
-                            None, old, reps=reps)
+                            library, old, reps=reps)
         nbytes = tape_bound(table, tp.lanes, tp.wire.shape[1])
         times["bound_ms"], times["bound_by"] = bound_ms(nbytes, nbytes // 2)
         scratch = old.clone()
@@ -1025,6 +1201,12 @@ def check_delta_kernels(seed: int, deferred: list):
         deferred.append((f"window_merge {name} tape {shape}", times, "device_ms",
                          lambda o, wire=wire, tab=tab: wk.window_merge(o, wire, tab),
                          old, reps))
+        if library is not None:
+            scratch = old.clone()
+            times["library_host_us"] = host_us(lambda: library(scratch))
+            del scratch
+            deferred.append((f"torch.maximum(out=old) {name} tape {shape}", times,
+                             "library_device_ms", library, old, reps))
         wm[name] = times
     # A [2, 16] tape: a packed row whose length ends inside its only vector
     # and a dense row of length 0.
@@ -1431,12 +1613,394 @@ def profile_path(seed: int):
     client.shutdown()
 
 
+# -- phases 13-14: BASELINE config 3 through RBatch, and the structures tier --
+
+
+def b3_keys():
+    """BASELINE config 3's keys as benchmarks/suite.py draws them: 40,000
+    uint64 per sketch from seed 3 (staged as their 8-byte encodings)."""
+    rng = np.random.default_rng(B3_SEED)
+    return [rng.integers(0, 2**63, B3_KEYS, np.uint64) for _ in range(B3_SKETCHES)]
+
+
+def batched_add(client, names, keys):
+    """Stage one add_all_async per sketch into one RBatch and execute it ->
+    (flags, seconds, executor runs). Drops each staged key list."""
+    runs0 = client._executor.runs_dispatched()
+    t0 = time.perf_counter()
+    batch = client.create_batch()
+    for i, n in enumerate(names):
+        batch.get_hyper_log_log(n).add_all_async(keys[i])
+        keys[i] = None  # staged: the encoded batch holds the keys now
+    flags = batch.execute()
+    return flags, time.perf_counter() - t0, client._executor.runs_dispatched() - runs0
+
+
+def as_bytes(ints):
+    return [[k.tobytes() for k in arr] for arr in ints]
+
+
+def batch_path(card: str):
+    """BASELINE config 3 on the card client (`RedissonTorch.create()`, the
+    default cuda:0 and ingest="auto"): the batched PFADD of 256 x 40,000
+    keys, then PFMERGE + PFCOUNT over the 256. The bank must equal the same
+    keys added unbatched under ingest="sort" (no hand kernel), the merged
+    row the host's max over those rows, the union be within 2% of
+    10,240,000, and seg_insert and merge_stack must launch. Then the
+    multi-target insert against the flat scatter, end to end."""
+    import torch
+    from redisson_tpu_torch.client import RedissonTorch
+    from redisson_tpu_torch.config import Config
+    from redisson_tpu_torch.ingest import kernels as ik
+    from redisson_tpu_torch.ops import kernels as ok
+
+    ints = b3_keys()
+    t0 = time.perf_counter()
+    keys = as_bytes(ints)
+    log(f"config 3 keys: {B3_SKETCHES} x {B3_KEYS} 8-byte keys made in "
+        f"{time.perf_counter() - t0:.2f} s (outside the timed region)")
+    names = [f"b3:s{i}" for i in range(B3_SKETCHES)]
+    c = RedissonTorch.create()
+    c.get_hyper_log_log("b3:warmadd").add_all(keys[0])  # warm the add path
+    torch.cuda.synchronize()
+
+    reset_all_launches()
+    flags, add_s, runs = batched_add(c, names, list(keys))
+    # Warm the merge and count at this stack's shape, as the suite does.
+    warm = c.get_hyper_log_log("b3:warm")
+    warm.merge_with_and_count(*names)
+    warm.merge_with(*names)
+    warm.count()
+    dest = c.get_hyper_log_log("b3:merged")
+    t0 = time.perf_counter()
+    union = dest.merge_with_and_count(*names)
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    futs = []
+    t0 = time.perf_counter()
+    for _ in range(B3_CYCLES):
+        futs.append(dest.merge_with_async(*names))
+        futs.append(dest.count_async())
+    for f in futs:
+        f.result()
+    pipe_ms = (time.perf_counter() - t0) * 1e3 / B3_CYCLES
+    torch.cuda.synchronize()
+    launches = {"seg_insert": ik.launches["seg_insert"],
+                "merge_stack": ok.launches["merge_stack"]}
+    log(f"config 3 path launches: {launches}; the batch took {runs} executor "
+        f"run(s); ingest plan {c.sketch.planner.table() if c.sketch.planner else None}")
+    if flags != [True] * B3_SKETCHES:
+        raise AssertionError("a batched PFADD into an empty sketch reported no change")
+    exact = B3_SKETCHES * B3_KEYS
+    err = abs(union - exact) / exact
+    log(f"config 3 union estimate {union} of {exact} ({err:.5f}); pipelined "
+        f"counts {[f.result() for f in futs[1::2]][:2]}...")
+    if err >= 0.02:
+        raise AssertionError(f"config 3 union error {err:.4f} at or above 2%")
+    if not launches["seg_insert"] or not launches["merge_stack"]:
+        raise AssertionError(f"a kernel of the config 3 path never launched: {launches}")
+    bank, rows = c.to_numpy_state()
+
+    ref = RedissonTorch.create(Config().use_cuda(ingest="sort"))
+    for n, arr in zip(names, ints):
+        ref.get_hyper_log_log(n).add_ints(arr)
+    ref_bank, ref_rows = ref.to_numpy_state()
+    ref.shutdown()
+    for n in names:
+        if not np.array_equal(bank[rows[n]], ref_bank[ref_rows[n]]):
+            raise AssertionError(f"config 3 row {n} differs from unbatched ingest=sort")
+    # The union on the host, from the reference's rows: no kernel of the port.
+    union_row = ref_bank[[ref_rows[n] for n in names]].max(axis=0)
+    if not np.array_equal(bank[rows["b3:merged"]], union_row):
+        raise AssertionError("config 3 merged row differs from the host's max of the rows")
+    log(f"config 3 bank: all {B3_SKETCHES} sketches bit-identical to the same keys "
+        "added unbatched under ingest=sort, the merged row to their max on the host")
+    stats = {"batched_insert_keys_per_sec": exact / add_s, "merge_count_ms": sync_ms,
+             "merge_count_pipelined_ms": pipe_ms, "batch_runs": runs,
+             "union_estimate": union}
+    log(f"config 3 on {card}: " + json.dumps(stats))
+    multi_target_vs_scatter(card, keys, bank, rows)
+    return launches, c
+
+
+def multi_target_vs_scatter(card: str, keys, bank, rows) -> None:
+    """The multi-target insert under ingest="segment" (one seg_insert
+    launch per chunk of a run) against the flat scatter ("scatter"), end
+    to end through RBatch. Config 3's batch under "scatter" on a client of
+    its own (the card client's run above is the "segment" one), its rows
+    equal to the card client's. Then two fresh clients, one of each, make
+    the same 4096 sketches with one untimed batch of 4096 x 8-key PFADDs
+    and take 8 timed batches of fresh keys into them, alternating scatter,
+    segment, segment, scatter: each pair gives both the same keys, so
+    their replies and final rows must be equal."""
+    from redisson_tpu_torch.client import RedissonTorch
+    from redisson_tpu_torch.config import Config
+
+    names = [f"b3:s{j}" for j in range(B3_SKETCHES)]
+    sc = RedissonTorch.create(Config().use_cuda(ingest="scatter"))
+    try:
+        sc.get_hyper_log_log("warm").add_all(keys[0][:1000])  # warm the add path
+        flags, add_s, runs = batched_add(sc, names, keys)
+        got, got_rows = sc.to_numpy_state()
+    finally:
+        sc.shutdown()
+    if flags != [True] * B3_SKETCHES:
+        raise AssertionError("a config 3 PFADD under scatter reported no change")
+    for n in names:
+        if not np.array_equal(got[got_rows[n]], bank[rows[n]]):
+            raise AssertionError(f"config 3 row {n} under scatter differs")
+    rates = {"config3_scatter_keys_per_sec": B3_SKETCHES * B3_KEYS / add_s,
+             "config3_scatter_runs": runs, "window_4096x8_ms": {}, "window_runs": {},
+             "window_changed": {}}
+
+    rng = np.random.default_rng(B3_SEED + 1)
+    order = ("scatter", "segment", "segment", "scatter") * 2
+    sets = [[rng.integers(0, 2**63, 8, np.uint64) for _ in range(4096)]
+            for _ in range(1 + len(order) // 2)]
+    snames = [f"w:{j}" for j in range(4096)]
+    clients = {ingest: RedissonTorch.create(Config().use_cuda(ingest=ingest))
+               for ingest in ("scatter", "segment")}
+    try:
+        for cl in clients.values():  # untimed: the 4096 rows exist after it
+            if batched_add(cl, snames, as_bytes(sets[0]))[0] != [True] * len(snames):
+                raise AssertionError("a PFADD into an empty sketch reported no change")
+        replies = {}
+        for i, ingest in enumerate(order):
+            sflags, small_s, sruns = batched_add(clients[ingest], snames,
+                                                 as_bytes(sets[1 + i // 2]))
+            if replies.setdefault(i // 2, sflags) != sflags:
+                raise AssertionError(f"4096-sketch batch {i // 2}: replies differ "
+                                     "between ingests")
+            rates["window_4096x8_ms"].setdefault(ingest, []).append(small_s * 1e3)
+            rates["window_runs"].setdefault(ingest, []).append(sruns)
+            rates["window_changed"].setdefault(ingest, []).append(sum(sflags))
+        states = {ingest: cl.to_numpy_state() for ingest, cl in clients.items()}
+    finally:
+        for cl in clients.values():
+            cl.shutdown()
+    (a, a_rows), (b, b_rows) = states["scatter"], states["segment"]
+    for n in snames:
+        if not np.array_equal(a[a_rows[n]], b[b_rows[n]]):
+            raise AssertionError(f"4096-sketch batch row {n} differs between ingests")
+    log(f"multi-target insert vs flat scatter on {card}: " + json.dumps(rates))
+
+
+def timed(what: str, n: int, fn, unit: str = "ops"):
+    t0 = time.perf_counter()
+    out = fn()
+    dt = time.perf_counter() - t0
+    log(f"  {what}: {n} {unit} in {dt:.3f} s, {n / dt:.4g} {unit}/s")
+    return out, n / dt
+
+
+def expect(what: str, got, want) -> None:
+    if got != want:
+        raise AssertionError(f"{what}: got {str(got)[:200]}, want {str(want)[:200]}")
+
+
+def structures_path(c, card: str):
+    """The structures tier on the card client, each answer held against a
+    plain-Python model. Host-tier rates: the structure engine runs on the
+    host, as in the JAX package."""
+    import threading
+
+    from redisson_tpu_torch.client import RedissonTorch
+    from redisson_tpu_torch.config import Config
+    from redisson_tpu_torch.eviction import BATCH_LIMIT
+
+    rng = np.random.default_rng(6)
+    rates = {}
+    log(f"structures tier on the card client ({card}); host-tier rates:")
+
+    m = c.get_map("st:map")
+    model = {}
+
+    def put_map():
+        for lo in range(0, ST_MAP, ST_MAP_CHUNK):
+            chunk = {f"k{i}": i * 7 for i in range(lo, lo + ST_MAP_CHUNK)}
+            m.put_all(chunk)
+            model.update(chunk)
+
+    _, rates["map_put_all_entries_per_s"] = timed("RMap put_all", ST_MAP, put_map, "entries")
+    probe = [f"k{i}" for i in rng.integers(0, ST_MAP + ST_MAP // 10, ST_MAP_GET)]
+    got, rates["map_get_all_keys_per_s"] = timed("RMap get_all", ST_MAP_GET,
+                                                 lambda: m.get_all(probe), "keys")
+    expect("RMap get_all", got, {k: model[k] for k in probe if k in model})
+    expect("RMap size", m.size(), len(model))
+
+    z = c.get_scored_sorted_set("st:board")
+    scores = rng.integers(0, 10**6, ST_ZSET).astype(float)
+    members = [f"p{i}" for i in range(ST_ZSET)]
+
+    def fill_board():
+        for lo in range(0, ST_ZSET, ST_MAP_CHUNK):
+            z.add_all([(scores[i], members[i]) for i in range(lo, lo + ST_MAP_CHUNK)])
+
+    _, rates["zset_add_members_per_s"] = timed("RScoredSortedSet add_all", ST_ZSET,
+                                               fill_board, "members")
+    order = sorted(range(ST_ZSET), key=lambda i: (scores[i], c._codec.encode(members[i])))
+    rank_of = {i: r for r, i in enumerate(order)}
+    picks = [int(i) for i in rng.integers(0, ST_ZSET, ST_ZSET_PROBES)]
+    got, rates["zset_rank_per_s"] = timed(
+        "RScoredSortedSet rank", len(picks), lambda: [z.rank(members[i]) for i in picks])
+    expect("rank", got, [rank_of[i] for i in picks])
+    expect("value_range top 100", z.value_range(0, 99), [members[i] for i in order[:100]])
+    expect("value_range bottom 100", z.value_range(-100, -1),
+           [members[i] for i in order[-100:]])
+    lo, hi = 500_000.0, 500_300.0
+    expect("value_range_by_score", z.value_range_by_score(lo, True, hi, True),
+           [members[i] for i in order if lo <= scores[i] <= hi])
+
+    q = c.get_blocking_queue("st:queue")
+    got = [[] for _ in range(ST_QUEUE_THREADS)]
+
+    def consume(k):
+        while True:
+            v = q.take()
+            if v == "stop":
+                return
+            got[k].append(tuple(v))
+
+    def produce(p):
+        for i in range(ST_QUEUE_ITEMS):
+            q.offer([p, i])
+
+    def run_queue():
+        cons = [threading.Thread(target=consume, args=(k,)) for k in range(ST_QUEUE_THREADS)]
+        prods = [threading.Thread(target=produce, args=(p,)) for p in range(ST_QUEUE_THREADS)]
+        for t in cons + prods:
+            t.start()
+        for t in prods:
+            t.join()
+        for _ in cons:
+            q.offer("stop")
+        for t in cons:
+            t.join(60)
+            if t.is_alive():
+                raise AssertionError("a blocking-queue consumer never finished")
+
+    n_items = ST_QUEUE_THREADS * ST_QUEUE_ITEMS
+    _, rates["queue_items_per_s"] = timed(
+        f"RBlockingQueue {ST_QUEUE_THREADS} producers / {ST_QUEUE_THREADS} consumers",
+        n_items, run_queue, "items")
+    delivered = [v for part in got for v in part]
+    expect("queue items delivered", sorted(delivered),
+           [(p, i) for p in range(ST_QUEUE_THREADS) for i in range(ST_QUEUE_ITEMS)])
+    parked = c._executor.execute_barrier(
+        lambda: sum(len(w) for w in c._routing.structures._waiters.values())).result()
+    expect("consumers left parked", parked, 0)
+    expect("queue left over", q.size(), 0)
+
+    lk, counter = c.get_lock("st:lock"), c.get_atomic_long("st:counter")
+
+    def locked_increments():
+        for _ in range(ST_LOCK_ITERS):
+            lk.lock()
+            try:
+                counter.increment_and_get()
+            finally:
+                lk.unlock()
+
+    def run_locks():
+        ts = [threading.Thread(target=locked_increments) for _ in range(ST_LOCK_THREADS)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+
+    n_locks = ST_LOCK_THREADS * ST_LOCK_ITERS
+    _, rates["lock_increments_per_s"] = timed(
+        f"RLock {ST_LOCK_THREADS} threads lock/increment/unlock", n_locks, run_locks,
+        "increments")
+    expect("RAtomicLong under RLock", counter.get(), n_locks)
+    expect("lock released", lk.is_locked(), False)
+
+    mc = c.get_map_cache("st:cache")
+
+    def fill_cache():
+        futs = [mc.put_async(f"c{i}", i, ST_CACHE_TTL_S) for i in range(ST_CACHE)]
+        for f in futs:
+            f.result()
+
+    _, rates["mapcache_put_per_s"] = timed("RMapCache put (TTL 1 s)", ST_CACHE, fill_cache)
+    time.sleep(ST_CACHE_TTL_S + 0.05)  # every entry's TTL has passed
+    structures = c._routing.structures
+
+    def sweep():
+        removed = sweeps = 0
+        while True:
+            n = c._executor.execute_sync("st:cache", "mc_evict_expired",
+                                         {"limit": BATCH_LIMIT})
+            removed, sweeps = removed + n, sweeps + 1
+            if n == 0:
+                return removed, sweeps
+
+    (removed, sweeps), _ = timed("mc_evict_expired sweeps", ST_CACHE, sweep, "entries")
+    left = c._executor.execute_barrier(
+        lambda: len(structures._data["st:cache"].value)
+        if "st:cache" in structures._data else 0).result()
+    log(f"  eviction: {sweeps} sweeps of up to {BATCH_LIMIT}, {removed} removed by "
+        f"them (the client's EvictionScheduler swept the rest), {left} entries left")
+    expect("map cache entries left after the sweep", left, 0)
+    expect("map cache size", mc.size(), 0)
+
+    topic = c.get_topic("st:topic")
+    heard = [[], []]
+    done = threading.Event()
+
+    def listener(k):
+        def fn(channel, msg):
+            heard[k].append(msg)
+            if len(heard[0]) == len(heard[1]) == ST_TOPIC:
+                done.set()
+        return fn
+
+    for k in range(2):
+        topic.add_listener(listener(k))
+    receivers, rates["topic_publish_per_s"] = timed(
+        "RTopic publish to 2 listeners", ST_TOPIC,
+        lambda: [topic.publish(i) for i in range(ST_TOPIC)], "messages")
+    if not done.wait(60):
+        raise AssertionError(f"topic delivered {len(heard[0])}, {len(heard[1])} "
+                             f"of {ST_TOPIC}")
+    expect("topic receivers", set(receivers), {2})
+    expect("topic messages in order", heard, [list(range(ST_TOPIC))] * 2)
+    topic.remove_all_listeners()
+
+    ref = RedissonTorch.create(Config().use_cuda(ingest="sort"))
+    try:
+        results = []
+        for client, staged in ((c, True), (ref, False)):
+            client.get_bloom_filter("st:bf").try_init(100_000, 0.01)
+            b = client.create_batch() if staged else client
+            futs = [b.get_map("st:bmap").put_async(f"k{i}", i) for i in range(ST_BATCH_PUTS)]
+            futs += [b.get_hyper_log_log(f"st:h{j}").add_all_async(
+                [f"u{j}:{i}" for i in range(1000 * (j + 1))]) for j in range(ST_BATCH_HLLS)]
+            futs.append(b.get_bloom_filter("st:bf").add_all_async(["x", "y", "x"]))
+            if staged:
+                t0 = time.perf_counter()
+                res = b.execute()
+                rates["mixed_batch_ops_per_s"] = len(res) / (time.perf_counter() - t0)
+            else:
+                res = [f.result() for f in futs]
+            results.append([r.tolist() if isinstance(r, np.ndarray) else r for r in res])
+        expect("mixed RBatch against the same ops unbatched", results[0], results[1])
+        log(f"  mixed RBatch: {len(results[0])} results in staging order, equal to the "
+            f"same ops unbatched ({rates['mixed_batch_ops_per_s']:.0f} ops/s)")
+    finally:
+        ref.shutdown()
+    log(f"structures tier host-tier rates on {card}: " + json.dumps(rates))
+    return rates
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also trace short HLL and Bloom windows with torch.profiler")
     args = ap.parse_args()
+    # A run that hangs prints every thread's stack and exits non-zero before
+    # the 1200 s the run is allowed.
+    faulthandler.dump_traceback_later(RUN_LIMIT_S, exit=True)
 
     import torch
 
@@ -1484,7 +2048,9 @@ def main() -> int:
                                                             out["bloom path"][1])),
               ("delta bitset path", lambda: delta_bitset_path(args.seed)),
               ("mixed tape window", lambda: mixed_window(args.seed)),
-              ("delta rates", lambda: delta_rates(args.seed, card))]
+              ("delta rates", lambda: delta_rates(args.seed, card)),
+              ("batch path", lambda: batch_path(card)),
+              ("structures", lambda: structures_path(out["batch path"][1], card))]
     out = {}
     for name, fn in phases:
         t = time.perf_counter()
@@ -1501,10 +2067,11 @@ def main() -> int:
     log(f"phase device times: {time.perf_counter() - t:.1f} s")
     if args.profile:
         profile_path(args.seed)
+    out["batch path"][1].shutdown()
     seg, mrg = out["kernels"]
     pop, bop, bseg = out["bits kernels"]
     dmerge, wmerge = out["delta kernels"]
-    launches = dict(out["hll path"][0])
+    launches = add_launches(out["hll path"][0], out["batch path"][0])
     bloom_l, bitset_l = out["bloom path"][0], out["bitset path"]
     delta_l = [out[p] for p in ("delta hll path", "delta bloom path",
                                 "delta bitset path", "mixed tape window")]

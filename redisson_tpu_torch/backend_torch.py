@@ -389,7 +389,7 @@ def _segments(arrays: List[np.ndarray], small: int) -> List[np.ndarray]:
     return out
 
 
-def _op_lanes(op: Op) -> int:
+def _lanes_of(op: Op) -> int:
     p = op.payload
     for key in ("idx", "packed", "data"):
         if key in p:
@@ -400,7 +400,7 @@ def _op_lanes(op: Op) -> int:
 class TorchBackend:
     """Op interpreter over a shared HLL bank: every named HLL is a row of
     ONE [S, m] int32 tensor on `store.device`, so countWith/mergeWith over
-    hundreds of sketches is one gather + row-max. hll_add coalesces across
+    hundreds of sketches is one row-max over a row vector. hll_add coalesces across
     targets (one device call carries keys for many sketches through a
     per-key row vector)."""
 
@@ -1105,7 +1105,7 @@ class TorchBackend:
                 return
             pos = 0
             for op in ops:
-                n = _op_lanes(op)
+                n = _lanes_of(op)
                 if not op.future.done():
                     value = flat[pos: pos + n].astype(bool)
                     if on_result is not None:
@@ -1266,8 +1266,10 @@ class TorchBackend:
     def _hll_add_group(self, ops: List[Op], impl: str = "scatter") -> None:
         # Kernels are only launched here; the `changed` flags resolve on the
         # completer. Single-target chunks use the scalar-row kernels (the
-        # `impl` insert); multi-target runs carry a per-key row vector
-        # through the flat scatter.
+        # `impl` insert). Multi-target runs carry a per-key row vector: byte
+        # keys through the `impl` insert's multi-target form (under
+        # 'segment' one kernel launch per chunk), small int ops through the
+        # flat scatter, as in JAX.
         parts = []
         if "packed" in ops[0].payload:
             # A large op's keys go through the staging pipeline chunk by
@@ -1327,7 +1329,7 @@ class TorchBackend:
                     prow, _ = engine.pad_ints(rowv[s:e])
                     self.bank, changed = engine.hll_bank_add_bytes_rows(
                         self._ensure_bank(), *args, self._to_device(prow),
-                        valid, self.seed, self.family)
+                        valid, self.seed, self.family, impl)
                 parts.append(changed)
         for op in ops:
             self._bump(op.target)
@@ -1418,15 +1420,14 @@ class TorchBackend:
         return np.array(rows, np.int32) if rows else None
 
     def _op_hll_count_with(self, target: str, ops: List[Op]) -> None:
-        # Union count across sketches: one gather + row-max + estimator
-        # over the padded row vector; never mutates.
+        # Union count across sketches: one row-max (merge_stack over the
+        # row vector) + estimator; never mutates.
         for op in ops:
             rows = self._count_rows(target, op.payload["names"])
             if rows is None:
                 op.future.set_result(0)
                 continue
-            est = Readback(engine.hll_bank_count_rows(
-                self.bank, engine.pad_rows_repeat(rows)))
+            est = Readback(engine.hll_bank_count_rows(self.bank, rows))
             self.completer.submit(_complete_all([op], lambda est=est: _estimate(est)))
 
     def _merge_rows(self, target: str, names) -> tuple:
@@ -1435,7 +1436,7 @@ class TorchBackend:
         trow = self._hll_row(target)
         rows = [trow] + [r for n in names
                          if (r := self._hll_row(n, create=False)) is not None]
-        return trow, engine.pad_rows_repeat(np.array(rows, np.int32))
+        return trow, np.array(rows, np.int32)
 
     def _op_hll_merge_with(self, target: str, ops: List[Op]) -> None:
         # PFMERGE: fold the sources into the target row, in place (the
@@ -1814,7 +1815,7 @@ class TorchBackend:
             # Classic adds take the planner's set-bits strategy (scatter or
             # the segment-OR kernel); blocked adds keep their scatter.
             impl = self._plan_bits(
-                sum(op.nkeys or _op_lanes(op) for op in ops), m)
+                sum(op.nkeys or _lanes_of(op) for op in ops), m)
             add_packed = functools.partial(add_packed, impl=impl)
             add_bytes = functools.partial(add_bytes, impl=impl)
         outs, spans = [], []
@@ -1855,7 +1856,7 @@ class TorchBackend:
     def _op_bloom_add(self, target: str, ops: List[Op]) -> None:
         obj, m, k = self._bloom_meta(target)
         if self._bloom_use_host(target, obj,
-                                sum(op.nkeys or _op_lanes(op) for op in ops)):
+                                sum(op.nkeys or _lanes_of(op) for op in ops)):
             self._bloom_host_add(target, obj, m, k, ops)
             return
         self._bloom_device_sync(target)
@@ -1893,7 +1894,7 @@ class TorchBackend:
     def _op_bloom_contains(self, target: str, ops: List[Op]) -> None:
         obj, m, k = self._bloom_meta(target)
         use_host = self._bloom_use_host(
-            target, obj, sum(op.nkeys or _op_lanes(op) for op in ops))
+            target, obj, sum(op.nkeys or _lanes_of(op) for op in ops))
         if not use_host:
             # Sync before reading the epoch: an absorb bumps it, and the
             # cache entries filled below must stay servable after.
@@ -1933,7 +1934,7 @@ class TorchBackend:
         obj, m, k = self._bloom_meta(target)
         host_ops = [op for op in ops if "device_packed" not in op.payload]
         if host_ops and self._bloom_use_host(
-                target, obj, sum(op.nkeys or _op_lanes(op) for op in host_ops)):
+                target, obj, sum(op.nkeys or _lanes_of(op) for op in host_ops)):
             self._bloom_host_contains(target, obj, m, k, host_ops,
                                       count_only=True)
             ops = [op for op in ops if "device_packed" in op.payload]

@@ -2,13 +2,20 @@
 its local/tpu mode).
 
 `RedissonTorch.create(config)` resolves the device (a CUDA card by default;
-`device="cpu"` only when asked), builds the sketch backend, the tier router
-and the executor waist around it, and hands out objects bound to it.
+`device="cpu"` only when asked), builds the sketch backend and the structure
+engine, the tier router and the executor waist around them, and hands out
+objects bound to it: the sketches (HyperLogLog, BitSet, Bloom) on the device
+and every structure object (buckets, maps, caches, sets, lists, queues,
+sorted sets, multimaps, geo, topics, locks, semaphores, latches, scripts,
+keys) on the in-process engine, plus `create_batch()`.
+
+Getters of tiers the port has not reached yet (nodes / topology, remote
+service, cache manager) raise NotImplementedError naming the ROADMAP item.
 """
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Callable, Optional, Union
 
 import numpy as np
 
@@ -16,12 +23,42 @@ from redisson_tpu_torch import device as device_mod
 from redisson_tpu_torch.backend_torch import TorchBackend
 from redisson_tpu_torch.codecs import get_codec
 from redisson_tpu_torch.config import Config, CudaConfig
+from redisson_tpu_torch.eviction import EvictionScheduler
 from redisson_tpu_torch.executor import CommandExecutor
+from redisson_tpu_torch.models.batch import RBatch
 from redisson_tpu_torch.models.bitset import RBitSet
 from redisson_tpu_torch.models.bloomfilter import RBloomFilter
+from redisson_tpu_torch.models.bucket import (RAtomicDouble, RAtomicLong,
+                                              RBucket, RBuckets)
+from redisson_tpu_torch.models.collections import RList, RSet
+from redisson_tpu_torch.models.geo import RGeo
 from redisson_tpu_torch.models.hyperloglog import RHyperLogLog
+from redisson_tpu_torch.models.keys import RKeys
+from redisson_tpu_torch.models.lock import (LockWatchdog, RCountDownLatch,
+                                            RFairLock, RLock, RMultiLock,
+                                            RReadWriteLock, RSemaphore,
+                                            new_client_id)
+from redisson_tpu_torch.models.map import RMap
+from redisson_tpu_torch.models.mapcache import RMapCache, RSetCache
+from redisson_tpu_torch.models.multimap import (RListMultimap,
+                                                RListMultimapCache,
+                                                RSetMultimap,
+                                                RSetMultimapCache)
+from redisson_tpu_torch.models.queue import (RBlockingDeque, RBlockingQueue,
+                                             RDeque, RQueue)
+from redisson_tpu_torch.models.scoredsortedset import (RLexSortedSet,
+                                                       RScoredSortedSet)
+from redisson_tpu_torch.models.script import RScript
+from redisson_tpu_torch.models.sortedset import RSortedSet
+from redisson_tpu_torch.models.topic import RPatternTopic, RTopic
 from redisson_tpu_torch.routing import RoutingBackend
 from redisson_tpu_torch.store import SketchStore
+
+
+def _not_ported(getter: str, item: str):
+    return NotImplementedError(
+        f"{getter} belongs to a tier redisson_tpu_torch has not ported yet "
+        f"(ROADMAP Queue 1: {item})")
 
 
 class RedissonTorch:
@@ -34,16 +71,20 @@ class RedissonTorch:
         ccfg = self.config.cuda or CudaConfig()
         self.device = device_mod.resolve(ccfg.device)
         self._codec = get_codec(self.config.codec)
+        self.id = new_client_id()
         self._widths = tuple(ccfg.key_width_buckets)
         self._store = SketchStore(self.device)
         self.sketch = TorchBackend(
             self._store, hll_impl=ccfg.hll_impl, seed=ccfg.hash_seed,
             ingest=ccfg.ingest, hll_hash=ccfg.hll_hash,
             read_cache_entries=ccfg.read_cache_entries)
-        self._backend = RoutingBackend(self.sketch)
+        self._routing = RoutingBackend(self.sketch)
         self._executor = CommandExecutor(
-            self._backend, max_batch_keys=ccfg.max_batch_keys,
+            self._routing, max_batch_keys=ccfg.max_batch_keys,
             inflight_runs=self.config.inflight_runs)
+        self._pubsub = self._routing.pubsub
+        self._watchdog = LockWatchdog(self._executor)
+        self._eviction = EvictionScheduler(self._executor)
         self._is_shutdown = False
 
     @classmethod
@@ -52,24 +93,195 @@ class RedissonTorch:
         `Config().use_cuda(...)` returns."""
         return cls(config)
 
-    # -- sketch objects -----------------------------------------------------
+    def _resolve_codec(self, codec):
+        """Per-object codec: a Codec instance or a registry name; the client
+        default (Config.codec) otherwise."""
+        return get_codec(codec) if codec is not None else self._codec
+
+    # -- sketch objects (the device tier) -----------------------------------
 
     def get_hyper_log_log(self, name: str, codec=None) -> RHyperLogLog:
-        codec = get_codec(codec) if codec is not None else self._codec
-        return RHyperLogLog(name, self._executor, codec, self._widths)
+        return RHyperLogLog(name, self._executor, self._resolve_codec(codec),
+                            self._widths)
 
     def get_bit_set(self, name: str) -> RBitSet:
         return RBitSet(name, self._executor, self._codec, self._widths)
 
     def get_bloom_filter(self, name: str, codec=None) -> RBloomFilter:
-        codec = get_codec(codec) if codec is not None else self._codec
-        return RBloomFilter(name, self._executor, codec, self._widths)
+        return RBloomFilter(name, self._executor, self._resolve_codec(codec),
+                            self._widths)
 
-    def get_keys(self, pattern: str = "*"):
+    def create_batch(self, **submit_kwargs) -> RBatch:
+        """RBatch over every object family; `submit_kwargs` (a `deadline`)
+        budget the whole pipeline."""
+        return RBatch(self._executor, self._codec, self._widths,
+                      **submit_kwargs)
+
+    # -- structure objects (the in-process engine) --------------------------
+
+    def get_bucket(self, name: str, codec=None) -> RBucket:
+        return RBucket(name, self._executor, self._resolve_codec(codec), self._widths)
+
+    def get_buckets(self, codec=None) -> RBuckets:
+        return RBuckets(self._executor, self._resolve_codec(codec))
+
+    def get_atomic_long(self, name: str) -> RAtomicLong:
+        return RAtomicLong(name, self._executor, self._codec, self._widths)
+
+    def get_atomic_double(self, name: str) -> RAtomicDouble:
+        return RAtomicDouble(name, self._executor, self._codec, self._widths)
+
+    def get_map(self, name: str, codec=None) -> RMap:
+        return RMap(name, self._executor, self._resolve_codec(codec), self._widths)
+
+    def get_map_cache(self, name: str, codec=None) -> RMapCache:
+        return RMapCache(name, self._executor, self._resolve_codec(codec),
+                         self._widths, eviction_scheduler=self._eviction)
+
+    def get_set(self, name: str, codec=None) -> RSet:
+        return RSet(name, self._executor, self._resolve_codec(codec), self._widths)
+
+    def get_set_cache(self, name: str, codec=None) -> RSetCache:
+        return RSetCache(name, self._executor, self._resolve_codec(codec),
+                         self._widths, eviction_scheduler=self._eviction)
+
+    def get_list(self, name: str, codec=None) -> RList:
+        return RList(name, self._executor, self._resolve_codec(codec), self._widths)
+
+    def get_queue(self, name: str, codec=None) -> RQueue:
+        return RQueue(name, self._executor, self._resolve_codec(codec), self._widths)
+
+    def get_deque(self, name: str, codec=None) -> RDeque:
+        return RDeque(name, self._executor, self._resolve_codec(codec), self._widths)
+
+    def get_blocking_queue(self, name: str, codec=None) -> RBlockingQueue:
+        return RBlockingQueue(name, self._executor, self._resolve_codec(codec),
+                              self._widths)
+
+    def get_blocking_deque(self, name: str, codec=None) -> RBlockingDeque:
+        return RBlockingDeque(name, self._executor, self._resolve_codec(codec),
+                              self._widths)
+
+    def get_sorted_set(self, name: str, codec=None,
+                       key: Optional[Callable] = None) -> RSortedSet:
+        return RSortedSet(
+            name, self._executor, self._resolve_codec(codec), self._widths,
+            key=key, guard_lock=self.get_lock(name + "__sortedset_guard"))
+
+    def get_scored_sorted_set(self, name: str, codec=None) -> RScoredSortedSet:
+        return RScoredSortedSet(name, self._executor, self._resolve_codec(codec),
+                                self._widths)
+
+    def get_lex_sorted_set(self, name: str) -> RLexSortedSet:
+        return RLexSortedSet(name, self._executor, self._codec, self._widths)
+
+    def get_set_multimap(self, name: str, codec=None) -> RSetMultimap:
+        return RSetMultimap(name, self._executor, self._resolve_codec(codec),
+                            self._widths)
+
+    def get_list_multimap(self, name: str, codec=None) -> RListMultimap:
+        return RListMultimap(name, self._executor, self._resolve_codec(codec),
+                             self._widths)
+
+    def get_set_multimap_cache(self, name: str, codec=None) -> RSetMultimapCache:
+        return RSetMultimapCache(name, self._executor,
+                                 self._resolve_codec(codec), self._widths)
+
+    def get_list_multimap_cache(self, name: str, codec=None) -> RListMultimapCache:
+        return RListMultimapCache(name, self._executor,
+                                  self._resolve_codec(codec), self._widths)
+
+    def get_geo(self, name: str, codec=None) -> RGeo:
+        return RGeo(name, self._executor, self._resolve_codec(codec), self._widths)
+
+    def get_topic(self, name: str, codec=None) -> RTopic:
+        return RTopic(name, self._executor, self._resolve_codec(codec), self._pubsub)
+
+    def get_pattern_topic(self, pattern: str, codec=None) -> RPatternTopic:
+        return RPatternTopic(pattern, self._executor, self._resolve_codec(codec),
+                             self._pubsub)
+
+    # -- coordination -------------------------------------------------------
+
+    def get_lock(self, name: str) -> RLock:
+        return RLock(name, self._executor, self._pubsub, self.id, self._watchdog)
+
+    def get_fair_lock(self, name: str) -> RFairLock:
+        return RFairLock(name, self._executor, self._pubsub, self.id, self._watchdog)
+
+    def get_read_write_lock(self, name: str) -> RReadWriteLock:
+        return RReadWriteLock(name, self._executor, self._pubsub, self.id,
+                              self._watchdog)
+
+    def get_multi_lock(self, *locks: RLock) -> RMultiLock:
+        return RMultiLock(*locks)
+
+    def get_semaphore(self, name: str) -> RSemaphore:
+        return RSemaphore(name, self._executor, self._pubsub)
+
+    def get_count_down_latch(self, name: str) -> RCountDownLatch:
+        return RCountDownLatch(name, self._executor, self._pubsub)
+
+    def get_script(self) -> RScript:
+        """Atomic scripting: python functions run on the dispatcher over the
+        structure engine."""
+        return RScript(self._executor)
+
+    # -- bucket batch helpers -----------------------------------------------
+
+    def find_buckets(self, pattern: str):
+        """Buckets whose names match the glob."""
+        return [self.get_bucket(n)
+                for n in self.get_keys().get_keys_by_pattern(pattern)]
+
+    def load_bucket_values(self, *keys):
+        """name -> decoded value for existing keys; accepts names varargs or
+        one iterable."""
+        if len(keys) == 1 and not isinstance(keys[0], str):
+            keys = tuple(keys[0])
+        return self.get_buckets().get(*keys)
+
+    def save_buckets(self, values) -> None:
+        """Atomic multi-bucket MSET."""
+        self.get_buckets().set(dict(values))
+
+    # -- tiers still queued -------------------------------------------------
+
+    def get_cluster_nodes_group(self):
+        raise _not_ported("get_cluster_nodes_group", "serve, persist, fault, "
+                          "trace, memstat (observability.py NodesGroup)")
+
+    def get_nodes_group(self):
+        raise _not_ported("get_nodes_group", "serve, persist, fault, trace, "
+                          "memstat (observability.py NodesGroup)")
+
+    def get_topology_manager(self, scan_interval_s: float = 1.0,
+                             failed_attempts: int = 3):
+        raise _not_ported("get_topology_manager",
+                          "parallel/ via NCCL (parallel/topology.py)")
+
+    def get_remote_service(self, name: str = "remote_service"):
+        raise _not_ported("get_remote_service",
+                          "reactive/ and services/ (services/remote.py)")
+
+    def get_cache_manager(self, configs=None):
+        raise _not_ported("get_cache_manager",
+                          "reactive/ and services/ (services/cache_manager.py)")
+
+    # -- keyspace -----------------------------------------------------------
+
+    def get_keys(self) -> RKeys:
+        return RKeys(self._executor, self._routing)
+
+    def keys(self, pattern: str = "*"):
         return self._executor.execute_sync("", "keys", {"pattern": pattern})
 
     def flushall(self) -> None:
+        # Through the executor, so it serializes with in-flight ops.
         self._executor.execute_sync("", "flushall", None)
+
+    def delete(self, name: str) -> bool:
+        return self._executor.execute_sync(name, "delete", None)
 
     # -- state carry-over ---------------------------------------------------
 
@@ -93,9 +305,30 @@ class RedissonTorch:
 
     # -- lifecycle ----------------------------------------------------------
 
+    def get_config(self) -> Config:
+        return self.config
+
+    def is_shutdown(self) -> bool:
+        return self._is_shutdown
+
     def shutdown(self) -> None:
+        """Stop in the JAX client's order: the eviction sweeps and the lock
+        watchdog (both submit ops), then the executor (drains queued and
+        in-flight runs), the device completer, the parked blocking pops
+        (their waiters get an error), and last the pub/sub delivery
+        thread."""
         if self._is_shutdown:
             return
+        self._eviction.shutdown()
+        self._watchdog.shutdown()
         self._executor.shutdown()
         self.sketch.completer.shutdown()
+        self._routing.structures.fail_waiters()
+        self._pubsub.shutdown()
         self._is_shutdown = True
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.shutdown()

@@ -30,6 +30,13 @@
 //   registers its pairs land on and raises them in device memory. The
 //   64 KiB of registers stays in L2, so a 2^16-lane batch costs two
 //   dependent memory round trips after the launch.
+// - seg_rows_kernel (multi-target runs into an [S, m] bank): the direct
+//   kernel's scheme with each pair's row read beside its bucket and rank,
+//   one launch for a chunk of a run whatever its target count. JAX's
+//   kernel takes one register array of int32 codes bucket << 6 | rank and
+//   keeps multi-target runs on a flat scatter (row * m + bucket codes
+//   would overflow them for large banks); here the row is an int32 of its
+//   own, so no code overflows. Each raising pair sets its row's flag.
 // - seg_shared_kernel (large batches, m <= kMaxRegisters): each block folds
 //   one contiguous slice of the pairs into a block-private copy of the
 //   registers in shared memory (64 KiB at p = 14) with shared atomics.
@@ -139,6 +146,70 @@ seg_direct_kernel(int* regs, unsigned m, const int* __restrict__ bucket,
     rose |= lift(regs + bi, ri, seen(regs, m, bi, ri));
   }
   if (__syncthreads_or(rose) && threadIdx.x == 0 && changed != nullptr) *changed = 1;
+}
+
+// Raises the register `p` points at to `a` where `a` exceeds the value `o`
+// read before, and sets its row's flag byte (read first: most raises find it
+// set already).
+__device__ __forceinline__ void lift_row(int* p, int a, int o, uint8_t* flag) {
+  if (a <= o) return;
+  atomicMax(p, a);
+  if (flag != nullptr && *flag == 0) *flag = 1;
+}
+
+// The register of pair (w, b, r) in an [s, m] bank, or null for a pair that
+// must not fold (rank <= 0, or row or bucket out of range).
+__device__ __forceinline__ int* bank_reg(int* bank, unsigned s, unsigned m,
+                                         int w, int b, int r) {
+  return r > 0 && static_cast<unsigned>(w) < s && static_cast<unsigned>(b) < m
+             ? bank + static_cast<size_t>(w) * m + b
+             : nullptr;
+}
+
+// The multi-target insert: pair i folds into row row[i] of an [s, m] bank
+// and sets flag byte changed[row[i]] where it raised a register. The direct
+// kernel's scheme (every pair reads its register, then raises it with one
+// atomic where it exceeds what it read), with the row read beside the
+// bucket and rank; the flag argument is the same, per row.
+__global__ void __launch_bounds__(kDirectThreads)
+seg_rows_kernel(int* bank, unsigned s, unsigned m, const int* __restrict__ bucket,
+                const int* __restrict__ rank, const int* __restrict__ row,
+                long long n, uint8_t* changed) {
+  constexpr int kLanes = 4 * kDirectUnroll;
+  const long long nvec = n >> 2;
+  const long long v0 = static_cast<long long>(blockIdx.x) * kDirectUnroll *
+                           kDirectThreads + threadIdx.x;
+  const int4* b4 = reinterpret_cast<const int4*>(bucket);
+  const int4* r4 = reinterpret_cast<const int4*>(rank);
+  const int4* w4 = reinterpret_cast<const int4*>(row);
+  int b[kLanes], r[kLanes], w[kLanes];
+#pragma unroll
+  for (int u = 0; u < kDirectUnroll; ++u) {
+    const long long v = v0 + u * kDirectThreads;
+    const bool in = v < nvec;
+    const int4 bv = in ? __ldg(b4 + v) : make_int4(0, 0, 0, 0);
+    const int4 rv = in ? __ldg(r4 + v) : make_int4(0, 0, 0, 0);  // rank 0: no fold
+    const int4 wv = in ? __ldg(w4 + v) : make_int4(0, 0, 0, 0);
+    b[4 * u] = bv.x; b[4 * u + 1] = bv.y; b[4 * u + 2] = bv.z; b[4 * u + 3] = bv.w;
+    r[4 * u] = rv.x; r[4 * u + 1] = rv.y; r[4 * u + 2] = rv.z; r[4 * u + 3] = rv.w;
+    w[4 * u] = wv.x; w[4 * u + 1] = wv.y; w[4 * u + 2] = wv.z; w[4 * u + 3] = wv.w;
+  }
+  int* p[kLanes];
+  int o[kLanes];
+#pragma unroll
+  for (int k = 0; k < kLanes; ++k) p[k] = bank_reg(bank, s, m, w[k], b[k], r[k]);
+#pragma unroll
+  for (int k = 0; k < kLanes; ++k) o[k] = p[k] != nullptr ? *p[k] : 0x7fffffff;
+#pragma unroll
+  for (int k = 0; k < kLanes; ++k)
+    lift_row(p[k], r[k], o[k], changed != nullptr ? changed + w[k] : nullptr);
+  // The n % 4 pairs past the last vector: the first block's first threads.
+  const long long i = (nvec << 2) + threadIdx.x;
+  if (blockIdx.x == 0 && i < n) {
+    const int wi = __ldg(row + i), ri = __ldg(rank + i);
+    int* pi = bank_reg(bank, s, m, wi, __ldg(bucket + i), ri);
+    if (pi != nullptr) lift_row(pi, ri, *pi, changed != nullptr ? changed + wi : nullptr);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -281,5 +352,28 @@ extern "C" int seg_insert_shared_i32(void* regs, int m, const void* bucket,
       static_cast<const int*>(bucket), static_cast<const int*>(rank), n, per,
       static_cast<uint8_t*>(changed)));
   if (err) return err;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bank: [s, m] int32 (>= 0), in place; bucket, rank, row: [n] int32, 16-byte
+// aligned; changed: [s] bytes (a torch.bool tensor), byte row[i] set to 1
+// where pair i raised a register, or null. Pairs whose row lies outside
+// [0, s) or bucket outside [0, m) are dropped. Launches ceil(n / 2048)
+// blocks. Returns the CUDA error code of the launch (0 on success).
+extern "C" int seg_insert_rows_i32(void* bank, int s, int m, const void* bucket,
+                                   const void* rank, const void* row, long long n,
+                                   void* changed, int device, void* stream) {
+  const int err = use_device(device);
+  if (err) return err;
+  if (s < 1 || m < 1 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  const long long per_block = 4LL * kDirectThreads * kDirectUnroll;
+  const long long blocks = (n + per_block - 1) / per_block;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  seg_rows_kernel<<<static_cast<unsigned>(blocks), kDirectThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int*>(bank), static_cast<unsigned>(s), static_cast<unsigned>(m),
+      static_cast<const int*>(bucket), static_cast<const int*>(rank),
+      static_cast<const int*>(row), n, static_cast<uint8_t*>(changed));
   return static_cast<int>(cudaGetLastError());
 }

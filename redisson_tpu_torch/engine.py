@@ -14,10 +14,11 @@ writes a fresh row first, so the PFADD "changed" flag keeps JAX's meaning
 (`hll_bank_row`, for export) clone.
 
 Every named HLL is a row of one `[S, m]` int32 bank: multi-sketch PFMERGE
-and PFCOUNT are one gather + row-max over an index vector. These bank
-functions stay plain PyTorch. The hand-written kernels are the segmented
-insert (`ingest="segment"`) and `merge_stack` (`hll_merge_stack`,
-`hll_count_merged`). The mesh collectives (`engine.py:467-563` of the JAX
+and PFCOUNT are one row-max over an index vector. The hand-written kernels
+are the segmented insert (`ingest="segment"`; a multi-target run takes its
+multi-target form, one launch per chunk) and `merge_stack`
+(`hll_merge_stack`, `hll_count_merged`, and the bank merges, which it reads
+in place through the index vector). The mesh collectives (`engine.py:467-563` of the JAX
 package) arrive with the parallel slice.
 
 BitSet and Bloom state is an [m] uint8 cell tensor (`ops/bitset.py`).
@@ -223,14 +224,23 @@ def hll_bank_make(capacity: int, m: int = None, device=None) -> torch.Tensor:
                        dtype=torch.int32, device=device)
 
 
-def _bank_add(bank, h1, rows, valid):
-    """Multi-target insert at flat index row*m + bucket, in place. Returns
-    (bank, changed_rows[S]). A row changed iff some key's rank exceeds the
-    register it lands on (gathered before the scatter): the same flag as
-    JAX's whole-bank row compare, without a bank-sized copy."""
+def _bank_add(bank, h1, rows, valid, impl: str = "scatter"):
+    """Multi-target insert, in place: key i raises bank row rows[i]. Returns
+    (bank, changed_rows[S]). Under 'segment' the segmented kernel's
+    multi-target form folds the whole chunk in one launch and sets the
+    flags; otherwise the flat scatter at row*m + bucket (JAX's path), where
+    a row changed iff some key's rank exceeds the register it lands on
+    (gathered before the scatter): the same flag as JAX's whole-bank row
+    compare, without a bank-sized copy."""
     s, m = bank.shape
     bucket, rank = hll.bucket_rank(h1, hll.p_of(m))
     rank = torch.where(valid, rank, 0)  # padded lanes never raise
+    if impl == "segment":
+        from redisson_tpu_torch.ingest import kernels as ingest_kernels
+
+        changed_rows = torch.zeros(s, dtype=torch.bool, device=bank.device)
+        ingest_kernels.hll_insert_segmented_rows(bank, bucket, rank, rows, changed_rows)
+        return bank, changed_rows
     rows = torch.where(valid, rows.long(), 0)
     idx = rows * m + bucket
     flat = bank.view(-1)
@@ -282,8 +292,11 @@ def hll_bank_add_bytes(bank, data, lengths, valid, row: int, seed: int = 0,
 
 
 def hll_bank_add_bytes_rows(bank, data, lengths, rows, valid, seed: int = 0,
-                            family: str = "m3"):
-    return _bank_add(bank, _hll_h1_bytes(data, lengths, seed, family), rows, valid)
+                            family: str = "m3", impl: str = "scatter"):
+    """Multi-target byte-key PFADD (per-key target row, int32); `impl`
+    'segment' takes the segmented kernel, any other the flat scatter."""
+    return _bank_add(bank, _hll_h1_bytes(data, lengths, seed, family), rows, valid,
+                     impl)
 
 
 def hll_bank_row(bank, row: int):
@@ -296,22 +309,29 @@ def hll_bank_count(bank, row: int):
     return hll.count(bank[row])
 
 
+def _merged_rows(bank, rows):
+    """Max over a row subset (rows may repeat), read from the bank in place
+    by merge_stack; JAX gathers the rows and reduces them with jnp.max."""
+    return pk.merge_stack(bank, torch.as_tensor(np.asarray(rows, np.int32),
+                                                device=bank.device))
+
+
 def hll_bank_count_rows(bank, rows):
     """Union count over a row subset (countWith); `rows` may repeat."""
-    return hll.count(bank[_index(rows, bank.device)].amax(dim=0))
+    return hll.count(_merged_rows(bank, rows))
 
 
 def hll_bank_merge_rows(bank, rows, target: int):
     """PFMERGE rows (the caller includes `target` in `rows`) into row
     `target`, in place."""
-    bank[target] = bank[_index(rows, bank.device)].amax(dim=0)
+    bank[target] = _merged_rows(bank, rows)
     return bank
 
 
 def hll_bank_merge_count_rows(bank, rows, target: int):
     """Fused PFMERGE + PFCOUNT: fold `rows` into row `target` (in place) and
     estimate the merged cardinality -> (bank, estimate)."""
-    merged = bank[_index(rows, bank.device)].amax(dim=0)
+    merged = _merged_rows(bank, rows)
     bank[target] = merged
     return bank, hll.count(merged)
 

@@ -23,6 +23,14 @@ Dispatch model:
 Batch visibility: the per-key "changed" result of a coalesced run is taken
 against the object's state at run start.
 
+Blocking pops (`PARKED_KINDS`) park their future in the structure engine:
+their run releases its gate and window slot at run() return, so the push or
+`bpop_cancel` that completes them dispatches normally.
+
+RBatch: `execute_many` enqueues a staged pipeline under one lock
+acquisition; `BatchCollector` / `StagedFuture` collect, dispatch and return
+results in staging order.
+
 Journaling, tracing, metrics, the serving layer's policies, fault injection
 and the contract witness arrive with their own slices.
 """
@@ -35,11 +43,18 @@ import time
 from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 # Op kinds that may coalesce with the previous op of the same kind+target.
 COALESCABLE = {"hll_add", "bloom_add", "bitset_set", "bitset_clear",
                "bitset_get", "bloom_contains"}
+
+# Kinds whose futures stay pending until a later op (a push serving the
+# parked waiter, or bpop_cancel) or a client-side timeout fulfils them. Such
+# a run releases its target gate when run() returns and never holds an
+# in-flight window slot: holding either would gate the very op that fulfils
+# it, and two parked pops would wedge the whole window.
+PARKED_KINDS = frozenset({"bpop"})
 
 # Pseudo-kind run inline on the dispatcher thread: the op's payload is a
 # zero-arg callable, executed with no run staging concurrently (an exact
@@ -119,6 +134,7 @@ class CommandExecutor:
         self._cv = make_condition("executor.CommandExecutor._lock", self._lock)
         self._queues: Dict[str, deque] = {}
         self._ready: deque = deque()  # round-robin of names with work
+        self._runs_dispatched = 0
         self._shutdown = False
         self._thread = threading.Thread(
             target=self._loop, name="redisson-torch-dispatcher", daemon=True)
@@ -139,6 +155,19 @@ class CommandExecutor:
             self._enqueue_locked(op)
             self._cv.notify()
         return op.future
+
+    def execute_many(self, staged: Sequence[Tuple[str, str, Any, int]],
+                     deadline: Optional[float] = None) -> List[Future]:
+        """Enqueue a pre-staged op list under one lock acquisition (the
+        RBatch dispatch path): per-target FIFO order follows list order,
+        and the whole batch shares one deadline."""
+        ops = [Op(target=t, kind=k, payload=p, nkeys=n, deadline=deadline)
+               for (t, k, p, n) in staged]
+        with self._cv:
+            for op in ops:
+                self._enqueue_locked(op)
+            self._cv.notify()
+        return [op.future for op in ops]
 
     def _enqueue_locked(self, op: Op) -> None:
         if self._shutdown:
@@ -161,6 +190,17 @@ class CommandExecutor:
         """Run `fn` inline on the dispatcher thread, ordered like an op on
         `target`; the future resolves with fn's return value."""
         return self.execute_async(target, BARRIER_KIND, fn)
+
+    def queue_depth(self) -> int:
+        """Total ops waiting across all object queues (locked snapshot)."""
+        with self._lock:
+            return sum(len(q) for q in self._queues.values())
+
+    def runs_dispatched(self) -> int:
+        """Runs handed to the backend so far (barriers excluded): how many
+        runs a batch took is the difference across its execute()."""
+        with self._lock:
+            return self._runs_dispatched
 
     # -- dispatcher ---------------------------------------------------------
 
@@ -294,19 +334,29 @@ class CommandExecutor:
             self._retire(token)
             return
         token.pending = len(live)
-        # Arm completion accounting before the backend sees the ops: a
-        # synchronous backend resolves futures inside run().
-        for op in live:
-            op.future.add_done_callback(
-                lambda fut, token=token: self._op_done(token))
+        with self._cv:
+            self._runs_dispatched += 1
+        parked = token.kind in PARKED_KINDS
+        if not parked:
+            # Arm completion accounting before the backend sees the ops: a
+            # synchronous backend resolves futures inside run(). Parked
+            # kinds skip it: a later op completes them.
+            for op in live:
+                op.future.add_done_callback(
+                    lambda fut, token=token: self._op_done(token))
         try:
             self._backend.run(token.kind, token.target, live)
-            if self._eager_release:
+            if self._eager_release and not parked:
                 self._release_gates(token)
         except Exception as exc:  # complete, never kill the loop
             for op in live:
                 if not op.future.done():
                     op.future.set_exception(exc)
+        if parked:
+            # The waiter is parked (or was served inline): drop the gates
+            # and the window slot now, so the op that fulfils it can
+            # dispatch against this same target.
+            self._retire(token)
 
     # -- completion path ----------------------------------------------------
 
@@ -366,3 +416,101 @@ class CommandExecutor:
                 if remaining <= 0:
                     break
                 self._cv.wait(remaining)
+
+    # -- batch facade -------------------------------------------------------
+
+    def batch(self, **submit_kwargs) -> "BatchCollector":
+        return BatchCollector(self, **submit_kwargs)
+
+
+class BatchCollector:
+    """RBatch engine: collect ops without dispatching, then execute.
+
+    The collect phase does no I/O; execute() submits the staged ops in index
+    order through `execute_many` (one lock acquisition, so the dispatcher
+    sees the whole pipeline at once and coalesces it as it would any queued
+    ops) and gathers results in the same order. `submit_kwargs` (a
+    `deadline`) apply to the whole batch.
+    """
+
+    def __init__(self, executor, **submit_kwargs):
+        self._executor = executor
+        self._submit_kwargs = submit_kwargs
+        self._staged: List[tuple] = []
+        self._futures: List["StagedFuture"] = []
+        self._executed = False
+
+    def add(self, target: str, kind: str, payload: Any,
+            nkeys: int = 0) -> "StagedFuture":
+        """Stage an op; returns its placeholder future (resolved at
+        execute)."""
+        if self._executed:
+            raise RuntimeError("batch already executed")
+        self._staged.append((target, kind, payload, nkeys))
+        f = StagedFuture()
+        self._futures.append(f)
+        return f
+
+    def _dispatch(self) -> List[Future]:
+        if self._executed:
+            raise RuntimeError("batch already executed")
+        self._executed = True
+        for f in self._futures:
+            f._dispatched = True
+        inner = self._executor.execute_many(self._staged, **self._submit_kwargs)
+        for staged, src in zip(self._futures, inner):
+            src.add_done_callback(staged._resolve_from)
+        return inner
+
+    def execute(self) -> List[Any]:
+        """Dispatch all staged ops; decoded results in staging order (the
+        decode chains registered via `map_future` fire off the staged
+        futures). The first failure raises."""
+        inner = self._dispatch()
+        for f in inner:
+            f.result()
+        return [f.outermost().result() for f in self._futures]
+
+    def execute_async(self) -> List[Future]:
+        """Dispatch staged ops; returns the decoded per-op futures in
+        order."""
+        self._dispatch()
+        return [f.outermost() for f in self._futures]
+
+
+class StagedFuture(Future):
+    """RBatch placeholder: a real Future resolved only at execute() time.
+
+    result() before the batch is dispatched raises instead of deadlocking;
+    after dispatch it blocks normally until the dispatcher resolves it.
+    Decode wrappers chained by `map_future` register themselves via
+    `_note_mapped` so the batch can return decoded values.
+    """
+
+    def __init__(self):
+        super().__init__()
+        self._dispatched = False
+        self._mapped: Future = self
+
+    def result(self, timeout=None):
+        if not self._dispatched and not self.done():
+            raise RuntimeError("batch not executed yet; call RBatch.execute()")
+        return super().result(timeout)
+
+    def _resolve_from(self, src: Future) -> None:
+        if src.cancelled():
+            self.cancel()
+            self.set_running_or_notify_cancel()
+            return
+        exc = src.exception()
+        if exc is not None:
+            self.set_exception(exc)
+        else:
+            self.set_result(src.result())
+
+    def _note_mapped(self, fut: Future) -> None:
+        self._mapped = fut
+
+    def outermost(self) -> Future:
+        """The outermost decode wrapper (or self if none was chained)."""
+        return self._mapped

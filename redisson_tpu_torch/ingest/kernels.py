@@ -9,6 +9,8 @@ them into a fresh output. Here neither insert sorts, and both work in place:
   with atomics taken only where a register rises, directly for a small
   batch, through block copies of the registers in shared memory for a
   large one, and set PFADD's changed flag (`csrc/seg_insert.cu`);
+  `hll_insert_segmented_rows` is its multi-target form, a row per pair
+  into a bank, one launch for a run of many sketches;
 * `bits_insert_segmented`: the raw cell indexes are binned by 64 KiB slab
   of cells and each bin applied to its slab (`csrc/bits_insert.cu`).
 
@@ -49,6 +51,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "seg_insert_direct_i32": ("seg_insert", [_P, _I, _P, _P, _LL, _P, _I, _P], _I),
     "seg_insert_shared_i32": ("seg_insert", [_P, _I, _P, _P, _LL, _I, _I, _P, _I, _P], _I),
+    "seg_insert_rows_i32": ("seg_insert", [_P, _I, _I, _P, _P, _P, _LL, _P, _I, _P], _I),
     "bits_insert_scratch_bytes": ("bits_insert", [_LL, _LL, _I], _LL),
     "bits_insert_u8": ("bits_insert", [_P, _LL, _P, _LL, _I, _P, _LL, _I, _P], _I),
 }
@@ -158,6 +161,76 @@ def hll_insert_segmented(registers: torch.Tensor, bucket: torch.Tensor,
     if target is not registers:
         registers.copy_(target)
     return registers
+
+
+def _int32_operand(name: str, t: torch.Tensor, n: int, device) -> torch.Tensor:
+    """`t` as a contiguous, 16-byte aligned [n] int32 tensor on `device`
+    (a copy where it is not one), or raise."""
+    if t.dtype != torch.int32 or t.device != device or t.numel() != n:
+        raise ValueError(f"hll_insert_segmented: {name} must be [{n}] int32 on "
+                         f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        t = t.contiguous() if not t.is_contiguous() else t.clone()
+    return t
+
+
+def hll_insert_segmented_rows_plain(bank: torch.Tensor, bucket: torch.Tensor,
+                                    rank: torch.Tensor, rows: torch.Tensor,
+                                    changed: torch.Tensor = None) -> torch.Tensor:
+    """The flat scatter at row * m + bucket (JAX's multi-target insert),
+    in place -> `bank`; `changed` ([S] bool), when given, is set at the
+    rows where a register rose and left as it was elsewhere. Pairs with
+    rank <= 0, or a row or bucket out of range, are dropped."""
+    s, m = bank.shape
+    rows, bucket = rows.long(), bucket.long()
+    keep = (rank > 0) & (rows >= 0) & (rows < s) & (bucket >= 0) & (bucket < m)
+    rows, rank = rows[keep], rank[keep]
+    idx = rows * m + bucket[keep]
+    flat = bank.view(-1)
+    if changed is not None:
+        changed.index_fill_(0, rows[rank > flat[idx]], True)
+    flat.scatter_reduce_(0, idx, rank, reduce="amax")
+    return bank
+
+
+def hll_insert_segmented_rows(bank: torch.Tensor, bucket: torch.Tensor,
+                              rank: torch.Tensor, rows: torch.Tensor,
+                              changed: torch.Tensor = None) -> torch.Tensor:
+    """Multi-target segment-max fold, in place: pair i raises register
+    bucket[i] of row rows[i] of an [S, m] int32 bank (>= 0) -> `bank`.
+    `changed` ([S] bool), when given, is set to True at each row where a
+    register rose and left as it was elsewhere: PFADD's replies for a run
+    of many sketches. Padding lanes carry rank 0. On a card this is one
+    kernel launch whatever the number of rows."""
+    if bank.dtype != torch.int32 or bank.dim() != 2:
+        raise ValueError("hll_insert_segmented_rows needs an [S, m] int32 bank")
+    if not bank.is_cuda:
+        if bank.device.type == "cpu":
+            return hll_insert_segmented_rows_plain(bank, bucket, rank, rows, changed)
+        raise ValueError(f"hll_insert_segmented_rows: unsupported device {bank.device}")
+    if not bank.is_contiguous():
+        raise ValueError("hll_insert_segmented_rows: the bank must be contiguous")
+    s, m = bank.shape
+    n = bucket.numel()
+    ops = [_int32_operand(name, t, n, bank.device)
+           for name, t in (("bucket", bucket), ("rank", rank), ("rows", rows))]
+    flag = None
+    if changed is not None:
+        if (changed.dtype != torch.bool or changed.shape != (s,)
+                or changed.device != bank.device or not changed.is_contiguous()):
+            raise ValueError(f"hll_insert_segmented_rows: changed must be [{s}] bool on "
+                             f"{bank.device}")
+        flag = changed.data_ptr()
+    if n == 0:
+        return bank
+    index = bank.get_device()
+    rc = _kernel("seg_insert_rows_i32")(
+        bank.data_ptr(), s, m, ops[0].data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(), n,
+        flag, index, torch._C._cuda_getCurrentRawStream(index))
+    if rc:
+        raise RuntimeError(f"hll_insert_segmented_rows launch failed: CUDA error {rc}")
+    launches["seg_insert"] += 1
+    return bank
 
 
 def bits_insert_segmented_plain(cells: torch.Tensor,

@@ -1,14 +1,43 @@
 """Object base class: name + codec + executor; every object is stateless
-client-side (a copy of the parts of `redisson_tpu.models.object` the HLL
-facade needs)."""
+client-side (a copy of `redisson_tpu.models.object`)."""
 
 from __future__ import annotations
 
+from concurrent.futures import Future
 from typing import Iterable, List, Sequence
 
 import numpy as np
 
 from redisson_tpu_torch.codecs import Codec, encode_key
+
+
+def map_future(f, fn):
+    """Chain a decode step onto an executor future (async methods return
+    decoded values, like the reference's reply convertors)."""
+    out = Future()
+
+    def done(src):
+        if src.cancelled():
+            out.cancel()
+            return
+        exc = src.exception()
+        if exc is not None:
+            out.set_exception(exc)
+        else:
+            try:
+                out.set_result(fn(src.result()))
+            except Exception as e:  # decode error
+                out.set_exception(e)
+
+    f.add_done_callback(done)
+    note = getattr(f, "_note_mapped", None)
+    if note is not None:
+        # Staged batch future: register the decode wrapper so
+        # RBatch.execute() returns decoded values; forward the hook so
+        # chained decodes keep pointing at the same batch slot.
+        note(out)
+        out._note_mapped = note
+    return out
 
 
 def pack_u64(values) -> np.ndarray:

@@ -31,7 +31,7 @@ _fns = {}
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C entry point -> (source, argtypes)
 _SIGNATURES = {
-    "merge_stack_i32": ("merge_stack", [_P, _P, _I, _I, _I, _I, _P]),
+    "merge_stack_i32": ("merge_stack", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "popcount_partials_u8": ("popcount", [_P, _LL, _I, _P, _I, _P]),
     "bitop_u8": ("bitop", [_P, _P, _I, _LL, _I, _I, _I, _P]),
     "delta_merge_u8": ("delta_merge", [_P, _P, _P, _LL, _LL, _I, _P]),
@@ -73,8 +73,11 @@ def _stream(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
-def merge_stack_plain(stack: torch.Tensor) -> torch.Tensor:
-    """Elementwise max over the leading axis of an [S, m] int32 stack."""
+def merge_stack_plain(stack: torch.Tensor, rows: torch.Tensor = None) -> torch.Tensor:
+    """Elementwise max over the leading axis of an [S, m] int32 stack, or
+    over the rows `rows` lists (gathered first)."""
+    if rows is not None:
+        stack = stack[rows.long()]
     s, m = stack.shape
     if s == 0:
         return torch.zeros((m,), dtype=stack.dtype, device=stack.device)
@@ -87,31 +90,40 @@ def rows_per_block(s: int, m: int) -> int:
     return -(-s // splits)
 
 
-def merge_stack(stack: torch.Tensor) -> torch.Tensor:
+def merge_stack(stack: torch.Tensor, rows: torch.Tensor = None) -> torch.Tensor:
     """PFMERGE over an [S, m] int32 stack -> [m] (a fresh tensor; the stack
-    is not modified)."""
+    is not modified). `rows`, an int32 vector on the stack's device, lists
+    the rows to merge (they may repeat): the client's PFMERGE over bank
+    rows, read in place with no gathered copy. None merges all S rows."""
     if stack.dim() != 2 or stack.dtype != torch.int32:
         raise ValueError(
             f"merge_stack needs an [S, m] int32 tensor, got "
             f"{tuple(stack.shape)} {stack.dtype}")
     if _on_cpu("merge_stack", stack):
-        return merge_stack_plain(stack)
-    s, m = stack.shape
+        return merge_stack_plain(stack, rows)
+    height, m = stack.shape
     if not stack.is_contiguous():
         raise ValueError("merge_stack: stack must be contiguous")
     if m % 4 or stack.data_ptr() % 16:
         raise ValueError("merge_stack: needs m % 4 == 0 and 16-byte alignment")
-    # atomicMax combines the row blocks, so the output starts at zero, the
-    # identity of max over registers >= 0.
-    out = torch.zeros((m,), dtype=torch.int32, device=stack.device)
-    if s == 0:
-        return out
-    rc = _kernel("merge_stack_i32")(stack.data_ptr(), out.data_ptr(), s, m,
-                                    rows_per_block(s, m), stack.device.index,
+    s, rows_ptr = height, None
+    if rows is not None:
+        if (rows.dtype != torch.int32 or rows.dim() != 1 or rows.device != stack.device
+                or not rows.is_contiguous()):
+            raise ValueError(f"merge_stack: rows must be a contiguous [R] int32 vector on "
+                             f"{stack.device}, got {rows.dtype} {tuple(rows.shape)} on "
+                             f"{rows.device}")
+        s, rows_ptr = rows.shape[0], rows.data_ptr()
+    # atomicMax combines the row blocks into an output the foreign call
+    # zeroes first (zero is the identity of max over registers >= 0).
+    out = torch.empty((m,), dtype=torch.int32, device=stack.device)
+    rc = _kernel("merge_stack_i32")(stack.data_ptr(), rows_ptr, out.data_ptr(), s, height,
+                                    m, rows_per_block(s, m), stack.device.index,
                                     _stream(stack))
     if rc:
         raise RuntimeError(f"merge_stack launch failed: CUDA error {rc}")
-    launches["merge_stack"] += 1
+    if s:
+        launches["merge_stack"] += 1
     return out
 
 

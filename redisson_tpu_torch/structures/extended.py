@@ -1,0 +1,735 @@
+"""Extended structure ops: TTL caches, multimaps, geo, and coordination.
+
+Mixed into StructureBackend. Each handler is one atomic op on the dispatcher
+thread — the analogue of the reference's Lua scripts:
+
+  * mapcache/setcache — per-entry TTL + maxIdle kept next to the value, the
+    companion-zset design of `RedissonMapCache.java:75-87` collapsed into
+    one record; evicted lazily + by the EvictionScheduler sweep op.
+  * locks — hash field `uuid:thread` -> reentrancy count with a lease
+    deadline (`RedissonLock.java:236-252`); unlock publishes to the lock
+    channel to wake waiters (`:324-343`).
+  * semaphore / countdownlatch — counters + publish
+    (`RedissonSemaphore.java`, `RedissonCountDownLatch.java`).
+  * multimap — key -> set|list of values (`RedissonSetMultimap` /
+    `RedissonListMultimap` keep per-key sub-collections; one record here).
+  * geo — member -> (lon, lat); radius/dist computed with vectorized
+    numpy haversine over the whole structure (batch math, not a port of
+    Redis' geohash zset encoding).
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from redisson_tpu_torch.executor import Op
+
+LOCK_CHANNEL_PREFIX = "redisson_lock__channel:"
+SEMAPHORE_CHANNEL_PREFIX = "redisson_sem__channel:"
+LATCH_CHANNEL_PREFIX = "redisson_latch__channel:"
+
+UNLOCK_MESSAGE = 0
+READ_UNLOCK_MESSAGE = 1
+LATCH_ZERO_MESSAGE = "zero"
+
+
+def _earth_m(unit: str) -> float:
+    return {"m": 1.0, "km": 1000.0, "mi": 1609.344, "ft": 0.3048}[unit]
+
+
+def _haversine_m(lon1, lat1, lon2, lat2):
+    """Vectorized great-circle distance in meters (numpy arrays ok)."""
+    lon1, lat1, lon2, lat2 = (np.radians(np.asarray(x, np.float64)) for x in (lon1, lat1, lon2, lat2))
+    dlon, dlat = lon2 - lon1, lat2 - lat1
+    a = np.sin(dlat / 2) ** 2 + np.cos(lat1) * np.cos(lat2) * np.sin(dlon / 2) ** 2
+    return 6372797.560856 * 2 * np.arcsin(np.sqrt(a))
+
+
+class ExtendedOps:
+    """Mixin for StructureBackend (relies on _entry/_create/_drop/pubsub)."""
+
+    # ==== mapcache (RMapCache) =============================================
+    # value: dict[field] = [value, expire_at_ms|None, max_idle_ms|None, last_access_ms]
+
+    def _mc_live(self, kv, field) -> Optional[list]:
+        from redisson_tpu_torch.structures.engine import now_ms
+
+        rec = kv.value.get(field)
+        if rec is None:
+            return None
+        t = now_ms()
+        if (rec[1] is not None and rec[1] <= t) or (
+            rec[2] is not None and rec[3] + rec[2] <= t
+        ):
+            del kv.value[field]
+            return None
+        return rec
+
+    def _op_mc_put(self, key: str, op: Op) -> None:
+        from redisson_tpu_torch.structures.engine import T, now_ms
+
+        kv = self._create(key, T.MAPCACHE, dict)
+        t = now_ms()
+        rec = self._mc_live(kv, op.payload["field"])
+        old = None if rec is None else rec[0]
+        if op.payload.get("if_absent") and old is not None:
+            op.future.set_result(old)
+            return
+        ttl = op.payload.get("ttl_ms")
+        idle = op.payload.get("max_idle_ms")
+        kv.value[op.payload["field"]] = [
+            op.payload["value"],
+            None if not ttl else t + int(ttl),
+            None if not idle else int(idle),
+            t,
+        ]
+        op.future.set_result(old)
+
+    def _op_mc_get(self, key: str, op: Op) -> None:
+        from redisson_tpu_torch.structures.engine import T, now_ms
+
+        kv = self._entry(key, T.MAPCACHE)
+        if kv is None:
+            op.future.set_result(None)
+            return
+        rec = self._mc_live(kv, op.payload["field"])
+        if rec is None:
+            op.future.set_result(None)
+            return
+        rec[3] = now_ms()  # touch for maxIdle
+        op.future.set_result(rec[0])
+
+    def _op_mc_remove(self, key: str, op: Op) -> None:
+        from redisson_tpu_torch.structures.engine import T
+
+        kv = self._entry(key, T.MAPCACHE)
+        if kv is None:
+            op.future.set_result(None)
+            return
+        rec = self._mc_live(kv, op.payload["field"])
+        old = None if rec is None else rec[0]
+        kv.value.pop(op.payload["field"], None)
+        self._drop_if_empty(key, kv)
+        op.future.set_result(old)
+
+    def _op_mc_contains(self, key: str, op: Op) -> None:
+        from redisson_tpu_torch.structures.engine import T
+
+        kv = self._entry(key, T.MAPCACHE)
+        op.future.set_result(kv is not None and self._mc_live(kv, op.payload["field"]) is not None)
+
+    def _op_mc_size(self, key: str, op: Op) -> None:
+        from redisson_tpu_torch.structures.engine import T
+
+        kv = self._entry(key, T.MAPCACHE)
+        if kv is None:
+            op.future.set_result(0)
+            return
+        for f in list(kv.value):
+            self._mc_live(kv, f)
+        op.future.set_result(len(kv.value))
+
+    def _op_mc_getall(self, key: str, op: Op) -> None:
+        from redisson_tpu_torch.structures.engine import T
+
+        kv = self._entry(key, T.MAPCACHE)
+        if kv is None:
+            op.future.set_result({})
+            return
+        out = {}
+        for f in list(kv.value):
+            rec = self._mc_live(kv, f)
+            if rec is not None:
+                out[f] = rec[0]
+        op.future.set_result(out)
+
+    def _op_mc_evict_expired(self, key: str, op: Op) -> None:
+        """The EvictionScheduler's sweep: delete up to `limit` expired
+        entries, return the count (`EvictionScheduler.java:47-115` batches
+        of <=300 via Lua)."""
+        from redisson_tpu_torch.structures.engine import T, now_ms
+
+        kv = self._entry(key)
+        if kv is None:
+            op.future.set_result(0)
+            return
+        limit = op.payload.get("limit", 300)
+        t = now_ms()
+        n = 0
+        if kv.otype == T.MAPCACHE:
+            for f, rec in list(kv.value.items()):
+                if n >= limit:
+                    break
+                if (rec[1] is not None and rec[1] <= t) or (
+                    rec[2] is not None and rec[3] + rec[2] <= t
+                ):
+                    del kv.value[f]
+                    n += 1
+        elif kv.otype == T.SETCACHE:
+            for m, exp in list(kv.value.items()):
+                if n >= limit:
+                    break
+                if exp is not None and exp <= t:
+                    del kv.value[m]
+                    n += 1
+        self._drop_if_empty(key, kv)
+        op.future.set_result(n)
+
+    # ==== setcache (RSetCache) =============================================
+    # value: dict[member] = expire_at_ms | None
+
+    def _op_sc_add(self, key: str, op: Op) -> None:
+        from redisson_tpu_torch.structures.engine import T, now_ms
+
+        kv = self._create(key, T.SETCACHE, dict)
+        m = op.payload["member"]
+        ttl = op.payload.get("ttl_ms")
+        exp = kv.value.get(m, 0)
+        is_new = not (m in kv.value and (exp is None or exp > now_ms()))
+        kv.value[m] = None if not ttl else now_ms() + int(ttl)
+        op.future.set_result(is_new)
+
+    def _op_sc_contains(self, key: str, op: Op) -> None:
+        from redisson_tpu_torch.structures.engine import T, now_ms
+
+        kv = self._entry(key, T.SETCACHE)
+        if kv is None:
+            op.future.set_result(False)
+            return
+        m = op.payload["member"]
+        exp = kv.value.get(m, 0)
+        if m in kv.value and exp is not None and exp <= now_ms():
+            del kv.value[m]
+        op.future.set_result(m in kv.value)
+
+    def _op_sc_remove(self, key: str, op: Op) -> None:
+        from redisson_tpu_torch.structures.engine import T
+
+        kv = self._entry(key, T.SETCACHE)
+        if kv is None:
+            op.future.set_result(False)
+            return
+        removed = op.payload["member"] in kv.value
+        kv.value.pop(op.payload["member"], None)
+        self._drop_if_empty(key, kv)
+        op.future.set_result(removed)
+
+    def _op_sc_size(self, key: str, op: Op) -> None:
+        from redisson_tpu_torch.structures.engine import T, now_ms
+
+        kv = self._entry(key, T.SETCACHE)
+        if kv is None:
+            op.future.set_result(0)
+            return
+        t = now_ms()
+        for m, exp in list(kv.value.items()):
+            if exp is not None and exp <= t:
+                del kv.value[m]
+        op.future.set_result(len(kv.value))
+
+    def _op_sc_members(self, key: str, op: Op) -> None:
+        from redisson_tpu_torch.structures.engine import T, now_ms
+
+        kv = self._entry(key, T.SETCACHE)
+        if kv is None:
+            op.future.set_result([])
+            return
+        t = now_ms()
+        out = []
+        for m, exp in list(kv.value.items()):
+            if exp is not None and exp <= t:
+                del kv.value[m]
+            else:
+                out.append(m)
+        op.future.set_result(out)
+
+    # ==== multimap =========================================================
+    # value: dict[key_bytes] = set() | deque()
+
+    def _mm_type(self, op: Op):
+        from redisson_tpu_torch.structures.engine import T
+
+        return T.MULTIMAP_LIST if op.payload.get("list") else T.MULTIMAP_SET
+
+    def _mm_reap(self, key: str, kv) -> None:
+        """Drop multimap keys whose per-key TTL passed (the multimap-cache
+        timeout-zset sweep, RedissonMultimapCache.java, done lazily); a
+        multimap whose last key expires disappears, as in redis mode."""
+        if kv is None or kv.mm_expiry is None:
+            return
+        from redisson_tpu_torch.structures.engine import now_ms
+
+        t = now_ms()
+        for k in [k for k, dl in kv.mm_expiry.items() if dl <= t]:
+            kv.value.pop(k, None)
+            del kv.mm_expiry[k]
+        self._drop_if_empty(key, kv)
+
+    def _mm_entry(self, key: str, op: Op):
+        kv = self._entry(key, self._mm_type(op))
+        self._mm_reap(key, kv)
+        return kv
+
+    def _op_mm_delete(self, key: str, op: Op) -> None:
+        """Delete the multimap + its TTL state (reference deleteAsync)."""
+        kv = self._entry(key)
+        op.future.set_result(kv is not None and self._drop(key))
+
+    def _op_mm_expire_key(self, key: str, op: Op) -> None:
+        """expireKey(key, ttl): per-key TTL, True only when the key exists
+        (RedissonMultimapCache.expireKeyAsync contract)."""
+        from redisson_tpu_torch.structures.engine import now_ms
+
+        kv = self._mm_entry(key, op)
+        k = op.payload["key"]
+        if kv is None or k not in kv.value:
+            op.future.set_result(False)
+            return
+        ttl_ms = op.payload.get("ttl_ms")
+        if not ttl_ms or ttl_ms <= 0:
+            if kv.mm_expiry is not None:
+                kv.mm_expiry.pop(k, None)
+        else:
+            if kv.mm_expiry is None:
+                kv.mm_expiry = {}
+            kv.mm_expiry[k] = now_ms() + int(ttl_ms)
+        op.future.set_result(True)
+
+    def _op_mm_put(self, key: str, op: Op) -> None:
+        # Reap BEFORE _create: reaping afterwards could drop a newly
+        # re-registered (emptied) multimap from the store and lose this
+        # put into the detached KV.
+        self._mm_reap(key, self._entry(key, self._mm_type(op)))
+        kv = self._create(key, self._mm_type(op), dict)
+        k = op.payload["key"]
+        if op.payload.get("list"):
+            bucket = kv.value.setdefault(k, deque())
+            bucket.append(op.payload["value"])
+            op.future.set_result(True)
+        else:
+            bucket = kv.value.setdefault(k, set())
+            before = len(bucket)
+            bucket.add(op.payload["value"])
+            op.future.set_result(len(bucket) != before)
+
+    def _op_mm_get_all(self, key: str, op: Op) -> None:
+        kv = self._mm_entry(key, op)
+        if kv is None:
+            op.future.set_result([])
+            return
+        bucket = kv.value.get(op.payload["key"])
+        op.future.set_result([] if bucket is None else list(bucket))
+
+    def _op_mm_remove(self, key: str, op: Op) -> None:
+        kv = self._mm_entry(key, op)
+        if kv is None:
+            op.future.set_result(False)
+            return
+        bucket = kv.value.get(op.payload["key"])
+        if bucket is None:
+            op.future.set_result(False)
+            return
+        try:
+            bucket.remove(op.payload["value"])
+            ok = True
+        except (KeyError, ValueError):
+            ok = False
+        if not bucket:
+            del kv.value[op.payload["key"]]
+            if kv.mm_expiry is not None:
+                kv.mm_expiry.pop(op.payload["key"], None)
+        self._drop_if_empty(key, kv)
+        op.future.set_result(ok)
+
+    def _op_mm_remove_all(self, key: str, op: Op) -> None:
+        kv = self._mm_entry(key, op)
+        if kv is None:
+            op.future.set_result([])
+            return
+        bucket = kv.value.pop(op.payload["key"], None)
+        if kv.mm_expiry is not None:
+            kv.mm_expiry.pop(op.payload["key"], None)
+        self._drop_if_empty(key, kv)
+        op.future.set_result([] if bucket is None else list(bucket))
+
+    def _op_mm_keys(self, key: str, op: Op) -> None:
+        kv = self._mm_entry(key, op)
+        op.future.set_result([] if kv is None else list(kv.value.keys()))
+
+    def _op_mm_size(self, key: str, op: Op) -> None:
+        kv = self._mm_entry(key, op)
+        op.future.set_result(0 if kv is None else sum(len(b) for b in kv.value.values()))
+
+    def _op_mm_key_size(self, key: str, op: Op) -> None:
+        kv = self._mm_entry(key, op)
+        op.future.set_result(0 if kv is None else len(kv.value))
+
+    def _op_mm_contains_key(self, key: str, op: Op) -> None:
+        kv = self._mm_entry(key, op)
+        op.future.set_result(kv is not None and op.payload["key"] in kv.value)
+
+    def _op_mm_contains_value(self, key: str, op: Op) -> None:
+        kv = self._mm_entry(key, op)
+        v = op.payload["value"]
+        op.future.set_result(kv is not None and any(v in b for b in kv.value.values()))
+
+    def _op_mm_contains_entry(self, key: str, op: Op) -> None:
+        kv = self._mm_entry(key, op)
+        bucket = None if kv is None else kv.value.get(op.payload["key"])
+        op.future.set_result(bucket is not None and op.payload["value"] in bucket)
+
+    def _op_mm_entries(self, key: str, op: Op) -> None:
+        kv = self._mm_entry(key, op)
+        if kv is None:
+            op.future.set_result([])
+            return
+        op.future.set_result([(k, v) for k, b in kv.value.items() for v in b])
+
+    # ==== geo (RGeo) =======================================================
+    # value: dict[member] = (lon, lat)
+
+    def _op_geoadd(self, key: str, op: Op) -> None:
+        from redisson_tpu_torch.structures.engine import T
+
+        kv = self._create(key, T.GEO, dict)
+        added = 0
+        for lon, lat, member in op.payload["entries"]:
+            if member not in kv.value:
+                added += 1
+            kv.value[member] = (float(lon), float(lat))
+        op.future.set_result(added)
+
+    def _op_geopos(self, key: str, op: Op) -> None:
+        from redisson_tpu_torch.structures.engine import T
+
+        kv = self._entry(key, T.GEO)
+        members = op.payload["members"]
+        if kv is None:
+            op.future.set_result({})
+            return
+        op.future.set_result({m: kv.value[m] for m in members if m in kv.value})
+
+    def _op_geodist(self, key: str, op: Op) -> None:
+        from redisson_tpu_torch.structures.engine import T
+
+        kv = self._entry(key, T.GEO)
+        a = None if kv is None else kv.value.get(op.payload["m1"])
+        b = None if kv is None else kv.value.get(op.payload["m2"])
+        if a is None or b is None:
+            op.future.set_result(None)
+            return
+        d = float(_haversine_m(a[0], a[1], b[0], b[1]))
+        op.future.set_result(d / _earth_m(op.payload.get("unit", "m")))
+
+    def _op_georadius(self, key: str, op: Op) -> None:
+        """GEORADIUS / GEORADIUSBYMEMBER: one vectorized haversine over all
+        members (numpy batch — the Redis zset walk, done as array math)."""
+        from redisson_tpu_torch.structures.engine import T
+
+        kv = self._entry(key, T.GEO)
+        if kv is None or not kv.value:
+            op.future.set_result([])
+            return
+        if "member" in op.payload:
+            center = kv.value.get(op.payload["member"])
+            if center is None:
+                op.future.set_result([])
+                return
+            lon0, lat0 = center
+        else:
+            lon0, lat0 = op.payload["lon"], op.payload["lat"]
+        members = list(kv.value.keys())
+        coords = np.array([kv.value[m] for m in members], np.float64)
+        dist_m = _haversine_m(lon0, lat0, coords[:, 0], coords[:, 1])
+        radius_m = op.payload["radius"] * _earth_m(op.payload.get("unit", "m"))
+        unit = _earth_m(op.payload.get("unit", "m"))
+        hits = [
+            (members[i], float(dist_m[i]) / unit, (float(coords[i, 0]), float(coords[i, 1])))
+            for i in np.flatnonzero(dist_m <= radius_m)
+        ]
+        hits.sort(key=lambda h: h[1])
+        count = op.payload.get("count")
+        if count is not None:
+            hits = hits[:count]
+        op.future.set_result(hits)
+
+    # ==== locks ============================================================
+    # value: {"holds": {owner: {"write": n, "read": n}},
+    #         "lease": {owner: deadline_ms|None},
+    #         "queue": [[owner, deadline_ms], ...]}  (fair-lock waiters)
+    #
+    # The mode is derived: write if any owner holds a write count, read if
+    # only read counts, free otherwise — so a writer taking a reentrant read
+    # never downgrades exclusion.
+
+    QUEUE_SLACK_MS = 5_000  # fair-queue entry TTL slack (threadWaitTime analogue)
+
+    def _lock_state(self, key: str):
+        from redisson_tpu_torch.structures.engine import T
+
+        return self._create(key, T.LOCK, lambda: {"holds": {}, "lease": {}, "queue": []})
+
+    @staticmethod
+    def _lock_mode(st) -> str:
+        if any(h["write"] > 0 for h in st["holds"].values()):
+            return "write"
+        return "read" if st["holds"] else "free"
+
+    def _lock_reap(self, kv) -> None:
+        """Drop owners whose lease expired (watchdog missed = orphan lock;
+        the reference relies on the Redis PEXPIRE, `RedissonLock.java:59-61`)
+        and fair-queue entries whose wait deadline passed (abandoned waiters
+        must not wedge the queue — the reference's fair-lock Lua expires
+        queue entries by timeout)."""
+        from redisson_tpu_torch.structures.engine import now_ms
+
+        t = now_ms()
+        st = kv.value
+        for o in [o for o, dl in st["lease"].items() if dl is not None and dl <= t]:
+            st["holds"].pop(o, None)
+            st["lease"].pop(o, None)
+        st["queue"] = [e for e in st["queue"] if e[1] > t]
+
+    def _op_lock_try(self, key: str, op: Op) -> None:
+        """tryLockInner: None = acquired; else remaining ttl ms of the
+        current holder (`RedissonLock.java:236-252` Lua contract).
+
+        payload: owner, lease_ms, mode (write|read), fair, enqueue (register
+        as a fair waiter when blocked), wait_ms (fair-queue entry TTL).
+        """
+        from redisson_tpu_torch.structures.engine import now_ms
+
+        kv = self._lock_state(key)
+        self._lock_reap(kv)
+        p = op.payload
+        owner, mode = p["owner"], p.get("mode", "write")
+        fair = p.get("fair", False)
+        st = kv.value
+        t = now_ms()
+
+        def block():
+            if fair and p.get("enqueue"):
+                ttl_entry = t + int(p.get("wait_ms") or 0) + self.QUEUE_SLACK_MS
+                for e in st["queue"]:
+                    if e[0] == owner:
+                        e[1] = ttl_entry  # refresh on retry
+                        break
+                else:
+                    st["queue"].append([owner, ttl_entry])
+            op.future.set_result(self._lock_ttl(st))
+
+        # fair: only the queue head (or an existing holder re-entering) may
+        # pass while others wait
+        if (
+            fair
+            and st["queue"]
+            and st["queue"][0][0] != owner
+            and owner not in st["holds"]
+        ):
+            block()
+            return
+
+        cur_mode = self._lock_mode(st)
+        if mode == "write":
+            # exclusive: free, or this owner is the sole holder (reentrant /
+            # upgrade)
+            can = not st["holds"] or set(st["holds"]) == {owner}
+        else:
+            # shared: no *other* owner may hold write
+            can = all(
+                o == owner or h["write"] == 0 for o, h in st["holds"].items()
+            )
+        if not can:
+            block()
+            return
+
+        if fair:
+            st["queue"] = [e for e in st["queue"] if e[0] != owner]
+        hold = st["holds"].setdefault(owner, {"write": 0, "read": 0})
+        hold[mode] += 1
+        lease = p.get("lease_ms")
+        st["lease"][owner] = None if not lease else t + int(lease)
+        op.future.set_result(None)
+
+    @staticmethod
+    def _lock_ttl(st) -> int:
+        from redisson_tpu_torch.structures.engine import now_ms
+
+        deadlines = [d for d in st["lease"].values() if d is not None]
+        if not deadlines:
+            return -1  # held without lease
+        return max(0, max(deadlines) - now_ms())
+
+    def _op_lock_unlock(self, key: str, op: Op) -> None:
+        """None = not owner (caller raises IllegalMonitorState analogue);
+        False = still held (reentrant); True = this owner fully released
+        (+ published if the lock went free)."""
+        kv = self._lock_state(key)
+        self._lock_reap(kv)
+        owner, mode = op.payload["owner"], op.payload.get("mode", "write")
+        st = kv.value
+        hold = st["holds"].get(owner)
+        if hold is None or hold[mode] <= 0:
+            op.future.set_result(None)
+            return
+        hold[mode] -= 1
+        if hold["write"] > 0 or hold["read"] > 0:
+            op.future.set_result(False)
+            return
+        del st["holds"][owner]
+        st["lease"].pop(owner, None)
+        if not st["holds"]:
+            if not st["queue"]:
+                self._drop(key)
+            self.pubsub.publish(
+                LOCK_CHANNEL_PREFIX + key,
+                READ_UNLOCK_MESSAGE if mode == "read" else UNLOCK_MESSAGE,
+            )
+        op.future.set_result(True)
+
+    def _op_lock_queue_remove(self, key: str, op: Op) -> None:
+        """A fair waiter giving up (try_lock timeout) dequeues itself."""
+        from redisson_tpu_torch.structures.engine import T
+
+        kv = self._entry(key, T.LOCK)
+        if kv is not None:
+            kv.value["queue"] = [e for e in kv.value["queue"] if e[0] != op.payload["owner"]]
+            if not kv.value["holds"] and not kv.value["queue"]:
+                self._drop(key)
+        op.future.set_result(None)
+
+    def _op_lock_renew(self, key: str, op: Op) -> None:
+        """Watchdog renewal (`RedissonLock.java:197-227`). Reads via _entry:
+        a renewal racing an unlock must not resurrect the key."""
+        from redisson_tpu_torch.structures.engine import T, now_ms
+
+        kv = self._entry(key, T.LOCK)
+        owner = op.payload["owner"]
+        if kv is None or owner not in kv.value["holds"]:
+            op.future.set_result(False)
+            return
+        kv.value["lease"][owner] = now_ms() + int(op.payload["lease_ms"])
+        op.future.set_result(True)
+
+    def _op_lock_force_unlock(self, key: str, op: Op) -> None:
+        existed = self._drop(key)
+        self.pubsub.publish(LOCK_CHANNEL_PREFIX + key, UNLOCK_MESSAGE)
+        op.future.set_result(existed)
+
+    def _op_lock_state(self, key: str, op: Op) -> None:
+        """(is_locked, hold_count_for_owner, mode) introspection."""
+        from redisson_tpu_torch.structures.engine import T
+
+        kv = self._entry(key, T.LOCK)
+        if kv is None:
+            op.future.set_result((False, 0, "free"))
+            return
+        self._lock_reap(kv)
+        st = kv.value
+        owner = op.payload.get("owner")
+        hold = st["holds"].get(owner) if owner else None
+        count = 0 if hold is None else hold["write"] + hold["read"]
+        op.future.set_result((bool(st["holds"]), count, self._lock_mode(st)))
+
+    # ==== semaphore ========================================================
+    # value: int available permits
+
+    def _op_sem_try_set_permits(self, key: str, op: Op) -> None:
+        from redisson_tpu_torch.structures.engine import T
+
+        kv = self._entry(key, T.SEMAPHORE)
+        if kv is not None:
+            op.future.set_result(False)
+            return
+        self._create(key, T.SEMAPHORE, lambda: int(op.payload["permits"]))
+        op.future.set_result(True)
+
+    def _op_sem_try_acquire(self, key: str, op: Op) -> None:
+        from redisson_tpu_torch.structures.engine import T
+
+        kv = self._entry(key, T.SEMAPHORE)
+        n = int(op.payload.get("permits", 1))
+        if kv is None or kv.value < n:
+            op.future.set_result(False)
+            return
+        kv.value -= n
+        op.future.set_result(True)
+
+    def _op_sem_release(self, key: str, op: Op) -> None:
+        from redisson_tpu_torch.structures.engine import T
+
+        kv = self._create(key, T.SEMAPHORE, lambda: 0)
+        kv.value += int(op.payload.get("permits", 1))
+        self.pubsub.publish(SEMAPHORE_CHANNEL_PREFIX + key, kv.value)
+        op.future.set_result(None)
+
+    def _op_sem_available(self, key: str, op: Op) -> None:
+        from redisson_tpu_torch.structures.engine import T
+
+        kv = self._entry(key, T.SEMAPHORE)
+        op.future.set_result(0 if kv is None else int(kv.value))
+
+    def _op_sem_drain(self, key: str, op: Op) -> None:
+        from redisson_tpu_torch.structures.engine import T
+
+        kv = self._entry(key, T.SEMAPHORE)
+        drained = 0 if kv is None else int(kv.value)
+        if kv is not None:
+            kv.value = 0
+        op.future.set_result(drained)
+
+    def _op_sem_set_permits(self, key: str, op: Op) -> None:
+        from redisson_tpu_torch.structures.engine import T
+
+        kv = self._create(key, T.SEMAPHORE, lambda: 0)
+        kv.value = int(op.payload["permits"])
+        if kv.value > 0:
+            self.pubsub.publish(SEMAPHORE_CHANNEL_PREFIX + key, kv.value)
+        op.future.set_result(None)
+
+    def _op_sem_add_permits(self, key: str, op: Op) -> None:
+        from redisson_tpu_torch.structures.engine import T
+
+        kv = self._create(key, T.SEMAPHORE, lambda: 0)
+        kv.value += int(op.payload["permits"])  # may go negative (reference reducePermits)
+        if kv.value > 0:
+            self.pubsub.publish(SEMAPHORE_CHANNEL_PREFIX + key, kv.value)
+        op.future.set_result(None)
+
+    # ==== countdownlatch ===================================================
+    # value: int remaining count
+
+    def _op_latch_try_set(self, key: str, op: Op) -> None:
+        from redisson_tpu_torch.structures.engine import T
+
+        kv = self._entry(key, T.LATCH)
+        if kv is not None and kv.value > 0:
+            op.future.set_result(False)
+            return
+        self._create(key, T.LATCH, lambda: 0)
+        self._entry(key, T.LATCH).value = int(op.payload["count"])
+        op.future.set_result(True)
+
+    def _op_latch_count_down(self, key: str, op: Op) -> None:
+        from redisson_tpu_torch.structures.engine import T
+
+        kv = self._entry(key, T.LATCH)
+        if kv is None or kv.value <= 0:
+            op.future.set_result(0)
+            return
+        kv.value -= 1
+        if kv.value == 0:
+            self._drop(key)
+            self.pubsub.publish(LATCH_CHANNEL_PREFIX + key, LATCH_ZERO_MESSAGE)
+            op.future.set_result(0)
+            return
+        op.future.set_result(int(kv.value))
+
+    def _op_latch_get(self, key: str, op: Op) -> None:
+        from redisson_tpu_torch.structures.engine import T
+
+        kv = self._entry(key, T.LATCH)
+        op.future.set_result(0 if kv is None else int(kv.value))

@@ -90,6 +90,50 @@ def test_merge_stack_matches_plain(dev, s):
     assert torch.equal(ok.merge_stack(stack), ok.merge_stack_plain(stack))
 
 
+@pytest.mark.parametrize("n,case", [(1 << 21, "uniform"), (1 << 21, "no_raise"),
+                                    (32_771, "uniform"), (32_771, "out_of_range"),
+                                    (1 << 16, "hot"), (0, "uniform")])
+def test_seg_insert_rows_matches_plain(dev, n, case):
+    """The multi-target form at a config 3 chunk (2^21 lanes over 256
+    rows) and a window of small PFADDs: registers and per-row flags."""
+    g = torch.Generator(device=dev).manual_seed(n + len(case))
+    s, m = 300, 16384
+    bank = torch.randint(0, 20, (s, m), dtype=torch.int32, device=dev, generator=g)
+    bucket = torch.randint(0, m, (n,), dtype=torch.int32, device=dev, generator=g)
+    rank = torch.randint(0, 52, (n,), dtype=torch.int32, device=dev, generator=g)
+    rows = torch.randint(0, 256, (n,), dtype=torch.int32, device=dev, generator=g)
+    if case == "hot":
+        bucket.fill_(77)
+        rows.fill_(3)
+    elif case == "no_raise":
+        bank.view(-1).scatter_reduce_(0, rows.long() * m + bucket.long(), rank,
+                                      reduce="amax")
+    elif case == "out_of_range":
+        bucket[::7] = m
+        rows[1::7] = s
+        rows[2::7] = -1
+    want = bank.clone()
+    want_changed = torch.zeros(s, dtype=torch.bool, device=dev)
+    ik.hll_insert_segmented_rows_plain(want, bucket, rank, rows, want_changed)
+    changed = torch.zeros(s, dtype=torch.bool, device=dev)
+    before = ik.launches["seg_insert"]
+    assert ik.hll_insert_segmented_rows(bank, bucket, rank, rows, changed) is bank
+    assert torch.equal(bank, want) and torch.equal(changed, want_changed)
+    assert bool(changed.any()) == (case != "no_raise" and n > 0)
+    assert ik.launches["seg_insert"] == before + (1 if n else 0)
+
+
+@pytest.mark.parametrize("height,r", [(300, 257), (1100, 1001), (300, 2), (8, 0)])
+def test_merge_stack_over_bank_rows_matches_plain(dev, height, r):
+    """The client's merges at the paths' shapes: 257 rows of a bank (config
+    3's 256 and the target), 1001 (the HLL path's 1000 and the target),
+    with repeats."""
+    g = torch.Generator(device=dev).manual_seed(r)
+    bank = torch.randint(0, 52, (height, 16384), dtype=torch.int32, device=dev, generator=g)
+    rows = torch.randint(0, height, (r,), dtype=torch.int32, device=dev, generator=g)
+    assert torch.equal(ok.merge_stack(bank, rows), ok.merge_stack_plain(bank, rows))
+
+
 @pytest.mark.parametrize("n", [1 << 27, 257_296_945, 1_000_003, 0])
 def test_popcount_matches_plain(dev, n):
     g = torch.Generator(device=dev).manual_seed(n)
@@ -303,3 +347,35 @@ def test_delta_ingest_on_card_matches_cpu(dev):
             np.testing.assert_array_equal(a, b)
         for name in cpu[4]:
             np.testing.assert_array_equal(card[4][name][1], cpu[4][name][1])
+
+
+def test_rbatch_over_256_sketches_on_card_matches_cpu(dev):
+    """BASELINE config 3's shape at 2,000 keys per sketch: the batched
+    PFADD on the card (segmented insert) and the PFMERGE + PFCOUNT over the
+    256 (merge_stack) leave the bank the CPU client's batch leaves."""
+    rng = np.random.default_rng(3)
+    keys = [[k.tobytes() for k in rng.integers(0, 2**63, 2000, np.uint64)]
+            for _ in range(256)]
+    names = [f"b3:s{i}" for i in range(256)]
+    out = []
+    for device in ("cuda:0", "cpu"):
+        c = RedissonTorch.create(Config().use_cuda(device=device, ingest="segment"))
+        try:
+            seg0, mrg0 = ik.launches["seg_insert"], ok.launches["merge_stack"]
+            batch = c.create_batch()
+            for n, k in zip(names, keys):
+                batch.get_hyper_log_log(n).add_all_async(k)
+            flags = batch.execute()
+            union = c.get_hyper_log_log("b3:merged").merge_with_and_count(*names)
+            bank, rows = c.to_numpy_state()
+            out.append((flags, union, {n: bank[rows[n]] for n in names + ["b3:merged"]}))
+            if device != "cpu":
+                assert ik.launches["seg_insert"] > seg0
+                assert ok.launches["merge_stack"] > mrg0
+        finally:
+            c.shutdown()
+    (gflags, gunion, grows), (cflags, cunion, crows) = out
+    assert gflags == cflags == [True] * 256
+    assert gunion == cunion
+    for n in grows:
+        np.testing.assert_array_equal(grows[n], crows[n], err_msg=n)

@@ -91,9 +91,11 @@ def test_bank_add_bytes(impl):
                                    np.int32(5), 0, "m3", impl)
     _same(tb, jb, tc, jc)
     rows, _ = te.pad_ints(np.arange(1200, dtype=np.int32) % S)
+    # The multi-target form: 'segment' takes the kernel's, the others JAX's
+    # flat scatter.
     tb, tc = te.hll_bank_add_bytes_rows(
         torch.from_numpy(bank.copy()), torch.from_numpy(data), torch.from_numpy(lengths),
-        torch.from_numpy(rows), torch.from_numpy(valid), 0, "redis")
+        torch.from_numpy(rows), torch.from_numpy(valid), 0, "redis", impl)
     jb, jc = je.hll_bank_add_bytes_rows(jnp.asarray(bank), data, lengths, rows, valid,
                                         0, "redis")
     _same(tb, jb, tc, jc)
@@ -169,6 +171,12 @@ def test_bank_reads_and_merges():
     jb, jest = je.hll_bank_merge_count_rows(jnp.asarray(bank), rows, np.int32(1))
     _same(tb, jb)
     assert float(test) == pytest.approx(float(jest), rel=RTOL)
+    # The port merges the row list as it comes: unpadded, JAX's answers.
+    tb, test = te.hll_bank_merge_count_rows(torch.from_numpy(bank.copy()), rows[:3], 1)
+    _same(tb, jb)
+    assert float(test) == pytest.approx(float(jest), rel=RTOL)
+    assert float(te.hll_bank_count_rows(tbank, rows[:3])) == pytest.approx(
+        float(je.hll_bank_count_rows(jnp.asarray(bank), rows)), rel=RTOL)
     stack = torch.from_numpy(bank)
     np.testing.assert_array_equal(te.hll_merge_stack(stack).numpy(),
                                   np.asarray(je.hll_merge_stack(jnp.asarray(bank))))

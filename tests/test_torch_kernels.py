@@ -197,6 +197,82 @@ def test_merge_stack_plain_matches_pallas(s):
     assert ok.launches["merge_stack"] == before
 
 
+@pytest.mark.parametrize("s,rows", [(70, [3, 5, 3, 69, 0]), (7, []),
+                                    (130, list(range(129, -1, -1))), (5, [4] * 9)])
+def test_merge_stack_over_listed_rows_matches_pallas(s, rows):
+    """The client's merge over bank rows: the listed rows (repeats and any
+    order) merged in place give the Pallas merge of the gathered stack."""
+    stack = np.random.default_rng(s).integers(0, 52, (s, M)).astype(np.int32)
+    idx = np.asarray(rows, np.int32)
+    want = np.asarray(pk.merge_stack(jnp.asarray(stack[idx]), block=8))
+    before = ok.launches["merge_stack"]
+    got = ok.merge_stack(torch.from_numpy(stack), torch.from_numpy(idx))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        ok.merge_stack_plain(torch.from_numpy(stack), torch.from_numpy(idx)).numpy(), want)
+    assert ok.launches["merge_stack"] == before
+
+
+def _emulate_rows_kernel(bank, bucket, rank, rows, seed):
+    """csrc/seg_insert.cu's seg_rows_kernel in numpy -> (bank, changed[S]).
+    Pairs with rank <= 0, or a row or bucket out of range, never fold. The
+    others raise in a random order, each reading its register either from
+    before the call or as it stands (both are what a thread may see), and
+    raising it only where the rank exceeds what it read; a raise sets its
+    row's flag."""
+    s, m = bank.shape
+    keep = (rank > 0) & (rows >= 0) & (rows < s) & (bucket >= 0) & (bucket < m)
+    rng = np.random.default_rng(seed)
+    out, changed = bank.copy(), np.zeros(s, bool)
+    for k in rng.permutation(np.flatnonzero(keep)):
+        w, b, r = rows[k], bucket[k], rank[k]
+        if r > (bank if rng.random() < 0.5 else out)[w, b]:
+            out[w, b] = max(out[w, b], r)
+            changed[w] = True
+    return out, changed
+
+
+@pytest.mark.parametrize("case", ["uniform", "hot", "no_raise", "all_invalid",
+                                  "out_of_range", "empty"])
+def test_seg_rows_kernel_algorithm(case):
+    """The multi-target insert: its plain version is JAX's flat scatter at
+    row * m + bucket (registers, and a row flagged iff one of its registers
+    rose), and the kernel's algorithm gives the same whatever the order."""
+    s, n = 6, 0 if case == "empty" else 3000
+    rng = np.random.default_rng(len(case))
+    bank = rng.integers(0, 10, (s, M)).astype(np.int32)
+    bucket = rng.integers(0, M, n).astype(np.int32)
+    rank = rng.integers(0, 52, n).astype(np.int32)
+    rows = rng.integers(0, s - 1, n).astype(np.int32)  # the last row is never hit
+    if case == "hot":
+        bucket[:], rows[:] = 77, 2
+    elif case == "all_invalid":
+        rank[:] = 0
+    elif case == "no_raise":
+        np.maximum.at(bank.reshape(-1), rows.astype(np.int64) * M + bucket, rank)
+    elif case == "out_of_range":
+        bucket[::7], rows[1::7], rows[2::7] = M, s, -1
+    keep = (rank > 0) & (rows >= 0) & (rows < s) & (bucket >= 0) & (bucket < M)
+    flat = jnp.asarray(bank).reshape(-1).at[
+        (rows.astype(np.int64) * M + bucket)[keep]].max(rank[keep])
+    want = np.asarray(flat).reshape(s, M)
+    want_changed = (want != bank).any(axis=1)
+    got = torch.from_numpy(bank.copy())
+    changed = torch.zeros(s, dtype=torch.bool)
+    before = ik.launches["seg_insert"]
+    assert ik.hll_insert_segmented_rows(got, torch.from_numpy(bucket), torch.from_numpy(rank),
+                                        torch.from_numpy(rows), changed) is got
+    assert ik.launches["seg_insert"] == before
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(changed.numpy(), want_changed)
+    assert not want_changed[s - 1]
+    assert want_changed.any() == (case in ("uniform", "hot", "out_of_range"))
+    for seed in range(3):
+        out, flags = _emulate_rows_kernel(bank, bucket, rank, rows, seed)
+        np.testing.assert_array_equal(out, want)
+        np.testing.assert_array_equal(flags, want_changed)
+
+
 @pytest.mark.parametrize("s,m", [(1024, 16384), (1000, 16384), (3, 16384), (5, 8)])
 def test_merge_row_blocks_cover_every_row(s, m):
     rows = ok.rows_per_block(s, m)
@@ -420,6 +496,10 @@ def test_wrappers_refuse_devices_they_cannot_run_on():
                                 torch.zeros(8, dtype=torch.int32))
     with pytest.raises(ValueError):
         ok.merge_stack(torch.zeros((4, M), dtype=torch.int64))
+    with pytest.raises(ValueError):
+        ok.merge_stack(stack, torch.zeros((2,), dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError):
+        ik.hll_insert_segmented_rows(stack, b, b, b)
     cells = torch.zeros((M,), dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError):
         ok.popcount_partials(cells)
