@@ -2,6 +2,7 @@
 """On-card smoke run of redisson_tpu_torch, the PyTorch / CUDA port.
 
     python3 chip_smoke.py [--seed N] [--profile]
+    python3 chip_smoke.py --merge-pair TREE   # the client's merge call only, of TREE's package
 
 Needs one CUDA card (Hopper: the kernels build for sm_90a) and `nvcc`.
 Phases, each of which fails the run on error:
@@ -18,9 +19,13 @@ Phases, each of which fails the run on error:
      direct and shared kernels from 2^16 to 2^21 lanes; its multi-target
      form, a row per pair, at a config 3 chunk (2^21 lanes over 256
      sketches) and a window of 4096 x 8-key PFADDs to distinct sketches,
-     beside the flat scatter it replaces; merge_stack at S = 1024, 1000
-     and 256, and over 2 to 1001 listed rows of a bank, read in place,
-     beside the gather + amax it replaces; delta_merge at [256, 16384], [1, 2^28],
+     beside the flat scatter it replaces; merge_stack at S = 1024, 1000,
+     256 and 0, and over listed rows of a bank (2 to 8001, each by-value
+     capacity +-1, repeats, rows out of range) from numpy, a CPU tensor
+     and the card, one launch per call, its grid probe (strip widths and
+     cluster sizes), its times in turns with torch.amax at S = 256 and
+     1000 and over 2 to 1001 host-listed rows, and the host-cost
+     breakdown of one call; delta_merge at [256, 16384], [1, 2^28],
      [64, 2^20], [3, 1024] and [2, 16], timed at the first two; the
      in-place segment-OR at m = 257,296,945 with 2^21 x 7 codes;
      window_merge on a mixed [64, 2^20] tape, an HLL [256, 16384] tape and
@@ -85,7 +90,9 @@ Phases, each of which fails the run on error:
      1 s TTL swept empty by mc_evict_expired, 10,000 RTopic messages to 2
      listeners, and a mixed RBatch (10,000 map puts, 8 PFADDs, a Bloom add)
      equal to the same ops unbatched; host-tier ops/s of each;
- 15. with --profile, torch.profiler traces of short HLL and Bloom windows
+ 15. torch.profiler over 10 client PFMERGEs of config 3's sketches: one
+     merge_stack kernel each, no memset, no host-to-device copy;
+ 16. with --profile, torch.profiler traces of short HLL and Bloom windows
      (device busy share, device time by kernel).
 
 Each path (3, 7, 8, 10, 11, 13) resets the launch counters just before it
@@ -155,6 +162,8 @@ B3_SKETCHES = 256
 B3_KEYS = 40_000
 B3_SEED = 3  # suite.py's key seed
 B3_CYCLES = 8
+# merge_stack's grid probe: (threads per strip, blocks per cluster)
+MERGE_GRIDS = ((128, 8), (128, 4), (128, 16), (64, 8), (256, 8))
 # The structures tier at sizes users run (host-side engine, no device work):
 # a 1M-entry map written in 10,000-entry put_all chunks and read with one
 # 100,000-key get_all; a 1M-member leaderboard; a blocking queue between 4
@@ -339,67 +348,221 @@ def check_kernels(seed: int, deferred: list):
 
     row["multi_target"] = check_seg_rows(g, deferred)
 
-    merge_err = 0
-    for s in (SKETCHES, SKETCHES - 24, 0):
+    return row, check_merge(g, deferred)
+
+
+def merge_forms(rows):
+    """One row list in the forms merge_stack takes: by value from numpy (the
+    client's) and from a CPU tensor, and as a device tensor."""
+    return {"numpy": rows.cpu().numpy(), "cpu tensor": rows.cpu(), "device": rows}
+
+
+def check_merge(g, deferred: list) -> dict:
+    """merge_stack against its plain version (bit-identical) over stacks and
+    listed bank rows in every form, its grid probe, its times in turns with
+    torch.amax, and the host-cost breakdown of one call (device-only times
+    appended to `deferred`)."""
+    import torch
+    from redisson_tpu_torch.ops import hll
+    from redisson_tpu_torch.ops import kernels as ok
+
+    dev, m = g.device, hll.M
+    err = 0
+
+    def same(name, got, want):
+        nonlocal err
+        err = max(err, _same(name, got, want))
+
+    def once(name, fn, launched=True):
+        # exactly one launch per call with rows, none without
+        before = ok.launches["merge_stack"]
+        out = fn()
+        if ok.launches["merge_stack"] - before != int(launched):
+            raise AssertionError(f"merge_stack {name}: {ok.launches['merge_stack'] - before} "
+                                 "launches in one call")
+        return out
+
+    for s in (SKETCHES, MERGE_N, B3_SKETCHES, 0):
         stack = torch.randint(0, 52, (s, m), dtype=torch.int32, device=dev, generator=g)
-        merge_err = max(merge_err, _same(f"merge_stack S={s}", ok.merge_stack(stack),
-                                         ok.merge_stack_plain(stack)))
-    # The client's merges read bank rows through a row list, at the paths'
-    # heights: config 3's 256 sketches and the target, the HLL path's 1000
-    # and the target; repeats, and a pair.
-    bank = torch.randint(0, 52, (SKETCHES + 4, m), dtype=torch.int32, device=dev,
-                         generator=g)
-    for r in (B3_SKETCHES + 1, MERGE_N + 1, 2):
-        rows = torch.randint(0, SKETCHES + 4, (r,), dtype=torch.int32, device=dev,
-                             generator=g)
-        merge_err = max(merge_err, _same(f"merge_stack over {r} bank rows",
-                                         ok.merge_stack(bank, rows),
-                                         ok.merge_stack_plain(bank, rows)))
-    stack = torch.randint(0, 52, (SKETCHES, m), dtype=torch.int32, device=dev, generator=g)
-    mrg = {
-        "ms": cuda_ms(lambda: ok.merge_stack(stack)),
-        "plain_ms": cuda_ms(lambda: ok.merge_stack_plain(stack)),
-        "library_ms": cuda_ms(lambda: torch.amax(stack, 0)),
-    }
-    mrg["bound_ms"], mrg["bound_by"] = bound_ms(
-        SKETCHES * m * 4 + m * 4, SKETCHES * m)
-    mrg["max_abs_err"] = merge_err
-    # Stacks of config 3's and the HLL path's heights.
-    for s in (B3_SKETCHES, MERGE_N):
-        part = stack[:s].contiguous()
-        mrg[f"S={s}"] = {
-            "ms": cuda_ms(lambda: ok.merge_stack(part)),
-            "plain_ms": cuda_ms(lambda: ok.merge_stack_plain(part)),
-            "library_ms": cuda_ms(lambda: torch.amax(part, 0)),
-            "bound_ms": bound_ms(s * m * 4 + m * 4, s * m)[0]}
-        log(f"merge_stack S={s}: " + json.dumps(mrg[f"S={s}"]))
-    # What the client calls: R listed rows of the bank, read in place,
-    # against the gather + amax the client ran before (plain) and amax over
-    # the rows gathered beforehand (library), from 2 rows to the HLL path's
-    # 1001: the heights at which each is faster.
+        same(f"merge_stack S={s}", once(f"S={s}", lambda: ok.merge_stack(stack), s > 0),
+             ok.merge_stack_plain(stack))
+    # Listed rows of a bank: the paths' heights (config 3's 256 sketches and
+    # the target, the HLL path's 1000 and the target), small lists, and each
+    # by-value capacity +-1, in every form; random lists repeat rows. Then
+    # rows out of range (skipped), a list of one row repeated, and a list
+    # with no row in range.
+    height = SKETCHES + 4
+    bank = torch.randint(0, 52, (height, m), dtype=torch.int32, device=dev, generator=g)
+    heights = sorted({2, 16, 64, B3_SKETCHES + 1, MERGE_N + 1}
+                     | {c + d for c in ok.ROW_CAPACITIES for d in (-1, 0, 1)})
+    for r in heights:
+        rows = torch.randint(0, height, (r,), dtype=torch.int32, device=dev, generator=g)
+        want = ok.merge_stack_plain(bank, rows)
+        for form, given in merge_forms(rows).items():
+            same(f"merge_stack over {r} bank rows ({form})",
+                 once(form, lambda: ok.merge_stack(bank, given)), want)
+        wild = rows.clone()
+        wild[::3] = height
+        wild[1::5] = -1
+        wild[2::7] = 1 << 30
+        want = ok.merge_stack_plain(bank, wild[(wild >= 0) & (wild < height)])
+        for form, given in merge_forms(wild).items():
+            same(f"merge_stack over {r} rows, some out of range ({form})",
+                 once(form, lambda: ok.merge_stack(bank, given)), want)
+    for name, rows in (("one row 257 times", torch.full((257,), 7, dtype=torch.int32)),
+                       ("no row in range", torch.tensor([-1, height, 1 << 30] * 3,
+                                                        dtype=torch.int32))):
+        rows = rows.to(dev)
+        want = ok.merge_stack_plain(bank, rows[(rows >= 0) & (rows < height)])
+        for form, given in merge_forms(rows).items():
+            same(f"merge_stack over {name} ({form})",
+                 once(form, lambda: ok.merge_stack(bank, given)), want)
+
+    # The grid probe behind MERGE_THREADS and MERGE_CLUSTER: device-only
+    # times of other strip widths and cluster sizes (above 8: non-portable)
+    # at the client's heights, each call on a stack of its own.
+    entry = ok._kernel("merge_stack_i32")
+    for s in (B3_SKETCHES, B3_SKETCHES + 1, MERGE_N + 1, SKETCHES):
+        src = torch.randint(0, 52, (s, m), dtype=torch.int32, device=dev, generator=g)
+        for threads, cluster in MERGE_GRIDS:
+            plan = ok.merge_plan(s, m, threads, cluster)
+            out = torch.empty((m,), dtype=torch.int32, device=dev)
+            rc = entry(src.data_ptr(), None, out.data_ptr(), s, s, m, *plan, 0, 0,
+                       ok._stream(src))
+            if rc:
+                raise RuntimeError(f"merge_stack grid {plan}: CUDA error {rc}")
+            same(f"merge_stack grid {plan} S={s}", out, ok.merge_stack_plain(src))
+
+            def raw(b, plan=plan, s=s, out=out):
+                rc = entry(b.data_ptr(), None, out.data_ptr(), s, s, m, *plan, 0, 0,
+                           ok._stream(b))
+                if rc:
+                    raise RuntimeError(f"merge_stack launch failed: CUDA error {rc}")
+            deferred.append((f"merge_stack grid {threads} threads x {cluster} at S={s}",
+                             {}, "device_ms", raw, src, 10))
+        if s not in (B3_SKETCHES + 1, MERGE_N + 1):
+            continue
+        # The same stack through the plan's grid as a whole stack and through
+        # a row list from the host and on the card, in order and shuffled:
+        # what the list's form and the order of the rows cost.
+        order = torch.arange(s, dtype=torch.int32, device=dev)
+        shuffled = torch.randperm(s, device=dev, generator=g).to(torch.int32)
+        for what, rows in (("whole stack", None), ("host list", order.cpu().numpy()),
+                           ("device list", order), ("device list shuffled", shuffled),
+                           ("host list shuffled", shuffled.cpu().numpy())):
+            deferred.append((f"merge_stack S={s} {what}, plan {ok.merge_plan(s, m)}", {},
+                             "device_ms", lambda b, rows=rows: ok.merge_stack(b, rows),
+                             src, 10))
+
+    # Times, in turns (kernel, torch.amax, torch.amax, kernel, three times):
+    # stacks of config 3's and the HLL path's heights, and R listed bank rows
+    # from the host (the client's form) against amax over the rows gathered
+    # beforehand. Device-only times: "device_ms" with each call on a copy of
+    # its own (the 16-64 MiB read from HBM, as the bound counts it),
+    # "device_ms_warm" on one buffer (rows in L2 where they fit, as earlier
+    # versions of this script took it).
+    mrg = {}
+    stack = torch.randint(0, 52, (MERGE_N, m), dtype=torch.int32, device=dev, generator=g)
+    cases = [(f"S={s}", stack[:s].contiguous(), None) for s in (B3_SKETCHES, MERGE_N)]
     for r in (2, 16, 64, B3_SKETCHES + 1, MERGE_N + 1):
-        rows = torch.randperm(SKETCHES + 4, device=dev, generator=g)[:r].to(torch.int32)
-        gathered = bank[rows.long()]
-        # host-bound at these sizes: three samples of each, interleaved
-        part = {"ms": [], "plain_ms": [], "library_ms": []}
+        rows = torch.randperm(height, device=dev, generator=g)[:r].to(torch.int32)
+        cases.append((f"rows R={r}", bank, rows.cpu().numpy()))
+    for key, src, rows in cases:
+        r = src.shape[0] if rows is None else rows.shape[0]
+        lib_src = src if rows is None else bank[torch.from_numpy(rows).to(dev).long()]
+        kernel = (lambda b=src: ok.merge_stack(b)) if rows is None else (
+            lambda rows=rows: ok.merge_stack(bank, rows))
+        amax = lambda b=lib_src: torch.amax(b, 0)  # noqa: E731
+        part = {"ms": [], "library_ms": []}
         for _ in range(3):
-            part["ms"].append(cuda_ms(lambda: ok.merge_stack(bank, rows)))
-            part["plain_ms"].append(cuda_ms(lambda: ok.merge_stack_plain(bank, rows)))
-            part["library_ms"].append(cuda_ms(lambda: torch.amax(gathered, 0)))
-        part.update({
-            "host_us": host_us(lambda: ok.merge_stack(bank, rows)),
-            "plain_host_us": host_us(lambda: ok.merge_stack_plain(bank, rows)),
-            # the listed rows read once, the list read and the output written once
-            "bound_ms": bound_ms(r * m * 4 + r * 4 + m * 4, r * m)[0]})
-        mrg[f"rows R={r}"] = part
-        log(f"merge_stack over {r} bank rows: " + json.dumps(part))
-        if r in (B3_SKETCHES + 1, MERGE_N + 1):
-            deferred.append((f"merge_stack over {r} bank rows", part, "device_ms",
-                             lambda _b, rows=rows: ok.merge_stack(bank, rows), bank[:1], 10))
-            deferred.append((f"gather + amax over {r} bank rows", part, "plain_device_ms",
-                             lambda _b, rows=rows: ok.merge_stack_plain(bank, rows),
-                             bank[:1], 10))
-    return row, mrg
+            part["ms"].append(cuda_ms(kernel))
+            part["library_ms"] += [cuda_ms(amax), cuda_ms(amax)]
+            part["ms"].append(cuda_ms(kernel))
+        plain_rows = None if rows is None else torch.from_numpy(rows).to(dev)
+        part["plain_ms"] = cuda_ms(lambda: ok.merge_stack_plain(src, plain_rows))
+        part["host_us"] = host_us(kernel)
+        part["library_host_us"] = host_us(amax)
+        # the merged rows read once, the list read and the output written once
+        part["bound_ms"], part["bound_by"] = bound_ms(
+            r * m * 4 + (0 if rows is None else r * 4) + m * 4, r * m)
+        mrg[key] = part
+        log(f"merge_stack {key}: " + json.dumps(part))
+        if r != 16:
+            cold = ((lambda b: ok.merge_stack(b)) if rows is None else
+                    (lambda b, rows=rows: ok.merge_stack(b, rows)))
+            deferred += [
+                (f"merge_stack {key}", part, "device_ms", cold, src, 10),
+                (f"merge_stack {key}, one buffer", part, "device_ms_warm",
+                 lambda _b, k=kernel: k(), src[:1], 10),
+                (f"torch.amax {key}", part, "library_device_ms",
+                 lambda b: torch.amax(b, 0), lib_src, 10),
+                (f"torch.amax {key}, one buffer", part, "library_device_ms_warm",
+                 lambda _b, a=amax: a(), src[:1], 10)]
+    mrg["host_breakdown"] = merge_host_breakdown(bank, stack[:B3_SKETCHES].contiguous(), g)
+    # The kernel's line: the client's form at config 3's height.
+    top = mrg[f"rows R={B3_SKETCHES + 1}"]
+    mrg.update(ms=sorted(top["ms"])[len(top["ms"]) // 2], plain_ms=top["plain_ms"],
+               library_ms=sorted(top["library_ms"])[len(top["library_ms"]) // 2],
+               bound_ms=top["bound_ms"], bound_by=top["bound_by"], max_abs_err=err)
+    return mrg
+
+
+def merge_host_breakdown(bank, stack, g) -> dict:
+    """Host microseconds per call (host clock, no sync) of each step of a
+    client merge of 257 listed bank rows (and of a stack of 256): a foreign
+    call of a no-op C entry with merge_stack's argument types, the output's
+    allocation, the wrapper's checks and plan, the stream handle, the launch
+    alone (the C entry: row list copied into the parameters, the launch),
+    the whole wrapper, torch.amax; what the engine paid per merge before
+    (a device copy of the list); the launch at each by-value capacity."""
+    import torch
+    from redisson_tpu_torch.ops import kernels as ok
+
+    dev, (height, m) = g.device, bank.shape
+    entry, noop = ok._kernel("merge_stack_i32"), ok._kernel("merge_stack_noop")
+    out = torch.empty((m,), dtype=torch.int32, device=dev)
+    stream = ok._stream(bank)
+    rows = torch.randperm(height, device=dev, generator=g)[:B3_SKETCHES + 1].to(
+        torch.int32).cpu().numpy()
+    gathered = bank[torch.from_numpy(rows).to(dev).long()]
+
+    def args(r, cap, rows_arg, src=bank, h=height):
+        return (src.data_ptr(), rows_arg, out.data_ptr(), r, h, m, *ok.merge_plan(r, m), cap,
+                0, stream)
+
+    client = args(len(rows), ok.rows_capacity(len(rows)), rows.tobytes())
+    whole = args(stack.shape[0], 0, None, stack, stack.shape[0])
+    parts = {
+        "ctypes_noop": host_us(lambda: noop(*client)),
+        "torch_empty": host_us(lambda: torch.empty((m,), dtype=torch.int32, device=dev)),
+        "new_empty": host_us(lambda: bank.new_empty((m,))),
+        "checks": host_us(lambda: ok._merge_args(bank, rows)),
+        "plan": host_us(lambda: ok.merge_plan(len(rows), m)),
+        "stream": host_us(lambda: ok._stream(bank)),
+        "launch": host_us(lambda: entry(*client)),
+        "merge_stack": host_us(lambda: ok.merge_stack(bank, rows)),
+        "torch_amax": host_us(lambda: torch.amax(gathered, 0)),
+        "rows_to_device": host_us(lambda: torch.as_tensor(rows, device=dev)),
+        "merge_stack_device_rows": host_us(
+            lambda: ok.merge_stack(bank, torch.as_tensor(rows, device=dev))),
+        "stack_launch": host_us(lambda: entry(*whole)),
+        "stack_merge_stack": host_us(lambda: ok.merge_stack(stack)),
+        "stack_torch_amax": host_us(lambda: torch.amax(stack, 0)),
+    }
+    # What the size of the parameter block costs: 2 rows at each capacity,
+    # and as a device pointer.
+    two = rows[:2].copy()
+    dev_two = torch.from_numpy(two).to(dev)
+    for cap in ok.ROW_CAPACITIES:
+        parts[f"launch_2_rows_cap_{cap}"] = host_us(lambda cap=cap: entry(*args(2, cap,
+                                                                              two.tobytes())))
+    parts["launch_2_rows_device"] = host_us(lambda: entry(*args(2, 0, dev_two.data_ptr())))
+    torch.cuda.synchronize()
+    if not torch.equal(out, ok.merge_stack_plain(bank, dev_two)):
+        raise AssertionError("merge_stack's last breakdown launch disagrees")
+    log("merge_stack host us per call (R = 257 listed rows, S = 256 stack): "
+        + json.dumps(parts))
+    return parts
 
 
 def check_seg_rows(g, deferred: list) -> dict:
@@ -1572,6 +1735,36 @@ def traced(what: str, window) -> None:
         log(f"  {us / 1e3:9.3f} ms  {count:6d} calls  {key[:90]}")
 
 
+def merge_window(client) -> dict:
+    """torch.profiler over 10 client PFMERGEs of config 3's 256 sketches
+    into one target (257 listed rows each): one merge_stack kernel per
+    merge, no memset and no host-to-device copy (the row list reaches the
+    kernel by value)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from redisson_tpu_torch.ops import kernels as ok
+
+    names = [f"b3:s{i}" for i in range(B3_SKETCHES)]
+    dest = client.get_hyper_log_log("b3:profiled")
+    dest.merge_with(*names)  # creates the target row
+    torch.cuda.synchronize()
+    before = ok.launches["merge_stack"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            dest.merge_with(*names)
+        torch.cuda.synchronize()
+    events = {e.key[:90]: e.count for e in prof.key_averages()}
+    seen = {"merge_kernel": sum(n for k, n in events.items() if "merge_kernel" in k),
+            "memset": sum(n for k, n in events.items() if "memset" in k.lower()),
+            "host_to_device": sum(n for k, n in events.items() if "HtoD" in k),
+            "launches": ok.launches["merge_stack"] - before}
+    log(f"profile: 10 client PFMERGEs over {B3_SKETCHES} sketches: " + json.dumps(seen)
+        + "; device events " + json.dumps(events))
+    if seen != {"merge_kernel": 10, "memset": 0, "host_to_device": 0, "launches": 10}:
+        raise AssertionError(f"10 client PFMERGEs: {seen}")
+    return seen
+
+
 def profile_path(seed: int):
     """Short traced windows of the HLL and Bloom paths."""
     import torch
@@ -1992,11 +2185,59 @@ def structures_path(c, card: str):
     return rates
 
 
+def merge_pair(tree: str, seed: int) -> int:
+    """The client's merge call (`engine._merged_rows`: a numpy row list of
+    257 and 1001 bank rows, as the backend passes it) and merge_stack over a
+    stack of 256 beside torch.amax, with the package of `tree` (this
+    checkout or another commit's): as called, host us per call and
+    device-only (all of a call's device events: kernels, memsets, copies).
+    Run once per tree, in turns, for a paired comparison in one call."""
+    import torch
+
+    root = os.path.abspath(tree)
+    sys.path.insert(0, root)
+    from redisson_tpu_torch import engine
+    from redisson_tpu_torch.ops import kernels as ok
+
+    if not os.path.abspath(engine.__file__).startswith(root + os.sep):
+        raise AssertionError(f"imported {engine.__file__}, not the package in {root}")
+    card = card_line()
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    m = 16384
+    bank = torch.randint(0, 52, (SKETCHES + 4, m), dtype=torch.int32, device=dev, generator=g)
+    stack = torch.randint(0, 52, (B3_SKETCHES, m), dtype=torch.int32, device=dev, generator=g)
+    out = {}
+    for r in (B3_SKETCHES + 1, MERGE_N + 1):
+        rows = torch.randperm(SKETCHES + 4, device=dev, generator=g)[:r].to(
+            torch.int32).cpu().numpy()
+        want = bank[torch.from_numpy(rows).to(dev).long()].amax(0)
+        if not torch.equal(engine._merged_rows(bank, rows), want):
+            raise AssertionError(f"{tree}: the client's merge of {r} rows disagrees")
+        call = lambda rows=rows: engine._merged_rows(bank, rows)  # noqa: E731
+        out[f"client merge R={r}"] = {"ms": cuda_ms(call), "host_us": host_us(call),
+                                      "_call": call}
+    out["S=256"] = {"ms": cuda_ms(lambda: ok.merge_stack(stack)),
+                    "host_us": host_us(lambda: ok.merge_stack(stack)),
+                    "library_ms": cuda_ms(lambda: torch.amax(stack, 0)),
+                    "library_host_us": host_us(lambda: torch.amax(stack, 0)),
+                    "_call": lambda: ok.merge_stack(stack)}
+    for part in out.values():  # device-only last: the profiler slows later launches
+        call = part.pop("_call")
+        part["device_ms"] = device_ms(lambda _b, call=call: call(), [bank[:1]] * 11)[0]
+    print(card)
+    print(json.dumps({"tree": tree, **out}), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also trace short HLL and Bloom windows with torch.profiler")
+    ap.add_argument("--merge-pair", metavar="TREE",
+                    help="only time the client's merge call of the package in TREE (a "
+                         "checkout of this or another commit), for a paired comparison")
     args = ap.parse_args()
     # A run that hangs prints every thread's stack and exits non-zero before
     # the 1200 s the run is allowed.
@@ -2007,6 +2248,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
+    if args.merge_pair:
+        return merge_pair(args.merge_pair, args.seed)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from redisson_tpu_torch.ops import _build
@@ -2065,6 +2308,7 @@ def main() -> int:
             + json.dumps(parts))
     del deferred
     log(f"phase device times: {time.perf_counter() - t:.1f} s")
+    out["kernels"][1]["client_merge_window"] = merge_window(out["batch path"][1])
     if args.profile:
         profile_path(args.seed)
     out["batch path"][1].shutdown()

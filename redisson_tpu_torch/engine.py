@@ -311,9 +311,10 @@ def hll_bank_count(bank, row: int):
 
 def _merged_rows(bank, rows):
     """Max over a row subset (rows may repeat), read from the bank in place
-    by merge_stack; JAX gathers the rows and reduces them with jnp.max."""
-    return pk.merge_stack(bank, torch.as_tensor(np.asarray(rows, np.int32),
-                                                device=bank.device))
+    by merge_stack; JAX gathers the rows and reduces them with jnp.max. The
+    list stays on the host: on a card it reaches the kernel by value (no
+    allocation, no host-to-device copy per merge)."""
+    return pk.merge_stack(bank, np.asarray(rows, np.int32))
 
 
 def hll_bank_count_rows(bank, rows):

@@ -276,7 +276,7 @@ def bits_insert_segmented(cells: torch.Tensor, idx: torch.Tensor) -> torch.Tenso
     # merged through an aligned copy and written back.
     target = cells if cells.is_contiguous() and cells.data_ptr() % 16 == 0 \
         else cells.clone(memory_format=torch.contiguous_format)
-    dev = cells.device.index
+    dev = cells.get_device()
     size = _kernel("bits_insert_scratch_bytes")(n, m, dev)
     scratch = torch.empty((size,), dtype=torch.uint8, device=cells.device)
     rc = _kernel("bits_insert_u8")(target.data_ptr(), m, codes.data_ptr(), n,

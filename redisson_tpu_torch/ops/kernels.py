@@ -13,7 +13,9 @@ on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from redisson_tpu_torch.ops import _build
@@ -22,16 +24,13 @@ from redisson_tpu_torch.ops import _build
 launches = {"merge_stack": 0, "popcount_partials": 0, "bitop_cells": 0,
             "delta_merge": 0}
 
-# Enough row blocks to put ~4 blocks of 256 threads on each of 132 SMs.
-_TARGET_BLOCKS = 528
-_COLS_PER_BLOCK = 256 * 4
-
 _fns = {}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C entry point -> (source, argtypes)
 _SIGNATURES = {
-    "merge_stack_i32": ("merge_stack", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "merge_stack_i32": ("merge_stack", [_P, _P, _P] + [_I] * 8 + [_P]),
+    "merge_stack_noop": ("merge_stack", [_P, _P, _P] + [_I] * 8 + [_P]),
     "popcount_partials_u8": ("popcount", [_P, _LL, _I, _P, _I, _P]),
     "bitop_u8": ("bitop", [_P, _P, _I, _LL, _I, _I, _I, _P]),
     "delta_merge_u8": ("delta_merge", [_P, _P, _P, _LL, _LL, _I, _P]),
@@ -58,19 +57,21 @@ def _kernel(name: str):
 
 def _on_cpu(name: str, t: torch.Tensor) -> bool:
     """True for a CPU tensor (plain version), False for a CUDA one (the
-    kernel); raises for any other device."""
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
+    kernel); raises for any other device. `is_cuda` first: it builds no
+    device object (host time on the small-call path)."""
+    if t.is_cuda:
+        return False
+    if t.device.type != "cpu":
         raise ValueError(f"{name}: unsupported device {t.device}")
-    return False
+    return True
 
 
 def _stream(t: torch.Tensor) -> int:
     """The handle of the current CUDA stream on `t`'s card: the
     `cuda_stream` of `torch.cuda.current_stream(t.device)`, read without
-    building a Stream object (host time on the small-merge path)."""
-    return torch._C._cuda_getCurrentRawStream(t.device.index)
+    building a Stream or a device object (host time on the small-call
+    path)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def merge_stack_plain(stack: torch.Tensor, rows: torch.Tensor = None) -> torch.Tensor:
@@ -84,46 +85,108 @@ def merge_stack_plain(stack: torch.Tensor, rows: torch.Tensor = None) -> torch.T
     return stack.amax(dim=0)
 
 
-def rows_per_block(s: int, m: int) -> int:
-    col_blocks = max(1, -(-m // _COLS_PER_BLOCK))
-    splits = max(1, min(s, _TARGET_BLOCKS // col_blocks))
-    return -(-s // splits)
+#: int4 columns (threads) of one merge_stack strip and row splits per
+#: cluster (chip_smoke.py's grid probe on the H100 set both: PERF.md)
+MERGE_THREADS = 128
+MERGE_CLUSTER = 8
+#: capacities of a row list passed by value, smallest first: a longer host
+#: list goes to the card as a device tensor
+ROW_CAPACITIES = (64, 1024, 8000)
 
 
-def merge_stack(stack: torch.Tensor, rows: torch.Tensor = None) -> torch.Tensor:
+@functools.lru_cache(maxsize=4096)
+def merge_plan(s: int, m: int, threads: int = MERGE_THREADS,
+               cluster: int = MERGE_CLUSTER):
+    """merge_stack's grid for s rows (or list entries) of m int32 columns
+    -> (strip_cols, cluster, rows_per_block): strips of strip_cols columns,
+    each folded by one thread block cluster of `cluster` blocks that take
+    rows_per_block consecutive entries each (the last may take fewer; none
+    takes none)."""
+    if s < 1 or m < 4 or m % 4:
+        raise ValueError(f"merge_plan: needs s >= 1 and m % 4 == 0, got {s}, {m}")
+    threads = min(threads, 32 * -(-(m // 4) // 32))
+    per = -(-s // min(cluster, s))
+    return 4 * threads, -(-s // per), per
+
+
+def rows_capacity(r: int) -> int:
+    """The by-value capacity a host row list of r entries takes, or 0 above
+    the largest: then it reaches the kernel as a device tensor."""
+    for cap in ROW_CAPACITIES:
+        if r <= cap:
+            return cap
+    return 0
+
+
+def _merge_args(stack: torch.Tensor, rows):
+    """Everything the card path checks and works out before its foreign
+    call -> (stack pointer, rows kept alive for the launch, the row list's
+    argument, entries, height, m, by-value capacity or 0 for a device
+    pointer). A numpy list is passed as its bytes (ctypes hands the C entry
+    their address): cheaper on the host than `ndarray.ctypes`."""
+    height, m = stack.shape
+    ptr = stack.data_ptr()
+    if m % 4 or ptr % 16 or not stack.is_contiguous():
+        raise ValueError("merge_stack: needs a contiguous stack, m % 4 == 0 and "
+                         "16-byte alignment")
+    if rows is None:
+        return ptr, None, None, height, height, m, 0
+    if isinstance(rows, np.ndarray):
+        if rows.dtype != np.int32 or rows.ndim != 1:
+            raise ValueError(f"merge_stack: host rows must be an [R] int32 vector, got "
+                             f"{rows.dtype} {rows.shape}")
+        r = rows.shape[0]
+        cap = rows_capacity(r)
+        if cap:
+            return ptr, rows, rows.tobytes(), r, height, m, cap
+        rows = torch.from_numpy(np.ascontiguousarray(rows))
+    if rows.dtype != torch.int32 or rows.dim() != 1 or not rows.is_contiguous():
+        raise ValueError(f"merge_stack: rows must be a contiguous [R] int32 vector, got "
+                         f"{rows.dtype} {tuple(rows.shape)}")
+    r = rows.shape[0]
+    if rows.is_cuda:
+        if rows.get_device() != stack.get_device():
+            raise ValueError(f"merge_stack: rows on {rows.device}, stack on {stack.device}")
+        return ptr, rows, rows.data_ptr(), r, height, m, 0
+    if rows.device.type != "cpu":
+        raise ValueError(f"merge_stack: unsupported rows device {rows.device}")
+    cap = rows_capacity(r)
+    if cap:
+        return ptr, rows, rows.data_ptr(), r, height, m, cap
+    rows = rows.to(stack.device)  # longer than the largest by-value list
+    return ptr, rows, rows.data_ptr(), r, height, m, 0
+
+
+def merge_stack(stack: torch.Tensor, rows=None) -> torch.Tensor:
     """PFMERGE over an [S, m] int32 stack -> [m] (a fresh tensor; the stack
-    is not modified). `rows`, an int32 vector on the stack's device, lists
-    the rows to merge (they may repeat): the client's PFMERGE over bank
-    rows, read in place with no gathered copy. None merges all S rows."""
+    is not modified). `rows` lists the rows to merge (they may repeat; on a
+    card one outside [0, S) is skipped): the client's PFMERGE over bank
+    rows, read in place with no gathered copy. It is an [R] int32 vector on
+    the stack's card, or on the host (a CPU tensor or a numpy array), whose
+    entries a list of up to max(ROW_CAPACITIES) reach the kernel in its
+    launch parameters. None merges all S rows. On a card one foreign call
+    and one launch (none for R = 0)."""
     if stack.dim() != 2 or stack.dtype != torch.int32:
         raise ValueError(
             f"merge_stack needs an [S, m] int32 tensor, got "
             f"{tuple(stack.shape)} {stack.dtype}")
     if _on_cpu("merge_stack", stack):
+        if isinstance(rows, np.ndarray):
+            rows = torch.from_numpy(rows)
         return merge_stack_plain(stack, rows)
-    height, m = stack.shape
-    if not stack.is_contiguous():
-        raise ValueError("merge_stack: stack must be contiguous")
-    if m % 4 or stack.data_ptr() % 16:
-        raise ValueError("merge_stack: needs m % 4 == 0 and 16-byte alignment")
-    s, rows_ptr = height, None
-    if rows is not None:
-        if (rows.dtype != torch.int32 or rows.dim() != 1 or rows.device != stack.device
-                or not rows.is_contiguous()):
-            raise ValueError(f"merge_stack: rows must be a contiguous [R] int32 vector on "
-                             f"{stack.device}, got {rows.dtype} {tuple(rows.shape)} on "
-                             f"{rows.device}")
-        s, rows_ptr = rows.shape[0], rows.data_ptr()
-    # atomicMax combines the row blocks into an output the foreign call
-    # zeroes first (zero is the identity of max over registers >= 0).
-    out = torch.empty((m,), dtype=torch.int32, device=stack.device)
-    rc = _kernel("merge_stack_i32")(stack.data_ptr(), rows_ptr, out.data_ptr(), s, height,
-                                    m, rows_per_block(s, m), stack.device.index,
-                                    _stream(stack))
+    # `keep` holds a device row list alive until its launch is enqueued.
+    ptr, keep, rows_arg, s, height, m, cap = _merge_args(stack, rows)
+    if s == 0:
+        return stack.new_zeros((m,))
+    strip, cluster, per = merge_plan(s, m)
+    index = stack.get_device()
+    out = stack.new_empty((m,))
+    rc = _kernel("merge_stack_i32")(ptr, rows_arg, out.data_ptr(), s, height, m, strip,
+                                    cluster, per, cap, index,
+                                    torch._C._cuda_getCurrentRawStream(index))
     if rc:
         raise RuntimeError(f"merge_stack launch failed: CUDA error {rc}")
-    if s:
-        launches["merge_stack"] += 1
+    launches["merge_stack"] += 1
     return out
 
 
@@ -167,7 +230,7 @@ def popcount_partials(cells: torch.Tensor,
         cells = cells.clone()  # a fresh allocation is contiguous and aligned
     out = torch.empty((-(-n // block), 1), dtype=torch.int32, device=cells.device)
     rc = _kernel("popcount_partials_u8")(cells.data_ptr(), n, block,
-                                         out.data_ptr(), cells.device.index,
+                                         out.data_ptr(), cells.get_device(),
                                          _stream(cells))
     if rc:
         raise RuntimeError(f"popcount_partials launch failed: CUDA error {rc}")
@@ -219,7 +282,7 @@ def bitop_cells(stack: torch.Tensor, op: str) -> torch.Tensor:
     stack = stack.contiguous()
     vec = n % 16 == 0 and stack.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     rc = _kernel("bitop_u8")(stack.data_ptr(), out.data_ptr(), k, n, BITOPS[op],
-                             int(vec), stack.device.index, _stream(stack))
+                             int(vec), stack.get_device(), _stream(stack))
     if rc:
         raise RuntimeError(f"bitop_cells launch failed: CUDA error {rc}")
     launches["bitop_cells"] += 1

@@ -83,11 +83,29 @@ def test_seg_insert_writes_a_bank_rows_flag(dev):
         assert changed.tolist() == [False, False, True, False]
 
 
-@pytest.mark.parametrize("s", [1024, 1000, 5, 0])
+@pytest.mark.parametrize("s", [1024, 1000, 256, 5, 0])
 def test_merge_stack_matches_plain(dev, s):
     g = torch.Generator(device=dev).manual_seed(s)
     stack = torch.randint(0, 52, (s, 16384), dtype=torch.int32, device=dev, generator=g)
+    before = ok.launches["merge_stack"]
     assert torch.equal(ok.merge_stack(stack), ok.merge_stack_plain(stack))
+    assert ok.launches["merge_stack"] == before + (1 if s else 0)
+
+
+@pytest.mark.parametrize("threads,cluster", [(64, 4), (64, 16), (128, 8), (128, 9),
+                                             (128, 16), (256, 12), (256, 8)])
+@pytest.mark.parametrize("s", [256, 1024, 3, 1001])
+def test_merge_stack_grids_match_plain(dev, threads, cluster, s):
+    """Grids chip_smoke.py probes (strip width, cluster size up to the
+    non-portable 16) give the plain version's merge."""
+    g = torch.Generator(device=dev).manual_seed(s + threads)
+    stack = torch.randint(0, 52, (s, 16384), dtype=torch.int32, device=dev, generator=g)
+    plan = ok.merge_plan(s, 16384, threads, cluster)
+    out = torch.full((16384,), -1, dtype=torch.int32, device=dev)
+    rc = ok._kernel("merge_stack_i32")(stack.data_ptr(), None, out.data_ptr(), s, s, 16384,
+                                       *plan, 0, 0, ok._stream(stack))
+    assert rc == 0
+    assert torch.equal(out, ok.merge_stack_plain(stack))
 
 
 @pytest.mark.parametrize("n,case", [(1 << 21, "uniform"), (1 << 21, "no_raise"),
@@ -132,6 +150,70 @@ def test_merge_stack_over_bank_rows_matches_plain(dev, height, r):
     bank = torch.randint(0, 52, (height, 16384), dtype=torch.int32, device=dev, generator=g)
     rows = torch.randint(0, height, (r,), dtype=torch.int32, device=dev, generator=g)
     assert torch.equal(ok.merge_stack(bank, rows), ok.merge_stack_plain(bank, rows))
+
+
+@pytest.mark.parametrize("form", ["numpy", "cpu tensor", "device"])
+@pytest.mark.parametrize("r", [1, 2, 16, 257, 1001]
+                         + [c + d for c in ok.ROW_CAPACITIES for d in (-1, 0, 1)])
+def test_merge_stack_over_host_rows_matches_plain(dev, form, r):
+    """The row list by value (host forms up to the largest capacity, a
+    device tensor past it) or as a device tensor, with repeats: one launch,
+    the plain version's merge."""
+    g = torch.Generator(device=dev).manual_seed(r)
+    bank = torch.randint(0, 52, (1100, 16384), dtype=torch.int32, device=dev, generator=g)
+    rows = torch.randint(0, 1100, (r,), dtype=torch.int32, device=dev, generator=g)
+    want = ok.merge_stack_plain(bank, rows)
+    given = {"numpy": rows.cpu().numpy(), "cpu tensor": rows.cpu(), "device": rows}[form]
+    before = ok.launches["merge_stack"]
+    assert torch.equal(ok.merge_stack(bank, given), want)
+    assert ok.launches["merge_stack"] == before + 1
+
+
+@pytest.mark.parametrize("form", ["numpy", "device"])
+@pytest.mark.parametrize("r", [5, 64, 1001, 8001])
+def test_merge_stack_skips_rows_out_of_range(dev, form, r):
+    """A listed row outside [0, height) is skipped in every form; rows all
+    out of range merge to zeros."""
+    g = torch.Generator(device=dev).manual_seed(r + 7)
+    height = 300
+    bank = torch.randint(0, 52, (height, 16384), dtype=torch.int32, device=dev, generator=g)
+    rows = torch.randint(0, height, (r,), dtype=torch.int32, device=dev, generator=g)
+    rows[::3] = height
+    rows[1::5] = -1
+    rows[2::7] = 1 << 30
+    kept = rows[(rows >= 0) & (rows < height)]
+    given = rows.cpu().numpy() if form == "numpy" else rows
+    assert torch.equal(ok.merge_stack(bank, given), ok.merge_stack_plain(bank, kept))
+    none = torch.full((r,), -3, dtype=torch.int32, device=dev)
+    given = none.cpu().numpy() if form == "numpy" else none
+    assert not ok.merge_stack(bank, given).any()
+
+
+def test_client_merges_launch_once_and_copy_no_rows(dev):
+    """Ten client PFMERGEs over 256 sketches: one merge_stack kernel each,
+    no memset and no host-to-device copy (the row list goes by value)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    c = RedissonTorch.create(Config().use_cuda(ingest="scatter"))
+    try:
+        names = [f"m:{i}" for i in range(256)]
+        rng = np.random.default_rng(5)
+        for n in names:
+            c.get_hyper_log_log(n).add_ints(rng.integers(0, 2**63, 500, np.uint64))
+        dest = c.get_hyper_log_log("m:dest")
+        dest.merge_with(*names)  # creates the target row and warms the path
+        torch.cuda.synchronize()
+        before = ok.launches["merge_stack"]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                dest.merge_with(*names)
+            torch.cuda.synchronize()
+        keys = {e.key: e.count for e in prof.key_averages()}
+        assert ok.launches["merge_stack"] == before + 10
+        assert sum(n for k, n in keys.items() if "merge_kernel" in k) == 10, keys
+        assert not [k for k in keys if "Memset" in k or "HtoD" in k], keys
+    finally:
+        c.shutdown()
 
 
 @pytest.mark.parametrize("n", [1 << 27, 257_296_945, 1_000_003, 0])

@@ -187,6 +187,31 @@ def test_bank_reads_and_merges():
         float(je.hll_count_merged(jnp.asarray(bank))), rel=RTOL)
 
 
+@pytest.mark.parametrize("case", ["three", "repeats", "past_first_capacity", "strided"])
+def test_bank_merges_over_host_rows(case):
+    """countWith / PFMERGE / merge+count over a host row list (the numpy
+    vector the backend builds, passed to merge_stack as it is): the bank
+    JAX's engine leaves and its estimate, for repeats, a list longer than
+    the first by-value capacity and a strided (non-contiguous) view."""
+    bank = _bank(11)
+    rng = np.random.default_rng(12)
+    rows = {"three": np.array([1, 4, 6], np.int32),
+            "repeats": np.array([2, 2, 5, 2, 0], np.int32),
+            "past_first_capacity": rng.integers(0, S, 70).astype(np.int32),
+            "strided": np.arange(2 * S, dtype=np.int32)[::3] % S}[case]
+    assert (len(rows) > 64) == (case == "past_first_capacity")
+    tbank = torch.from_numpy(bank.copy())
+    assert float(te.hll_bank_count_rows(tbank, rows)) == pytest.approx(
+        float(je.hll_bank_count_rows(jnp.asarray(bank), rows)), rel=RTOL)
+    _same(tbank, bank)  # countWith never writes
+    tb = te.hll_bank_merge_rows(torch.from_numpy(bank.copy()), rows, 3)
+    _same(tb, je.hll_bank_merge_rows(jnp.asarray(bank), rows, np.int32(3)))
+    tb, test = te.hll_bank_merge_count_rows(torch.from_numpy(bank.copy()), rows, 7)
+    jb, jest = je.hll_bank_merge_count_rows(jnp.asarray(bank), rows, np.int32(7))
+    _same(tb, jb)
+    assert float(test) == pytest.approx(float(jest), rel=RTOL)
+
+
 def test_bank_row_writes():
     bank = _bank(6)
     regs_u8 = np.random.default_rng(8).integers(0, 9, (4, M)).astype(np.uint8)

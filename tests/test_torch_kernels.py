@@ -273,13 +273,107 @@ def test_seg_rows_kernel_algorithm(case):
         np.testing.assert_array_equal(flags, want_changed)
 
 
-@pytest.mark.parametrize("s,m", [(1024, 16384), (1000, 16384), (3, 16384), (5, 8)])
-def test_merge_row_blocks_cover_every_row(s, m):
-    rows = ok.rows_per_block(s, m)
-    blocks = -(-s // rows)
-    assert rows >= 1 and blocks * rows >= s and (blocks - 1) * rows < s
-    col_blocks = -(-m // 1024)
-    assert col_blocks * blocks <= 528 + col_blocks  # about one block per SM slot
+CAPACITY_EDGES = [c + d for c in ok.ROW_CAPACITIES for d in (-1, 0, 1)]
+
+
+@pytest.mark.parametrize("s,m", [(1024, 16384), (1000, 16384), (3, 16384), (5, 8)]
+                         + [(r, 16384) for r in CAPACITY_EDGES]
+                         + [(1, 4), (9, 16384), (257, 16384), (1001, 16384)])
+def test_merge_plan_covers_every_row_and_column(s, m):
+    """merge_stack's grid: strips of columns times one cluster of row
+    splits; every column in one strip, every list entry in one split, no
+    empty split, within the cluster limit; each block of a cluster writes
+    its own slice of the strip's output."""
+    strip, cluster, per = ok.merge_plan(s, m)
+    assert strip % 128 == 0 and 128 <= strip <= 4 * ok.MERGE_THREADS
+    assert 1 <= cluster <= ok.MERGE_CLUSTER <= 8  # the portable cluster size
+    assert per >= 1 and cluster * per >= s and (cluster - 1) * per < s
+    splits = [range(y * per, min(s, (y + 1) * per)) for y in range(cluster)]
+    assert sorted(r for sp in splits for r in sp) == list(range(s))
+    width, m4 = strip // 4, m // 4
+    strips = -(-m4 // width)
+    cols = [x * width + t for x in range(strips) for t in range(width) if x * width + t < m4]
+    assert cols == list(range(m4))
+    slices = [range(width * me // cluster, width * (me + 1) // cluster)
+              for me in range(cluster)]
+    assert sorted(j for sl in slices for j in sl) == list(range(width))
+    # as few rows per block as the cluster limit allows
+    assert per == -(-s // min(ok.MERGE_CLUSTER, s))
+
+
+@pytest.mark.parametrize("r", [0, 1, 2, 257, 1001, 100_000] + CAPACITY_EDGES)
+def test_rows_capacity_takes_the_smallest_list(r):
+    """A host row list takes the smallest by-value capacity that holds it;
+    past the largest it goes to the card as a device tensor (capacity 0)."""
+    cap = ok.rows_capacity(r)
+    if r > max(ok.ROW_CAPACITIES):
+        assert cap == 0
+    else:
+        assert cap in ok.ROW_CAPACITIES and cap >= r
+        assert all(c < r for c in ok.ROW_CAPACITIES if c < cap)
+    assert max(ok.ROW_CAPACITIES) * 4 + 64 <= 32_764  # Hopper's kernel parameter limit
+
+
+def _emulate_merge_kernel(stack, rows, threads, cluster):
+    """csrc/merge_stack.cu in numpy: strips of `threads` int4 columns, each
+    folded by a cluster of row splits (`merge_plan`), a listed row outside
+    [0, height) skipped; block rank `me` of a cluster combines its slice of
+    every split's partial and writes it. Every output column must be
+    written by exactly one block."""
+    height, m = stack.shape
+    entries = np.arange(height) if rows is None else np.asarray(rows)
+    strip, cluster, per = ok.merge_plan(len(entries), m, threads, cluster)
+    width, m4 = strip // 4, m // 4
+    lanes = stack.reshape(height, m4, 4)
+    out = np.full((m4, 4), -1, np.int64)
+    for x in range(-(-m4 // width)):
+        cols = slice(x * width, min(m4, (x + 1) * width))
+        part = np.zeros((cluster, width, 4), np.int32)
+        for y in range(cluster):
+            for w in entries[y * per:(y + 1) * per]:
+                if 0 <= w < height:
+                    n = cols.stop - cols.start
+                    part[y, :n] = np.maximum(part[y, :n], lanes[w, cols])
+        for me in range(cluster):
+            for j in range(width * me // cluster, width * (me + 1) // cluster):
+                if x * width + j < m4:
+                    assert (out[x * width + j] == -1).all()
+                    out[x * width + j] = part[:, j].max(axis=0)
+    assert (out >= 0).all()
+    return out.reshape(m).astype(np.int32)
+
+
+@pytest.mark.parametrize("threads,cluster", [(128, 8), (64, 4), (256, 16), (32, 1)])
+@pytest.mark.parametrize("s,rows", [(70, [3, 5, 3, 69, 0]), (130, None), (9, None),
+                                    (40, [39, -1, 40, 7, 7, 1 << 30, 2]),
+                                    (20, list(range(19, -1, -1)) * 4)])
+def test_merge_kernel_algorithm(threads, cluster, s, rows):
+    """The kernel's strips, splits and cluster combine (and its skip of a
+    listed row out of range) give the Pallas merge of the gathered in-range
+    rows, at the chosen grid and at the grids chip_smoke.py probes."""
+    stack = np.random.default_rng(s).integers(0, 52, (s, M)).astype(np.int32)
+    kept = stack if rows is None else stack[[w for w in rows if 0 <= w < s]]
+    want = np.asarray(pk.merge_stack(jnp.asarray(kept), block=8))
+    np.testing.assert_array_equal(_emulate_merge_kernel(stack, rows, threads, cluster), want)
+
+
+@pytest.mark.parametrize("form", ["numpy", "cpu tensor"])
+@pytest.mark.parametrize("s,rows", [(70, [3, 5, 3, 69, 0]), (7, []),
+                                    (130, list(range(129, -1, -1))), (5, [4] * 9),
+                                    (70, [i % 70 for i in range(0, 7 * 1025, 7)])])
+def test_merge_stack_over_host_rows_matches_pallas(form, s, rows):
+    """The client's form: the row list on the host (numpy, as the engine
+    passes it, or a CPU tensor), repeats and any order, up to past the
+    second by-value capacity; the Pallas merge of the gathered stack."""
+    stack = np.random.default_rng(s).integers(0, 52, (s, M)).astype(np.int32)
+    idx = np.asarray(rows, np.int32)
+    want = np.asarray(pk.merge_stack(jnp.asarray(stack[idx]), block=8))
+    host = idx if form == "numpy" else torch.from_numpy(idx)
+    before = ok.launches["merge_stack"]
+    got = ok.merge_stack(torch.from_numpy(stack), host)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.shape == (M,) and got.dtype == torch.int32
+    assert ok.launches["merge_stack"] == before
 
 
 # -- BitSet / Bloom kernels ---------------------------------------------------
@@ -498,6 +592,13 @@ def test_wrappers_refuse_devices_they_cannot_run_on():
         ok.merge_stack(torch.zeros((4, M), dtype=torch.int64))
     with pytest.raises(ValueError):
         ok.merge_stack(stack, torch.zeros((2,), dtype=torch.int32, device="meta"))
+    host = torch.zeros((4, M), dtype=torch.int32)
+    for rows in (np.zeros(3, np.int64), np.zeros((3, 1), np.int32),
+                 torch.zeros(3, dtype=torch.int64), torch.zeros((3, 2), dtype=torch.int32)):
+        with pytest.raises(ValueError):  # what the card path refuses as a row list
+            ok._merge_args(host, rows)
+    with pytest.raises(ValueError):
+        ok.merge_plan(0, M)
     with pytest.raises(ValueError):
         ik.hll_insert_segmented_rows(stack, b, b, b)
     cells = torch.zeros((M,), dtype=torch.uint8, device="meta")
