@@ -41,6 +41,8 @@ from redisson_tpu_torch import config as config_mod
 from redisson_tpu_torch import device as device_mod
 from redisson_tpu_torch import engine, native
 from redisson_tpu_torch.executor import Op
+from redisson_tpu_torch.fault import inject as fault_inject
+from redisson_tpu_torch.fault.taxonomy import classify
 from redisson_tpu_torch.ingest import delta as delta_mod
 from redisson_tpu_torch.ingest import kernels as ingest_kernels
 from redisson_tpu_torch.ingest import tape as tape_mod
@@ -125,16 +127,29 @@ def _fail(ops: List[Op], exc: BaseException) -> None:
             op.future.set_exception(exc)
 
 
+def _fire_d2h(kind: str, target: str) -> None:
+    """The d2h_complete seam, fired on the completer before a readback is
+    waited for (where a CUDA error of the run surfaces)."""
+    fault_inject.fire("d2h_complete", kind=kind, target=target)
+
+
+def _fire_d2h_ops(ops: List[Op]) -> None:
+    _fire_d2h(ops[0].kind if ops else "", ops[0].target if ops else "")
+
+
 def _complete_all(ops: List[Op], materialize: Callable[[], object]) -> Callable:
     """Closure completing every op with materialize()'s value (or error)."""
 
     def run():
         try:
+            _fire_d2h_ops(ops)
             value = materialize()
         except Exception as exc:  # noqa: BLE001 — device errors surface here
-            for op in ops:
-                if not op.future.done():
-                    op.future.set_exception(exc)
+            # Post-dispatch: the run already launched, so a transient error
+            # here means its commit state is unknown. classify maps it to
+            # StateUncertainFault and the executor's fault listener routes
+            # the targets to the rebuild path.
+            _fail(ops, classify(exc, seam="d2h_complete"))
             return
         for op in ops:
             if not op.future.done():
@@ -158,11 +173,10 @@ def complete_changed_rows(completer: Completer, ops: List[Op],
 
     def run():
         try:
+            _fire_d2h_ops(ops)
             host = None if flag is None else flag.wait().numpy()
         except Exception as exc:  # noqa: BLE001
-            for op in ops:
-                if not op.future.done():
-                    op.future.set_exception(exc)
+            _fail(ops, classify(exc, seam="d2h_complete"))
             return
         for op, r in zip(ops, rows):
             if not op.future.done():
@@ -679,7 +693,7 @@ class TorchBackend:
             try:
                 getattr(self, "_op_" + kind)(tname, tops)
             except Exception as exc:  # noqa: BLE001 — never strand futures
-                _fail(tops, exc)
+                _fail(tops, classify(exc, seam="kernel_launch"))
 
     # -- delta ingest (host-folded planes, one stacked merge) ---------------
     #
@@ -803,6 +817,7 @@ class TorchBackend:
                 except Exception as exc:  # noqa: BLE001
                     # The one launch is the unit of failure; nothing was
                     # committed before it.
+                    exc = classify(exc, seam="kernel_launch")
                     for spec in specs:
                         _fail(spec["ops"], exc)
                 return
@@ -837,6 +852,7 @@ class TorchBackend:
                 self._delta_merge_chunk([planes[i] for i in chunk],
                                         [specs[i] for i in chunk])
             except Exception as exc:  # noqa: BLE001 — per-chunk isolation
+                exc = classify(exc, seam="kernel_launch")
                 for i in chunk:
                     _fail(specs[i]["ops"], exc)
 
@@ -903,8 +919,10 @@ class TorchBackend:
         stack of old rows (HLL rows gathered from the bank, store cells) and
         the delta stack (sparse planes expanded, packed ones unpacked on the
         device), one delta_merge launch in place, every row written back.
-        A chunk is its own unit of failure: state commits only after its
-        launch."""
+        A chunk is its own unit of failure: the kernel_launch seam fires per
+        chunk, and state commits only after its launch."""
+        fault_inject.fire("kernel_launch", kind="delta_merge",
+                          target=planes[0].target if planes else "")
         t0 = time.perf_counter()
         launches = 0
         lanes = max(self._pad_cells(p.cells) for p in planes)
@@ -957,10 +975,12 @@ class TorchBackend:
 
         def run():
             try:
+                _fire_d2h("delta", planes[0].target)
                 host_changed = flag.wait().numpy()
                 host_old = {i: spec["old_packed"].wait().numpy()
                             for i, p, spec in entries if p.kind == "bitset_set"}
             except Exception as exc:  # noqa: BLE001
+                exc = classify(exc, seam="d2h_complete")
                 for _i, _p, spec in entries:
                     _fail(spec["ops"], exc)
                 return
@@ -1004,7 +1024,11 @@ class TorchBackend:
         plane into the command tape (ingest/tape.py) and run
         engine.tape_apply, which gathers the old rows, packs their pre-merge
         bits for SETBIT results, merges every row by its op code and writes
-        the HLL rows back to the bank."""
+        the HLL rows back to the bank. The kernel_launch seam fires before
+        anything is encoded or committed, so a fault there fails the window
+        whole with no partial state."""
+        fault_inject.fire("kernel_launch", kind="tape",
+                          target=planes[0].target if planes else "")
         t0 = time.perf_counter()
         spec_by = {id(p): s for p, s in zip(planes, specs)}
         tp = tape_mod.encode_window(planes, self._hll_row)
@@ -1039,9 +1063,11 @@ class TorchBackend:
 
         def run():
             try:
+                _fire_d2h("tape", planes[0].target)
                 host_changed = flag.wait().numpy()
                 host_old = old_host.wait().numpy() if old_host else None
             except Exception as exc:  # noqa: BLE001
+                exc = classify(exc, seam="d2h_complete")
                 for _i, _p, spec in entries:
                     _fail(spec["ops"], exc)
                 return
@@ -1094,14 +1120,13 @@ class TorchBackend:
 
         def run():
             try:
+                _fire_d2h_ops(ops)
                 parts = [rb.wait().numpy()[:n] for rb, n in zip(rbs, spans)]
                 flat = np.concatenate(parts) if parts else np.zeros((0,), bool)
                 if post is not None:
                     flat = post(flat)
             except Exception as exc:  # noqa: BLE001
-                for op in ops:
-                    if not op.future.done():
-                        op.future.set_exception(exc)
+                _fail(ops, classify(exc, seam="d2h_complete"))
                 return
             pos = 0
             for op in ops:
@@ -1171,6 +1196,45 @@ class TorchBackend:
         """A write made `name`'s state diverge from any cached read."""
         self._epochs[name] = self._epochs.get(name, 0) + 1
 
+    def notify_restored(self, name: str) -> None:
+        """A checkpoint or snapshot restore replaced `name`'s state under
+        the op path: bump its epoch so cached reads go stale, drop its
+        cached reads outright, and discard a Bloom host mirror built against
+        the old filter. Replayed journal ops need none of this: they enter
+        through run() like live traffic."""
+        self._bloom_mirrors.pop(name, None)
+        self._touch(name)
+        self.read_cache.invalidate(name)
+
+    def snapshot_cut(self) -> dict:
+        """A consistent copy of every sketch for a snapshot, taken on the
+        dispatcher inside a barrier. Cell tensors and the bank are written
+        in place by later runs (the segment-OR, SETBIT, delta_merge), so a
+        kept handle would reach the disk holding state from past the cut:
+        each BitSet / Bloom tensor and the bank are cloned on the current
+        stream instead, after pending Bloom mirror bits are pushed down.
+        Returns {"objects": name -> (otype, cells clone, meta, version),
+        "bank": bank clone or None, "rows": name -> (row, version)}."""
+        objects = {}
+        for name in self.store.keys():
+            obj = self.store.get(name)
+            if obj is None:
+                continue
+            if obj.otype == ObjectType.BLOOM:
+                self._bloom_device_sync(name)
+                obj = self.store.get(name)
+            objects[name] = (obj.otype, obj.state.clone(), dict(obj.meta),
+                             obj.version)
+        rows = {name: (row, self._row_versions.get(name, 0))
+                for name, row in self._rows.items()}
+        bank = self.bank.clone() if rows and self.bank is not None else None
+        return {"objects": objects, "bank": bank, "rows": rows}
+
+    def bank_names(self) -> List[str]:
+        """Names of the HLLs held as bank rows (the checkpoint and snapshot
+        surface exports each through hll_export)."""
+        return list(self._rows)
+
     def names(self, pattern: str = "*") -> List[str]:
         out = dict.fromkeys(self.store.keys(pattern))
         for n in self._rows:
@@ -1207,8 +1271,7 @@ class TorchBackend:
                         self._hll_add_group(group, path)
         if device_ops:
             self._hll_add_device(device_ops, self._plan_ingest(
-                sum(int(op.payload["device_packed"].shape[0])
-                    for op in device_ops)))
+                sum(self._device_nkeys(op) for op in device_ops)))
         for op in ops:
             if not ({"packed", "data", "device_packed"} & op.payload.keys()):
                 op.future.set_exception(ValueError(
@@ -1217,6 +1280,13 @@ class TorchBackend:
     def _complete_changed(self, ops: List[Op], parts) -> None:
         complete_changed_rows(
             self.completer, ops, [self._rows[op.target] for op in ops], parts)
+
+    @staticmethod
+    def _device_nkeys(op: Op) -> int:
+        keys = op.payload["device_packed"]
+        if isinstance(keys, torch.Tensor):
+            return int(keys.shape[0])
+        return _as_i64(np.asarray(keys)).shape[0]
 
     @staticmethod
     def _payload_nkeys(op: Op) -> int:
@@ -1337,11 +1407,16 @@ class TorchBackend:
 
     def _hll_add_device(self, ops: List[Op], impl: str) -> None:
         """Keys already on the device (int64 [n]): one launch chain per
-        chunk at its padded shape, no host copy and no transfer."""
+        chunk at its padded shape, no host copy and no transfer. A journal
+        replay hands the same keys back as a host array (int64 [n], or the
+        JAX package's [n, 2] uint32 layout): it is copied to the device."""
         parts = []
         for op in ops:
             row = self._rows[op.target]
-            keys = op.payload["device_packed"].to(self.device)
+            keys = op.payload["device_packed"]
+            if not isinstance(keys, torch.Tensor):
+                keys = self._to_device(_as_i64(np.asarray(keys)))
+            keys = keys.to(self.device)
             for s, e in engine.chunk_spans(int(keys.shape[0])):
                 chunk = keys[s:e]
                 n = e - s

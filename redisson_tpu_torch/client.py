@@ -9,6 +9,11 @@ and every structure object (buckets, maps, caches, sets, lists, queues,
 sorted sets, multimaps, geo, topics, locks, semaphores, latches, scripts,
 keys) on the in-process engine, plus `create_batch()`.
 
+`Config.use_persist(dir)` turns on the write-ahead journal, snapshots and
+crash recovery (`client.persist`, `snapshot_now`), `Config.use_faults()`
+the fault injection, run watchdog and self-healing rebuild
+(`client.fault`); `save_checkpoint` / `load_checkpoint` work either way.
+
 Getters of tiers the port has not reached yet (nodes / topology, remote
 service, cache manager) raise NotImplementedError naming the ROADMAP item.
 """
@@ -19,6 +24,7 @@ from typing import Callable, Optional, Union
 
 import numpy as np
 
+from redisson_tpu_torch import checkpoint
 from redisson_tpu_torch import device as device_mod
 from redisson_tpu_torch.backend_torch import TorchBackend
 from redisson_tpu_torch.codecs import get_codec
@@ -86,6 +92,31 @@ class RedissonTorch:
         self._watchdog = LockWatchdog(self._executor)
         self._eviction = EvictionScheduler(self._executor)
         self._is_shutdown = False
+        self._persist = None
+        self._fault = None
+        # Durability first (recovery replays before any user traffic and
+        # before the journal attaches), then faults (the rebuild path needs
+        # the recovered journal); a failure unwinds the whole client.
+        pcfg = self.config.persist
+        if pcfg is not None and pcfg.dir:
+            from redisson_tpu_torch.persist import PersistenceManager
+
+            self._persist = PersistenceManager(self, pcfg)
+            try:
+                self._persist.start()
+            except Exception:
+                self.shutdown()
+                raise
+        fcfg = self.config.faults
+        if fcfg is not None:
+            from redisson_tpu_torch.fault import FaultManager
+
+            self._fault = FaultManager(self, fcfg)
+            try:
+                self._fault.start()
+            except Exception:
+                self.shutdown()
+                raise
 
     @classmethod
     def create(cls, config: Union[Config, CudaConfig, None] = None) -> "RedissonTorch":
@@ -245,15 +276,81 @@ class RedissonTorch:
         """Atomic multi-bucket MSET."""
         self.get_buckets().set(dict(values))
 
+    # -- durability / checkpoint --------------------------------------------
+
+    @property
+    def persist(self):
+        """The PersistenceManager when Config.persist is set, else None."""
+        return self._persist
+
+    @property
+    def fault(self):
+        """The FaultManager when Config.faults is set, else None."""
+        return self._fault
+
+    def snapshot_now(self) -> str:
+        """On-demand persistent snapshot (BGSAVE analogue): cuts through
+        the dispatcher barrier, writes via checkpoint.py, truncates covered
+        journal segments. Returns the snapshot directory."""
+        if self._persist is None:
+            raise RuntimeError("no persistence configured (Config.persist)")
+        return self._persist.snapshot()
+
+    def save_checkpoint(self, path: str, names=None) -> int:
+        """Snapshot sketch state to a local checkpoint directory (the JAX
+        package's format). Every object is exported through the executor,
+        so each is a copy taken on the dispatcher: bank rows by hll_export,
+        BitSets and Blooms (host mirror bits pushed down first) by
+        bits_export."""
+        extra = {}
+        wanted = lambda n: names is None or n in names  # noqa: E731
+        for n in self.sketch.bank_names():
+            if wanted(n):
+                exported = self._executor.execute_sync(n, "hll_export", None)
+                if exported is not None:
+                    regs, version = exported
+                    extra[n] = ("hll", regs, {}, version)
+        for n in self._store.keys():
+            if wanted(n):
+                exported = self._executor.execute_sync(n, "bits_export", None)
+                if exported is not None:
+                    otype, host, meta, version = exported
+                    extra[n] = (otype, host, meta, version)
+        return checkpoint.save(self._store, path, names=[], extra_objects=extra)
+
+    def load_checkpoint(self, path: str, names=None) -> int:
+        """Restore sketch state from a local checkpoint directory (written
+        by either package). Each object is imported through the executor:
+        HLLs into bank rows (hll_import), BitSets and Blooms onto the
+        device (bits_import); then every restored name's read-cache epoch
+        is bumped."""
+
+        def put(name, otype, host, meta) -> bool:
+            if otype == "hll":
+                self._executor.execute_sync(name, "hll_import", {"regs": host})
+                return True
+            if otype in ("bitset", "bloom"):
+                self._executor.execute_sync(
+                    name, "bits_import",
+                    {"otype": otype, "array": host, "meta": meta})
+                return True
+            return False  # the store's own path
+
+        restored = checkpoint.load(self._store, path, names, put=put)
+        for n in checkpoint.info(path).get("objects", {}):
+            if names is None or n in names:
+                self.sketch.notify_restored(n)
+        return restored
+
     # -- tiers still queued -------------------------------------------------
 
     def get_cluster_nodes_group(self):
-        raise _not_ported("get_cluster_nodes_group", "serve, persist, fault, "
-                          "trace, memstat (observability.py NodesGroup)")
+        raise _not_ported("get_cluster_nodes_group", "serve, trace, memstat, "
+                          "observability (observability.py NodesGroup)")
 
     def get_nodes_group(self):
-        raise _not_ported("get_nodes_group", "serve, persist, fault, trace, "
-                          "memstat (observability.py NodesGroup)")
+        raise _not_ported("get_nodes_group", "serve, trace, memstat, "
+                          "observability (observability.py NodesGroup)")
 
     def get_topology_manager(self, scan_interval_s: float = 1.0,
                              failed_attempts: int = 3):
@@ -312,16 +409,27 @@ class RedissonTorch:
         return self._is_shutdown
 
     def shutdown(self) -> None:
-        """Stop in the JAX client's order: the eviction sweeps and the lock
-        watchdog (both submit ops), then the executor (drains queued and
-        in-flight runs), the device completer, the parked blocking pops
-        (their waiters get an error), and last the pub/sub delivery
+        """Stop in the JAX client's order: the fault manager (its watchdog
+        reads executor internals; in-flight rebuilds finish while the
+        executor still takes their replay), the snapshotter, the eviction
+        sweeps and the lock watchdog (both submit ops), then the executor
+        (drains queued and in-flight runs, which still journal), the
+        journal (final fsync), the device completer, the parked blocking
+        pops (their waiters get an error), and last the pub/sub delivery
         thread."""
         if self._is_shutdown:
             return
+        if self._fault is not None:
+            self._fault.stop()
+            self._fault = None
+        if self._persist is not None:
+            self._persist.stop_background()
         self._eviction.shutdown()
         self._watchdog.shutdown()
         self._executor.shutdown()
+        if self._persist is not None:
+            self._persist.close()
+            self._persist = None
         self.sketch.completer.shutdown()
         self._routing.structures.fail_waiters()
         self._pubsub.shutdown()

@@ -3,13 +3,14 @@ single-device sketch engine on a CUDA card.
 
 `Config.use_cuda()` is the builder, like `Config.use_tpu()`: it creates (or
 returns) the `CudaConfig` section, applies any keyword overrides, and
-returns that section.
+returns that section. `use_persist(dir)` and `use_faults()` do the same for
+the durability and fault sections (the JAX package's fields and defaults).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
-from typing import Optional
+from dataclasses import dataclass, field, fields
+from typing import Any, Dict, List, Optional
 
 #: ingest paths: "auto" lets the planner pick per batch size from timings
 #: taken on the device and the measured link profile; "device" uses
@@ -52,19 +53,89 @@ class CudaConfig:
 
 
 @dataclass
+class PersistConfig:
+    """Durability subsystem (`persist/`): write-ahead op journal, snapshots
+    and crash recovery (mirrors `redisson_tpu.config.PersistConfig`)."""
+
+    # Journal + snapshot directory ("" disables persistence even when the
+    # section is present).
+    dir: str = ""
+    # appendfsync analogue: "always" (group-committed write-ahead fsync,
+    # durability lag bounded by the in-flight window), "everysec"
+    # (background fsync every fsync_interval_s), "off" (OS-paced).
+    fsync: str = "everysec"
+    fsync_interval_s: float = 1.0
+    # Group-commit size for fsync="always"; 0 = follow Config.inflight_runs
+    # (one fsync per in-flight window). 1 = strict fsync-per-run.
+    group_commit_runs: int = 0
+    segment_max_bytes: int = 64 << 20
+    # Background snapshot cadence (0 = on demand via
+    # client.persist.snapshot() only). Each snapshot truncates wholly
+    # covered journal segments.
+    snapshot_interval_s: float = 0.0
+    snapshot_keep: int = 2
+    # Replay snapshot + journal suffix at client create when the directory
+    # holds prior state (also the way back from a lost CUDA context: a new
+    # process on the same directory).
+    auto_recover: bool = True
+
+
+@dataclass
+class FaultConfig:
+    """Fault subsystem (`fault/`): classification is always on; this
+    section controls injection, the run watchdog and the self-healing
+    rebuild (mirrors `redisson_tpu.config.FaultConfig`)."""
+
+    # Declarative injection schedule: FaultRule dicts ({"seam", "fault",
+    # "nth", "times", "kind", "target"}); empty = no injection.
+    plan: List[Dict[str, Any]] = field(default_factory=list)
+    seed: int = 0  # documents how a random plan was generated
+    # Run watchdog over the executor's in-flight window (floor deadlines:
+    # no cost model without a serving layer).
+    watchdog: bool = False
+    watchdog_margin: float = 8.0
+    watchdog_floor_s: float = 2.0
+    watchdog_poll_s: float = 0.05
+    # Self-healing rebuild on StateUncertain/DeviceLost retirement; needs
+    # Config.persist for host truth, else faulted targets degrade.
+    rebuild: bool = True
+
+
+def _apply(section, overrides: dict):
+    names = {f.name for f in fields(section)}
+    for key, value in overrides.items():
+        if key not in names:
+            raise TypeError(f"{type(section).__name__} has no field {key!r}")
+        setattr(section, key, value)
+    return section
+
+
+@dataclass
 class Config:
     cuda: Optional[CudaConfig] = None
     codec: str = "json"  # default value codec
     # How many coalesced runs may be in flight at once (staged and
     # dispatched, futures unresolved); per-target order holds at any depth.
     inflight_runs: int = 2
+    persist: Optional[PersistConfig] = None
+    faults: Optional[FaultConfig] = None
 
     def use_cuda(self, **overrides) -> CudaConfig:
-        self.cuda = self.cuda or CudaConfig()
-        names = {f.name for f in fields(CudaConfig)}
-        for key, value in overrides.items():
-            if key not in names:
-                raise TypeError(f"CudaConfig has no field {key!r}")
-            setattr(self.cuda, key, value)
+        self.cuda = _apply(self.cuda or CudaConfig(), overrides)
         check_ingest(self.cuda.ingest)
         return self.cuda
+
+    def use_persist(self, dir: str = "", **overrides) -> PersistConfig:
+        """The durability section: journal and snapshots under `dir`."""
+        self.persist = self.persist or PersistConfig()
+        if dir:
+            self.persist.dir = dir
+        _apply(self.persist, overrides)
+        if self.persist.fsync not in ("always", "everysec", "off"):
+            raise ValueError(f"unknown fsync policy {self.persist.fsync!r}")
+        return self.persist
+
+    def use_faults(self, **overrides) -> FaultConfig:
+        """The fault section: injection plan, watchdog, rebuild."""
+        self.faults = _apply(self.faults or FaultConfig(), overrides)
+        return self.faults

@@ -18,7 +18,16 @@ Dispatch model:
     state inside `run()` (`DISPATCH_TIME_STATE`) release the gate when
     `run()` returns, so only the window bounds their depth;
   * ops may carry an absolute `deadline`; expired ops fail with
-    `DeadlineExceeded` before dispatch.
+    `DeadlineExceeded` before dispatch;
+  * with a write-ahead journal attached (`set_journal`), each run's
+    mutating ops are appended on the dispatcher before `backend.run`, so an
+    acknowledged op is always journaled and journal order is apply order;
+    a journal that cannot take the record fails the run unapplied;
+  * errors are classified (`fault.taxonomy.classify`) at the seam where
+    they surface before a future sees them; a run that retires with a
+    StateUncertainFault goes to `fault_listener` (the rebuild path), and
+    `fault_guard` may reject writes at enqueue (quarantined or degraded
+    targets).
 
 Batch visibility: the per-key "changed" result of a coalesced run is taken
 against the object's state at run start.
@@ -31,8 +40,8 @@ RBatch: `execute_many` enqueues a staged pipeline under one lock
 acquisition; `BatchCollector` / `StagedFuture` collect, dispatch and return
 results in staging order.
 
-Journaling, tracing, metrics, the serving layer's policies, fault injection
-and the contract witness arrive with their own slices.
+Tracing, metrics, the serving layer's policies and the contract witness
+arrive with their own slices.
 """
 
 from __future__ import annotations
@@ -44,6 +53,10 @@ from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+from redisson_tpu_torch.fault import inject as fault_inject
+from redisson_tpu_torch.fault.taxonomy import StateUncertainFault, classify
+from redisson_tpu_torch.serve.errors import DeadlineExceeded
 
 # Op kinds that may coalesce with the previous op of the same kind+target.
 COALESCABLE = {"hll_add", "bloom_add", "bitset_set", "bitset_clear",
@@ -57,8 +70,10 @@ COALESCABLE = {"hll_add", "bloom_add", "bitset_set", "bitset_clear",
 PARKED_KINDS = frozenset({"bpop"})
 
 # Pseudo-kind run inline on the dispatcher thread: the op's payload is a
-# zero-arg callable, executed with no run staging concurrently (an exact
-# consistency cut for dispatch-time-state backends).
+# zero-arg callable, executed with no run staging concurrently. The
+# dispatcher is the only thread that stages runs and appends journal
+# records, so a barrier is an exact consistency cut for dispatch-time-state
+# backends: the persist snapshotter cuts its snapshots through it.
 BARRIER_KIND = "__barrier__"
 
 _op_counter = itertools.count()
@@ -70,13 +85,13 @@ def make_lock(site: str):
     return threading.Lock()
 
 
+def make_rlock(site: str):
+    """A re-entrant lock, named like `make_lock`."""
+    return threading.RLock()
+
+
 def make_condition(site: str, lock=None):
     return threading.Condition(lock)
-
-
-class DeadlineExceeded(Exception):
-    """The op's deadline passed before device dispatch (it never reached
-    the backend, so retrying it is always safe)."""
 
 
 @dataclass
@@ -95,8 +110,8 @@ class Op:
 class _InflightRun:
     """One dispatched run, alive until its last op future resolves."""
 
-    __slots__ = ("kind", "target", "targets", "is_global", "pending",
-                 "gates_held", "lock")
+    __slots__ = ("kind", "target", "targets", "is_global", "nkeys", "t0",
+                 "pending", "gates_held", "lock", "ops", "fault_exc")
 
     def __init__(self, kind: str, target: str, targets: frozenset,
                  is_global: bool):
@@ -104,9 +119,13 @@ class _InflightRun:
         self.target = target
         self.targets = targets
         self.is_global = is_global
+        self.nkeys = 0
+        self.t0 = 0.0  # executor-clock dispatch time (the watchdog's age)
         self.pending = 0
         self.gates_held = True
         self.lock = make_lock("executor._InflightRun.lock")
+        self.ops: Sequence[Op] = ()  # live ops (watchdog trip)
+        self.fault_exc = None  # first StateUncertainFault among the ops
 
 
 class CommandExecutor:
@@ -136,6 +155,16 @@ class CommandExecutor:
         self._ready: deque = deque()  # round-robin of names with work
         self._runs_dispatched = 0
         self._shutdown = False
+        # Write-ahead op journal (persist/journal.py) or None; installed by
+        # the persistence manager after recovery replay (set_journal).
+        self._journal = None
+        # Fault subsystem hooks (fault/manager.py installs; None = off):
+        # fault_guard(kind, target) -> Optional[Exception] runs at enqueue
+        # (quarantined/degraded write rejection); fault_listener(kind,
+        # targets, fault) fires when a run retires with StateUncertainFault
+        # (the rebuild coordinator's trigger).
+        self.fault_guard = None
+        self.fault_listener = None
         self._thread = threading.Thread(
             target=self._loop, name="redisson-torch-dispatcher", daemon=True)
         self._thread.start()
@@ -143,6 +172,19 @@ class CommandExecutor:
     @property
     def backend(self):
         return self._backend
+
+    @property
+    def journal(self):
+        """The attached write-ahead journal, or None (journaling off)."""
+        return self._journal
+
+    def set_journal(self, journal) -> None:
+        """Attach/detach the write-ahead journal. The persistence manager
+        installs it after recovery replay (replayed ops must not
+        re-journal); lock-ordered with dispatch so no run straddles the
+        transition."""
+        with self._cv:
+            self._journal = journal
 
     # -- submission ---------------------------------------------------------
 
@@ -175,6 +217,14 @@ class CommandExecutor:
             # future rather than an exception in the submitting thread.
             op.future.set_exception(RuntimeError("executor is shut down"))
             return
+        guard = self.fault_guard
+        if guard is not None:
+            # Quarantined/degraded target rejection (set lookups only: the
+            # guard runs under the executor lock).
+            exc = guard(op.kind, op.target)
+            if exc is not None:
+                op.future.set_exception(exc)
+                return
         q = self._queues.get(op.target)
         if q is None:
             q = self._queues[op.target] = deque()
@@ -195,6 +245,12 @@ class CommandExecutor:
         """Total ops waiting across all object queues (locked snapshot)."""
         with self._lock:
             return sum(len(q) for q in self._queues.values())
+
+    def has_ready(self) -> bool:
+        """True while some target has queued work: more dispatch is
+        imminent (the journal's group-commit hint). Racy by design: a stale
+        read costs at most one extra fsync or one linger."""
+        return bool(self._ready)
 
     def runs_dispatched(self) -> int:
         """Runs handed to the backend so far (barriers excluded): how many
@@ -330,9 +386,14 @@ class CommandExecutor:
                 try:
                     op.future.set_result(op.payload())
                 except Exception as exc:  # noqa: BLE001 — resolve, never hang
-                    op.future.set_exception(exc)
+                    # Barrier callables (snapshot cuts, state swaps) can
+                    # fail on device/IO errors too: classify them.
+                    op.future.set_exception(classify(exc, seam="snapshot_io"))
             self._retire(token)
             return
+        token.ops = live
+        token.nkeys = sum(op.nkeys for op in live)
+        token.t0 = self._clock()
         token.pending = len(live)
         with self._cv:
             self._runs_dispatched += 1
@@ -343,12 +404,36 @@ class CommandExecutor:
             # kinds skip it: a later op completes them.
             for op in live:
                 op.future.add_done_callback(
-                    lambda fut, token=token: self._op_done(token))
+                    lambda fut, token=token: self._op_done(token, fut))
+        journal = self._journal
+        if journal is not None and not parked:
+            # Write-ahead: the record reaches the journal before the backend
+            # commits state, so an acknowledged op is always journaled (read
+            # kinds are a no-op inside append_run). `defer` tells the
+            # "always" policy more dispatch is queued, so one fsync covers
+            # the in-flight window.
+            try:
+                journal.append_run(token.kind, live, defer=self.has_ready())
+            except Exception as exc:  # noqa: BLE001 — fail the run unapplied
+                # Applying an unjournaled mutation would break the recovery
+                # contract; nothing has committed, so the fault is retryable.
+                exc = classify(exc, seam="journal_fsync")
+                for op in live:
+                    if not op.future.done():
+                        op.future.set_exception(exc)
+                return
         try:
+            fault_inject.fire("kernel_launch", kind=token.kind,
+                              target=token.target)
             self._backend.run(token.kind, token.target, live)
             if self._eager_release and not parked:
                 self._release_gates(token)
         except Exception as exc:  # complete, never kill the loop
+            # The staging boundary: H2D copies, kernel launches and the
+            # injected kernel_launch seam surface here. classify() decides
+            # between retryable (nothing committed) and uncertain (the
+            # rebuild path re-materializes; _op_done notes it).
+            exc = classify(exc, seam="kernel_launch")
             for op in live:
                 if not op.future.done():
                     op.future.set_exception(exc)
@@ -360,12 +445,26 @@ class CommandExecutor:
 
     # -- completion path ----------------------------------------------------
 
-    def _op_done(self, token: _InflightRun) -> None:
+    def _op_done(self, token: _InflightRun, fut: Future) -> None:
+        exc = None if fut.cancelled() else fut.exception()
         with token.lock:
+            if token.fault_exc is None and isinstance(exc, StateUncertainFault):
+                # State-uncertain retirement (device loss, a watchdog trip,
+                # a failed readback): the run's targets go to the rebuild
+                # listener once the run retires.
+                token.fault_exc = exc
             token.pending -= 1
             if token.pending > 0:
                 return
         self._retire(token)
+        listener = self.fault_listener
+        if listener is not None and token.fault_exc is not None:
+            try:
+                listener(token.kind, token.targets, token.fault_exc)
+            except Exception:  # noqa: BLE001
+                # The listener is best-effort: its failure must not poison
+                # the completion path that just resolved the futures.
+                pass
 
     def _release_gates_locked(self, token: _InflightRun) -> None:
         if not token.gates_held:
@@ -385,6 +484,47 @@ class CommandExecutor:
             self._release_gates_locked(token)
             self._inflight.discard(token)
             self._cv.notify_all()
+
+    # -- fault-subsystem surface -------------------------------------------
+
+    def fail_inflight(self, token: _InflightRun, exc: BaseException) -> int:
+        """Resolve a stuck run's still-pending futures with `exc` (the
+        watchdog's trip action). Completion flows through the normal
+        done-callback path, so the run retires and its gates release; a
+        late device completion finds the futures done and is dropped by
+        the backend's `future.done()` guards. Returns how many futures
+        this call resolved."""
+        failed = 0
+        for op in token.ops:
+            if op.future.done():
+                continue
+            try:
+                op.future.set_exception(exc)
+                failed += 1
+            except Exception:  # noqa: BLE001
+                # InvalidStateError: the completer resolved this future
+                # between the done() check and here.
+                pass
+        return failed
+
+    def sweep_queued(self, targets, exc_factory) -> int:
+        """Complete every QUEUED (undispatched) op for `targets` with
+        `exc_factory(op)`: the rebuild path cancels dependents of a
+        quarantined target this way (never dispatched, so a retryable
+        rejection is safe). Returns the number of swept ops."""
+        with self._cv:
+            swept: List[Op] = []
+            for t in set(targets):
+                q = self._queues.pop(t, None)
+                if not q:
+                    continue
+                swept.extend(q)
+                if t in self._ready:
+                    self._ready.remove(t)
+        for op in swept:
+            if not op.future.done():
+                op.future.set_exception(exc_factory(op))
+        return len(swept)
 
     def _cancel_remaining(self) -> None:
         with self._cv:

@@ -5,7 +5,10 @@
 the host part) runs on a worker thread one chunk ahead of `dispatch` (the
 kernel launches, cheap to issue and ordered), so chunk N+1's host work and
 transfer overlap chunk N's device work. Dispatch stays on the caller's
-thread because the bank carry makes it serial.
+thread because the bank carry makes it serial. The `stage_h2d` fault seam
+fires on the worker before each chunk is staged; an injected (or real)
+staging failure re-raises on the caller's thread, inside the dispatcher's
+run, where it classifies as retryable (nothing committed).
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from __future__ import annotations
 import queue
 import threading
 from typing import Any, Callable, Iterable, List
+
+from redisson_tpu_torch.fault import inject as fault_inject
 
 _STOP = object()
 
@@ -45,6 +50,7 @@ class StagingPipeline:
                 for i, chunk in enumerate(chunks):
                     if stop.is_set():
                         return
+                    fault_inject.fire("stage_h2d")
                     q.put((i, stage(chunk)))
             except BaseException as exc:  # noqa: BLE001 - re-raised below
                 failure.append(exc)

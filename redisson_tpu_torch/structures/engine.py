@@ -24,7 +24,9 @@ cancellation is itself an op, so the cancel/fulfill race is serialized away.
 from __future__ import annotations
 
 import fnmatch
+import io
 import itertools
+import pickle
 import random
 import threading
 import time
@@ -44,6 +46,22 @@ def now_ms() -> int:
 # SRANDMEMBER randomness (os-entropy seeded; r2 used a now_ms()-derived
 # window, so two calls in the same millisecond returned identical members).
 _rand = random.Random()
+
+
+class _DumpUnpickler(pickle.Unpickler):
+    """Reads a keyspace dump of either package: the JAX package pickles its
+    `redisson_tpu.structures.engine.KV` records, which map onto this
+    module's field-for-field copy, so loading such a dump never imports
+    the JAX package."""
+
+    def find_class(self, module, name):
+        if module == "redisson_tpu" or module.startswith("redisson_tpu."):
+            module = "redisson_tpu_torch" + module[len("redisson_tpu"):]
+        return super().find_class(module, name)
+
+
+def _load_dump(blob: bytes):
+    return _DumpUnpickler(io.BytesIO(blob)).load()
 
 
 class T:
@@ -271,8 +289,6 @@ class StructureBackend(ExtendedOps):
         futures belong to the crashed process) and the SCRIPT cache
         (callables don't pickle; re-register via script_load after
         recovery, same as a restarted Redis loses its script cache)."""
-        import pickle
-
         with self._lock:
             return pickle.dumps({"format": 1, "data": self._data},
                                 protocol=pickle.HIGHEST_PROTOCOL)
@@ -280,9 +296,7 @@ class StructureBackend(ExtendedOps):
     def load_state(self, blob: bytes) -> int:
         """Replace the keyspace with a dump_state() capture. Returns the
         number of keys restored. Dispatcher-thread (or pre-traffic) only."""
-        import pickle
-
-        payload = pickle.loads(blob)
+        payload = _load_dump(blob)
         if payload.get("format") != 1:
             raise ValueError(f"unsupported structure dump format "
                              f"{payload.get('format')!r}")
@@ -297,9 +311,7 @@ class StructureBackend(ExtendedOps):
         migration bootstrap path: a target shard installs the migrating
         slots' keys without disturbing the keys it already owns. Runs as
         the journaled `migrate_install` op on the dispatcher thread."""
-        import pickle
-
-        payload = pickle.loads(blob)
+        payload = _load_dump(blob)
         if payload.get("format") != 1:
             raise ValueError(f"unsupported structure dump format "
                              f"{payload.get('format')!r}")
@@ -1354,9 +1366,7 @@ def filter_state_dump(blob: bytes, keep) -> Tuple[bytes, int]:
     returning (filtered blob, kept count). Pure host-side pickle surgery —
     the slot migrator filters a source snapshot's structure sidecar down to
     the migrating slots before shipping it as a `migrate_install` op."""
-    import pickle
-
-    payload = pickle.loads(blob)
+    payload = _load_dump(blob)
     if payload.get("format") != 1:
         raise ValueError(
             f"unsupported structure dump format {payload.get('format')!r}")

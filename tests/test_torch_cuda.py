@@ -3,7 +3,8 @@
 (segmented insert, merge_stack, popcount partials, bitop, the segment-OR
 and its edge cases, delta_merge, window_merge), and the client (HLL,
 Bloom, BitSet, the delta / tape / hostfold ingest) on the card against the
-client on the CPU. They skip where no card is visible. Run them on a
+client on the CPU; persistence, the snapshot cut, add_device replay and a
+real out-of-memory error on the card. They skip where no card is visible. Run them on a
 machine with one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -461,3 +462,156 @@ def test_rbatch_over_256_sketches_on_card_matches_cpu(dev):
     assert gunion == cunion
     for n in grows:
         np.testing.assert_array_equal(grows[n], crows[n], err_msg=n)
+
+
+# -- durability and faults on the card ---------------------------------------
+
+
+def _persist_client(path, ingest="segment", **fault_kw):
+    cfg = Config()
+    cfg.use_cuda(ingest=ingest)
+    cfg.use_persist(str(path), fsync="always")
+    if fault_kw:
+        cfg.use_faults(**fault_kw)
+    return RedissonTorch.create(cfg)
+
+
+def _sketches(c):
+    """name -> registers or cells of every sketch, through the executor."""
+    out = {}
+    for n in sorted(c.keys()):
+        if n in c.sketch.bank_names():
+            out[n] = c._executor.execute_sync(n, "hll_export", None)[0].tobytes()
+        else:
+            out[n] = c._executor.execute_sync(n, "bits_export", None)[1].tobytes()
+    return out
+
+
+def test_persist_round_trip_on_card(dev, tmp_path):
+    """Journaled PFADD / Bloom / SETBIT on the card, a snapshot and a
+    suffix, recovered by a new client: state equal to the live client's,
+    and the recovery ran seg_insert and the segment-OR on the card."""
+    import shutil
+
+    rng = np.random.default_rng(3)
+    c = _persist_client(tmp_path / "lead")
+    try:
+        for i in range(8):
+            c.get_hyper_log_log(f"h{i}").add_ints(
+                rng.integers(0, 2**63, 40_000, dtype=np.uint64))
+        bf = c.get_bloom_filter("bf")
+        bf.try_init(1_000_000, 0.01)
+        bf.add_ints(rng.integers(0, 2**63, 100_000, dtype=np.uint64))
+        bits = c.get_bit_set("day")
+        bits.set(1 << 20, True)
+        c.snapshot_now()
+        for i in range(8):
+            c.get_hyper_log_log(f"h{i}").add_ints(
+                rng.integers(0, 2**63, 40_000, dtype=np.uint64))
+        bf.add_ints(rng.integers(0, 2**63, 100_000, dtype=np.uint64))
+        for off in rng.integers(0, 1 << 20, 50):
+            bits.set(int(off), True)
+        c.persist.journal.sync()
+        want = _sketches(c)
+        shutil.copytree(tmp_path / "lead", tmp_path / "img")
+    finally:
+        c.shutdown()
+    ik.reset_launches()
+    r = _persist_client(tmp_path / "img")
+    try:
+        assert r.persist.last_recovery["replay_errors"] == 0
+        assert ik.launches["seg_insert"] > 0
+        assert ik.launches["bits_insert_segmented"] > 0
+        assert _sketches(r) == want
+    finally:
+        r.shutdown()
+
+
+def test_snapshot_cut_holds_against_in_place_kernels(dev, tmp_path, monkeypatch):
+    """The segment-OR and SETBIT write the card's cell tensors in place; a
+    snapshot whose host copies are taken after more such writes still
+    equals the journal prefix at its watermark."""
+    from redisson_tpu_torch.persist import snapshotter as snap_mod
+    from redisson_tpu_torch.persist.journal import iter_records
+
+    rng = np.random.default_rng(5)
+    c = _persist_client(tmp_path / "lead")
+    bf = c.get_bloom_filter("bf")
+    bf.try_init(1_000_000, 0.01)
+    bits = c.get_bit_set("bits")
+
+    def traffic(n):
+        futs = []
+        for _ in range(n):
+            futs.append(bf.add_ints_async(rng.integers(0, 2**63, 50_000, dtype=np.uint64)))
+            futs.append(c._executor.execute_async(
+                "bits", "bitset_set" if rng.random() < 0.5 else "bitset_clear",
+                {"idx": rng.integers(0, 1 << 20, 4096).astype(np.int64)}, nkeys=4096))
+        for f in futs:
+            f.result()
+
+    bits.set((1 << 20) - 1, True)
+    traffic(10)
+    c.persist.journal.sync()
+    records = list(iter_records(str(tmp_path / "lead")))
+    real = snap_mod.Snapshotter._host_objects
+    monkeypatch.setattr(snap_mod.Snapshotter, "_host_objects",
+                        staticmethod(lambda cut: (traffic(10), real(cut))[1]))
+    try:
+        snap = c.snapshot_now()
+    finally:
+        c.shutdown()
+    ref = RedissonTorch.create(Config().use_cuda(ingest="scatter"))
+    got = RedissonTorch.create(Config().use_cuda(ingest="scatter"))
+    try:
+        for rec in records:
+            ref._executor.execute_sync(rec.target, rec.kind, rec.payload)
+        got.load_checkpoint(snap)
+        assert _sketches(got) == _sketches(ref)
+    finally:
+        ref.shutdown()
+        got.shutdown()
+
+
+def test_add_device_journaled_and_recovered(dev, tmp_path):
+    """A CUDA key tensor is journaled as its host copy and replayed onto the
+    card: the recovered row equals the live one."""
+    import shutil
+
+    c = _persist_client(tmp_path / "lead")
+    try:
+        keys = torch.randint(-(2**62), 2**62, (200_000,), dtype=torch.int64, device=dev)
+        h = c.get_hyper_log_log("dev")
+        h.add_device(keys)
+        c.persist.journal.sync()
+        want = _sketches(c)
+        count = h.count()
+        shutil.copytree(tmp_path / "lead", tmp_path / "img")
+    finally:
+        c.shutdown()
+    r = _persist_client(tmp_path / "img")
+    try:
+        assert r.persist.last_recovery["replayed"] == 1
+        assert _sketches(r) == want
+        assert r.get_hyper_log_log("dev").count() == count
+    finally:
+        r.shutdown()
+
+
+def test_real_oom_is_retryable_and_not_sticky(dev, tmp_path):
+    """A SETBIT whose offset needs a bitmap larger than the card's free
+    memory raises torch.cuda.OutOfMemoryError inside the run; it comes out
+    of the op path as a RetryableFault, and the next PFADD succeeds."""
+    from redisson_tpu_torch.fault.taxonomy import RetryableFault
+
+    c = _persist_client(tmp_path / "p", plan=[])
+    try:
+        h = c.get_hyper_log_log("h")
+        h.add_ints(np.arange(1000, dtype=np.uint64))
+        free, _total = torch.cuda.mem_get_info(dev)
+        with pytest.raises(RetryableFault) as info:
+            c.get_bit_set("huge").set(2 * free, True)  # one byte per bit
+        assert isinstance(info.value.cause, torch.cuda.OutOfMemoryError)
+        assert h.add_ints(np.arange(1000, 2000, dtype=np.uint64))
+    finally:
+        c.shutdown()

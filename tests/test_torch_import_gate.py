@@ -17,8 +17,8 @@ from redisson_tpu_torch.config import Config
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: modules of redisson_tpu_torch the walk must find (52 with the structures
-#: tier and RBatch)
-NMODS = 52
+#: tier and RBatch, 67 with persist/, fault/, checkpoint and serve/errors)
+NMODS = 67
 
 _GATE = textwrap.dedent("""
     import importlib, pkgutil, runpy, sys
@@ -47,6 +47,12 @@ _GATE = textwrap.dedent("""
               "redisson_tpu_torch.models.batch",
               "redisson_tpu_torch.models.lock"}
     print("SLICE6", sorted(slice6 - set(mods)))
+    slice8 = {"redisson_tpu_torch.checkpoint", "redisson_tpu_torch.serve.errors",
+              *(f"redisson_tpu_torch.persist.{m}" for m in
+                ("codec", "journal", "snapshotter", "recover", "manager")),
+              *(f"redisson_tpu_torch.fault.{m}" for m in
+                ("taxonomy", "inject", "watchdog", "rebuild", "manager"))}
+    print("SLICE8", sorted(slice8 - set(mods)))
     print("MODULES", len(mods), "SMOKE_RC", rc, "LEAKED", leaked)
 """)
 
@@ -61,6 +67,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert int(nmods) >= NMODS
     assert "SLICE3 []" in out.stdout  # the walk covered slice 3's modules
     assert "SLICE6 []" in out.stdout  # and the structures tier's
+    assert "SLICE8 []" in out.stdout  # and the durability and fault modules
     assert rc == "2"  # chip_smoke refuses to run without a card
     assert leaked == "[]"
     assert '"ok"' not in out.stdout
