@@ -2,6 +2,7 @@
 """On-card smoke run of redisson_tpu_torch, the PyTorch / CUDA port.
 
     python3 chip_smoke.py [--seed N] [--profile]
+    python3 chip_smoke.py --phase serve       # the build and one phase (see phase_table)
     python3 chip_smoke.py --merge-pair TREE   # the client's merge call only, of TREE's package
     python3 chip_smoke.py --child-writer DIR  # phase 15's writer (the phase starts it)
 
@@ -109,13 +110,52 @@ Phases, each of which fails the run on error:
      unchanged), an injected state_uncertain readback (quarantine,
      rebuild, the row as before) and a real CUDA out-of-memory error
      (RetryableFault; the next PFADD succeeds);
- 16. torch.profiler over 10 client PFMERGEs of config 3's sketches: one
-     merge_stack kernel each, no memset, no host-to-device copy;
- 17. with --profile, torch.profiler traces of short HLL and Bloom windows
+ 16. serving, tracing and memory (serve/, trace/, memstat/,
+     observability.py) on clients with use_serve(), use_trace() (stride
+     128) and use_memstat(): the HLL path of 3 sent by 8 caller threads as
+     4 tenants, each PFADD once, one tenant held to 200,000 keys/s with a
+     burst of one batch (its admitted keys at most burst + rate x elapsed +
+     one batch, so it is shed; the others never), its shed PFADDs resent
+     from the default tenant, then PFCOUNT of each sketch and PFMERGE +
+     count over 1000 (bank equal to the unserved sort client's, estimates
+     within phase 3's limits); the memory state (the 64 MiB bank, BASELINE
+     config 2's filter, 7 daily 2^27-bit bitmaps): memory_verify() without
+     drift, the ledger equal to the tensors' nbytes and to the caching
+     allocator's requested bytes, every block made and kept in the window
+     holding a ledger tensor within the allocator's rounding rule
+     (memory_allocated's growth printed beside), memory_stats() keyed as
+     the JAX package's; at the high watermark a SETBIT shed with
+     RejectedError(reason="memory") before it allocates, a PFCOUNT served
+     beside it, still shed after a delete leaves usage between the marks,
+     admitted below the low watermark (marks configured, not read from the
+     card's free memory); xxhash64 of 8M keys
+     against the CPU, bitpos on the bitmaps against numpy, count_estimate
+     against numpy's float32 formula, the (hi, lo) PFADD of the 1024 x
+     40,000 keys under segment against the packed PFADDs' rows (seg_insert
+     launched); a retryable kernel_launch fault, twice, absorbed by the
+     serve retry (row equal to an oracle's) and a state-uncertain readback
+     opening the breaker, the rebuild closing it (polled, up to 120 s);
+     the learned cost model and the watchdog deadline it gives; PFADD
+     inserts/s (512 x 40,000 keys a pass) and executor runs per pass of a
+     plain, a ledger-detached, an untraced served and the served client
+     (2 warm passes each, in turns; printed beside the JAX package's < 1%
+     budgets); per-stage p50/p99 from the sampled spans; SLOWLOG booking a
+     50 ms journal_fsync stall to the stalled PFADD's journal stage (at
+     least 50 ms); a served pass traced at stride 1 (one op span per op,
+     one run span per run, every op span nested in its run's span in the
+     Chrome trace; each run's host staging and completion wait printed); a
+     seeded churn ending at zero ledger bytes; get_nodes_group().ping_all().
+     No check of this phase reads a rate or a latency;
+ 17. torch.profiler over 10 client PFMERGEs of config 3's sketches: one
+     merge_stack kernel each, no memset, no host-to-device copy; then
+     observability.profile() around 10 served PFADDs, whose trace names a
+     seg_insert kernel;
+ 18. with --profile, torch.profiler traces of short HLL and Bloom windows
      (device busy share, device time by kernel).
 
-Each path (3, 7, 8, 10, 11, 13, and 15's recovery with the checks after
-it) resets the launch counters just before it and reads them just after. The last lines are the card's name and power limit, a
+Each path (3, 7, 8, 10, 11, 13, 15's recovery with the checks after it,
+and 16) resets the launch counters just before it and reads them just
+after. The last lines are the card's name and power limit, a
 JSON object with one entry per kernel, and `{"ok": true, "device": {...}}`.
 Exits non-zero, with no result, when no card is visible or the package is
 missing.
@@ -220,6 +260,40 @@ CHILD_TIMEOUT_S = 180
 # and every record it adds is replayed twice later).
 TRAFFIC_KEYS = 10_000
 TRAFFIC_PAUSE_S = 0.1
+# Phase 16, serving, tracing and memory: the HLL path's 1024 x 40,000 keys
+# from SV_THREADS caller threads as SV_TENANTS tenants, one of them held to
+# SV_LIMITED_RATE keys/s with a burst of one batch (far below any served
+# rate, so the shed check is an inequality that holds at any speed: see
+# served_hll); SV_REPS timed passes per client for the overhead ratios; a
+# SV_STALL_S journal_fsync stall; SV_BITS_PER_DAY SETBITs into each of the
+# 7 daily bitmaps; the 8M-key xxhash64 batch; a churn of SV_CHURN_STEPS
+# steps. No check of the phase reads a rate or a latency: those are printed.
+SV_THREADS = 8
+SV_TENANTS = 4
+SV_LIMITED = "tenant-3"
+SV_LIMITED_RATE = 200_000
+SV_LIMITED_BURST = KEYS
+SV_TIMEOUT_MS = 600_000  # a served op's deadline (ServeConfig default: 3 s)
+SV_REPS = 2
+# Sketches per overhead pass: an eighth of the HLL path's (the rates are
+# per key, printed and never checked; 4 clients x 3 passes of the whole
+# path would take most of the phase's minute).
+SV_RATE_SKETCHES = SKETCHES // 8
+SV_STALL_S = 0.05
+SV_BITS_PER_DAY = 1_000_000
+SV_XXH_KEYS = 1 << 23
+SV_CHURN_STEPS = 200
+# Waits on a state another thread reaches (the completer retiring runs, the
+# rebuild closing a breaker): polled, never slept for a fixed time.
+SV_WAIT_S = 120.0
+# MEMORY STATS keys beside the per-kind "<kind>.bytes" ones (the JAX
+# package's memstat/report.py keys, in its order).
+MEM_STATS_KEYS = ("peak.allocated", "total.allocated", "dataset.bytes",
+                  "dataset.percentage", "keys.count", "keys.bytes-per-key",
+                  "cache.bytes", "scratch.bytes", "staging.bytes", "disk.bytes",
+                  "fragmentation", "bank.bytes", "lifecycle.events")
+SV_DIR = "build/phase16"  # git-ignored, inside the checkout; removed after
+SV_PROFILE_DIR = "build/phase16-profile"
 # Per-sketch estimates: the RMS error must stay below 2%, and at most this
 # share of sketches may exceed 2%. A single sketch is not held to 2%: the
 # standard error at p = 14 is 0.81%, so 2% is a 2.5-sigma draw, and among
@@ -851,12 +925,24 @@ def main_path(seed: int):
     bank, rows = client.to_numpy_state()
     client.shutdown()
 
+    ref = sort_reference(seed)
+    same_bank(bank, rows, ref[1], ref[2], "ingest=segment")
+    return launches, ref
+
+
+def sort_reference(seed: int):
+    """The main path's ops under ingest="sort" (no hand kernel): (results,
+    bank, rows), the reference the other ingests' banks are held to."""
+    from redisson_tpu_torch.client import RedissonTorch
+    from redisson_tpu_torch.config import Config
+
     ref = RedissonTorch.create(Config().use_cuda(ingest="sort"))
-    ref_res = drive(ref, seed)
-    ref_bank, ref_rows = ref.to_numpy_state()
-    ref.shutdown()
-    same_bank(bank, rows, ref_bank, ref_rows, "ingest=segment")
-    return launches, (ref_res, ref_bank, ref_rows)
+    try:
+        ref_res = drive(ref, seed)
+        ref_bank, ref_rows = ref.to_numpy_state()
+    finally:
+        ref.shutdown()
+    return ref_res, ref_bank, ref_rows
 
 
 def same_bank(bank, rows, ref_bank, ref_rows, what: str) -> None:
@@ -2590,6 +2676,787 @@ def durability_path(seed: int, card: str) -> dict:
     return out
 
 
+# -- phase 16: serving, tracing and memory -----------------------------------
+
+
+def sv_metric(card: str, what: str, value) -> None:
+    """One phase-16 number on its own line, beside the card it ran on."""
+    log(f"[{card}] phase 16 {what}: {value}")
+
+
+def served_client(ingest: str = "segment", trace: dict = None, memstat: dict = None,
+                  persist: str = "", faults: dict = None, **serve):
+    """A card client with the serving layer, the tracer (default stride 128
+    unless `trace` overrides; none for trace=False) and the memory
+    section."""
+    from redisson_tpu_torch.client import RedissonTorch
+    from redisson_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.use_cuda(ingest=ingest)
+    cfg.use_serve(default_timeout_ms=SV_TIMEOUT_MS, **serve)
+    if trace is not False:  # False: no tracer
+        cfg.use_trace(**(trace or {}))
+    cfg.use_memstat(**(memstat or {}))
+    if persist:
+        cfg.use_persist(persist, fsync="always", group_commit_runs=1)
+    if faults:
+        cfg.use_faults(**faults)
+    return RedissonTorch.create(cfg)
+
+
+def estimate_errors(counts, exact: int):
+    errs = np.array([abs(c - exact) / exact for c in counts])
+    return float(np.sqrt(np.mean(errs ** 2))), float(np.mean(errs > 0.02))
+
+
+def served_hll(client, seed: int, card: str, ref) -> float:
+    """1024 x 40,000 keys from SV_THREADS caller threads as SV_TENANTS
+    tenants, each thread's PFADDs sent at once and each sent once. The
+    rate-limited tenant's bucket admits at most SV_LIMITED_BURST +
+    SV_LIMITED_RATE x elapsed keys, one batch more for slack, at any speed
+    of host or card; the 10.24M keys it offers exceed that for any pass
+    under 50 s, so it is shed. The others meet no gate (the queue bound is
+    10,000 ops, 1024 are offered) and are never shed. After those checks
+    the limited tenant's shed PFADDs are resent from the default (unlimited)
+    tenant; then PFCOUNT of each sketch and PFMERGE + count over 1000, and
+    the bank against the unserved sort client's. Returns the pass's served
+    inserts/s (printed, never checked)."""
+    import threading
+
+    from redisson_tpu_torch.serve.errors import RejectedError
+
+    _ref_res, ref_bank, ref_rows = ref
+    names = [f"hll:{i}" for i in range(SKETCHES)]
+    batches = [keys_for(i * STRIDE, KEYS, seed) for i in range(SKETCHES)]
+    tenants = [f"tenant-{t}" for t in range(SV_TENANTS)]
+    sheds, admitted = dict.fromkeys(tenants, 0), dict.fromkeys(tenants, 0)
+    offered = dict.fromkeys(tenants, 0)
+    resend, lock, errors = [], threading.Lock(), []
+
+    def caller(t: int) -> None:
+        tenant = tenants[t % SV_TENANTS]
+        try:
+            with client.serve.tenant(tenant):
+                futs = [(i, client.get_hyper_log_log(names[i]).add_ints_async(batches[i]))
+                        for i in range(t, SKETCHES, SV_THREADS)]
+            for i, f in futs:
+                try:
+                    if not f.result():
+                        raise AssertionError(f"{names[i]}: first PFADD unchanged")
+                    with lock:
+                        admitted[tenant] += KEYS
+                except RejectedError:
+                    with lock:
+                        sheds[tenant] += 1
+                        resend.append(i)
+            with lock:
+                offered[tenant] += len(futs) * KEYS
+        except Exception as exc:  # noqa: BLE001 — re-raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=caller, args=(t,)) for t in range(SV_THREADS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    dt = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    rate = sum(admitted.values()) / dt
+    sv_metric(card, f"served PFADD, {SKETCHES} x {KEYS} keys from {SV_THREADS} threads "
+              f"as {SV_TENANTS} tenants, admitted keys over the pass's wall, M inserts/s",
+              rate / 1e6)
+    adm = client.serve.snapshot()["admission"]
+    sv_metric(card, "admission snapshot", json.dumps(adm))
+    bound = SV_LIMITED_BURST + SV_LIMITED_RATE * dt + KEYS
+    sv_metric(card, f"per tenant: offered keys, admitted keys, sheds ({SV_LIMITED} at "
+              f"{SV_LIMITED_RATE} keys/s, burst {SV_LIMITED_BURST}; its bound over "
+              f"{dt:.3f} s is {bound:.0f} keys)",
+              json.dumps({t: [offered[t], admitted[t], sheds[t]] for t in tenants}))
+    limited = sheds[SV_LIMITED]
+    if admitted[SV_LIMITED] > bound:
+        raise AssertionError(f"{SV_LIMITED} admitted {admitted[SV_LIMITED]} keys, past "
+                             f"burst + rate x elapsed + one batch = {bound:.0f}")
+    if offered[SV_LIMITED] > bound and not limited:
+        raise AssertionError(f"{SV_LIMITED} offered {offered[SV_LIMITED]} keys, past its "
+                             f"bound {bound:.0f}, and was never shed")
+    if (any(sheds[t] for t in tenants if t != SV_LIMITED) or adm["shed_total"] != limited
+            or adm["shed_by_reason"] != ({"tenant_rate": limited} if limited else {})):
+        raise AssertionError(f"sheds {sheds}, admission {adm}")
+    futs = [client.get_hyper_log_log(names[i]).add_ints_async(batches[i]) for i in resend]
+    if not all(f.result() for f in futs):
+        raise AssertionError("a resent first PFADD reported no change")
+    counts = [client.get_hyper_log_log(n).count() for n in names]
+    union = client.get_hyper_log_log("union:mc").merge_with_and_count(*names[:MERGE_N])
+    rms, share = estimate_errors(counts, KEYS)
+    merge_err = abs(union - EXACT_UNION) / EXACT_UNION
+    log(f"  served estimates ({len(resend)} shed PFADDs resent): rms {rms:.5f}, "
+        f"{share:.2%} above 0.02; union of {MERGE_N}: {union} (exact {EXACT_UNION}, "
+        f"error {merge_err:.5f})")
+    if rms >= 0.02 or share > MAX_SHARE_ABOVE_2PCT or merge_err >= 0.02:
+        raise AssertionError("served estimate error past phase 3's limits")
+    bank, rows = client.to_numpy_state()
+    for n in names:
+        if not np.array_equal(bank[rows[n]], ref_bank[ref_rows[n]]):
+            raise AssertionError(f"served {n} differs from the unserved sort client")
+    log(f"  served bank: all {SKETCHES} sketches equal to an unserved ingest=sort client")
+    return rate
+
+
+def timed_pass(client, names, batches) -> float:
+    t0 = time.perf_counter()
+    futs = [client.get_hyper_log_log(n).add_ints_async(b) for n, b in zip(names, batches)]
+    [f.result() for f in futs]
+    return len(names) * KEYS / (time.perf_counter() - t0)
+
+
+def overheads(served, seed: int, card: str) -> dict:
+    """PFADD inserts/s of SV_RATE_SKETCHES x 40,000 keys, SV_REPS warm
+    passes each, in turns: a plain client (phase 4's), the same with the ledger's seams
+    detached, a served client without the tracer, and the served client
+    (serve + trace at stride 128 + ledger); beside each, the executor runs
+    a pass takes. Where the served client's cost goes, by what each step
+    adds; measured and printed, never checked."""
+    from redisson_tpu_torch.client import RedissonTorch
+    from redisson_tpu_torch.config import Config
+
+    plain = RedissonTorch.create(Config().use_cuda(ingest="segment"))
+    bare = RedissonTorch.create(Config().use_cuda(ingest="segment"))
+    bare._store.accounting = None
+    bare.sketch.accounting = None
+    untraced = served_client(trace=False)
+    clients = {"plain": plain, "ledger detached": bare, "served, no tracer": untraced,
+               "served": served}
+    names = [f"hll:{i}" for i in range(SV_RATE_SKETCHES)]
+    got = {k: [] for k in clients}
+    runs = {k: [] for k in clients}
+    try:
+        for rep in range(SV_REPS + 1):
+            batches = [keys_for((rep + 8) * (1 << 36) + i * STRIDE, KEYS, seed)
+                       for i in range(SV_RATE_SKETCHES)]
+            for what, c in clients.items():
+                r0 = c._executor.runs_dispatched()
+                r = timed_pass(c, names, batches)
+                if rep:  # rep 0 warms each client
+                    got[what].append(r)
+                    runs[what].append(c._executor.runs_dispatched() - r0)
+    finally:
+        plain.shutdown()
+        bare.shutdown()
+        untraced.shutdown()
+    med = {k: median_spread(v) for k, v in got.items()}
+    for k, v in got.items():
+        sv_metric(card, f"PFADD {SV_RATE_SKETCHES} x {KEYS}, {k} client, M inserts/s "
+                  "(median, min, max); executor runs per pass",
+                  [[round(x / 1e6, 4) for x in med[k]], runs[k]])
+    cost = {k: 100.0 * (1.0 - med[k][0] / med["plain"][0]) for k in clients}
+    ledger_cost = 100.0 * (1.0 - med["plain"][0] / med["ledger detached"][0])
+    sv_metric(card, "cost against the plain rate, % (JAX's budgets: < 1% for tracing, "
+              "< 1% for the ledger)", json.dumps({k: round(v, 3) for k, v in cost.items()}))
+    sv_metric(card, "ledger cost, % of the detached rate (JAX's budget < 1%)",
+              round(ledger_cost, 3))
+    return {"inserts_per_s": med, "runs_per_pass": runs, "cost_pct": cost,
+            "ledger_cost_pct": ledger_cost}
+
+
+def run_breakdown(seed: int, card: str) -> dict:
+    """Where a served pass's time goes, and the trace's counts: a served
+    client with every op traced (stride 1) takes a warm pass and a timed
+    pass of the overhead workload. The timed pass leaves one op span per
+    op and one run span per run dispatched, and the Chrome trace nests
+    every op span in its run's span by run_id. From the run spans, each
+    run's host staging (dispatched -> staged: the backend's staging, H2D
+    and launches, on the dispatcher) and its completion wait (staged ->
+    completed: the completer's event wait, behind the in-flight window),
+    the runs and ops per run, beside the pass's wall and the adaptive
+    policy's key cap for hll_add (printed)."""
+    c = served_client(trace={"sample_every": 1, "ring": 1 << 14})
+    names = [f"hll:{i}" for i in range(SKETCHES)]
+    try:
+        for rep in (0, 1):
+            batches = [keys_for((rep + 16) * (1 << 36) + i * STRIDE, KEYS, seed)
+                       for i in range(SKETCHES)]
+            t_pass = c.trace.tracer.clock()
+            runs0 = c._executor.runs_dispatched()
+            rate = timed_pass(c, names, batches)
+        wall = SKETCHES * KEYS / rate
+        dispatched = c._executor.runs_dispatched() - runs0
+        deadline = time.monotonic() + SV_WAIT_S
+        while True:  # the completer retires a run just after its futures resolve
+            ring = c.trace.tracer.ring()
+            runs = [sp for sp in ring
+                    if sp.span_type == "run" and sp.t0 >= t_pass and sp.t1 is not None]
+            ops = [sp for sp in ring if sp.span_type == "op" and sp.kind == "hll_add"
+                   and sp.t0 >= t_pass and sp.t1 is not None]
+            if (len(runs) >= dispatched and len(ops) >= SKETCHES) or \
+                    time.monotonic() > deadline:
+                break
+            time.sleep(0.01)
+        sv_metric(card, "stride-1 pass: op spans / ops, run spans / runs dispatched",
+                  [len(ops), SKETCHES, len(runs), dispatched])
+        if len(ops) != SKETCHES or len(runs) != dispatched:
+            raise AssertionError(f"{len(ops)} op spans of {SKETCHES} ops, {len(runs)} run "
+                                 f"spans of {dispatched} runs")
+        doc = json.loads(json.dumps(c.trace.chrome_trace()))
+        run_ids = {e["args"]["span_id"] for e in doc["traceEvents"]
+                   if e.get("cat") == "run" and e.get("ph") == "X"}
+        pass_ids = {sp.span_id for sp in ops}
+        op_events = [e for e in doc["traceEvents"] if e.get("cat") == "op"
+                     and e.get("ph") == "X" and e["args"].get("span_id") in pass_ids]
+        nested = [e for e in op_events if e["args"].get("run_id") in run_ids]
+        sv_metric(card, "chrome trace of the pass: op spans, nested in a run span by run_id",
+                  [len(op_events), len(nested)])
+        if len(op_events) != SKETCHES or len(nested) != SKETCHES:
+            raise AssertionError("the chrome trace does not nest every op span of the "
+                                 f"pass in a run span: {len(nested)} of {len(op_events)}")
+        # A run the completer retired before the dispatcher came back from
+        # backend.run has no "staged" mark: its staging lasted to completion.
+        done = [sp.first("completed") for sp in runs]
+        staged = [sp.first("staged") for sp in runs]
+        staged = [d if st is None else st for st, d in zip(staged, done)]
+        stage = np.array([st - sp.t0 for st, sp in zip(staged, runs)])
+        wait = np.array([d - st for d, st in zip(done, staged)])
+        nops = np.array([sp.annotations["nops"] for sp in runs])
+        ex = c._executor
+        cap = ex.policy.batch_key_limit("hll_add", ex._max_batch_keys)
+        out = {"runs": len(runs), "runs_dispatched": dispatched,
+               "ops_per_run_median": float(np.median(nops)), "ops_per_run_max": int(nops.max()),
+               "policy_key_cap": int(cap), "pass_wall_s": wall, "inserts_per_s": rate,
+               "retired_before_staged": sum(sp.first("staged") is None for sp in runs),
+               "staging_sum_s": float(stage.sum()), "wait_sum_s": float(wait.sum()),
+               "staging_ms_p50_p99": [float(np.percentile(stage, q)) * 1e3 for q in (50, 99)],
+               "wait_ms_p50_p99": [float(np.percentile(wait, q)) * 1e3 for q in (50, 99)],
+               "learned_ns_per_key": c.serve.cost_model.s_per_key("hll_add") * 1e9,
+               "stages": stage_quantiles(c)}
+    finally:
+        c.shutdown()
+    sv_metric(card, "served pass traced at stride 1: runs, ops per run, policy cap, "
+              "host staging and completion wait per run, stage p50/p99", json.dumps(out))
+    return out
+
+
+def stage_quantiles(client) -> dict:
+    """p50 / p99 (ms) of each pipeline stage over the sampled op spans."""
+    from redisson_tpu_torch.trace.hist import LatencyHistogram
+
+    hists = {}
+    for s in client.trace.tracer.ring():
+        if s.span_type != "op" or s.t1 is None:
+            continue
+        for stage, d in s.stages().items():
+            hists.setdefault(stage, LatencyHistogram()).record(d)
+    return {k: {"n": h.count, "p50_ms": h.quantile(0.5) * 1e3,
+                "p99_ms": h.quantile(0.99) * 1e3} for k, h in hists.items()}
+
+
+def attribution(served, seed: int, card: str) -> dict:
+    """The served run's stage quantiles (printed), then SLOWLOG under an
+    injected 50 ms journal_fsync stall: the stalled PFADD's entry books at
+    least the stall to its journal stage (the stall sleeps between the
+    dispatched and journaled marks; which stage is the worst is not
+    checked, since a host pause can land in any)."""
+    import shutil
+
+    q = stage_quantiles(served)
+    sv_metric(card, "stage p50/p99 ms of the served run (sampled spans)", json.dumps(q))
+    path = os.path.join(SV_DIR, "stall")
+    shutil.rmtree(path, ignore_errors=True)
+    plan = [{"seam": "journal_fsync", "fault": "stall", "nth": 2, "times": 2,
+             "delay_s": SV_STALL_S}]
+    c = served_client(persist=path, trace={"sample_every": 1, "slowlog_threshold_ms": 5.0},
+                      faults={"plan": plan})
+    try:
+        from redisson_tpu_torch.fault import inject as fault_inject
+
+        h = c.get_hyper_log_log("ts:stall")
+        h.add_ints(keys_for(1 << 48, KEYS, seed))  # fsync 1: unstalled
+        injected0 = fault_inject.installed().snapshot()["injected"]
+        c.trace.slowlog.reset()
+        h.add_ints(keys_for((1 << 48) + KEYS, KEYS, seed))  # fsync 2: stalled
+        h.count()
+        stalls = fault_inject.installed().snapshot()["injected"] - injected0
+        # An op's span is finished (and its entry logged) by a done-callback
+        # that may run just after the caller's result() returns: wait for it.
+        deadline = time.monotonic() + SV_WAIT_S
+        while True:
+            entries = c.trace.slowlog.get()
+            adds = [e for e in entries if e.kind == "hll_add"]
+            journal_s = max((e.stages.get("journal", 0.0) for e in adds), default=0.0)
+            if journal_s >= SV_STALL_S or time.monotonic() > deadline:
+                break
+            time.sleep(0.01)
+        for e in entries:
+            log(f"  slowlog entry: {e.kind} {e.duration_s * 1e3:.3f} ms, worst "
+                f"{e.worst_stage}: {json.dumps({k: v * 1e3 for k, v in e.stages.items()})}")
+        if stalls != 1:
+            raise AssertionError(f"{stalls} journal_fsync stalls fired in the window, not 1")
+        stalled = max(adds, key=lambda e: e.stages.get("journal", 0.0), default=None)
+        if stalled is None:
+            raise AssertionError("the stalled PFADD never reached the slowlog")
+        sv_metric(card, "SLOWLOG entry of the PFADD under a 50 ms journal_fsync stall",
+                  json.dumps({"ms": stalled.duration_s * 1e3,
+                              "worst_stage": stalled.worst_stage,
+                              "stages_ms": {k: v * 1e3 for k, v in stalled.stages.items()}}))
+        if journal_s < SV_STALL_S:
+            raise AssertionError(f"journal stage {journal_s * 1e3:.3f} ms under a "
+                                 f"{SV_STALL_S * 1e3:.0f} ms stall")
+        fh = c.trace.fsync_hist.get("journal_fsync", "")
+        sv_metric(card, "journal fsyncs, count and max ms", [fh.count, fh.max_s * 1e3])
+        q_stall = stage_quantiles(c)
+        sv_metric(card, "stage p50/p99 ms with the journal (sample_every=1)",
+                  json.dumps(q_stall))
+    finally:
+        c.shutdown()
+        shutil.rmtree(path, ignore_errors=True)
+    return {"stages": q, "stages_journaled": q_stall, "journal_ms": journal_s * 1e3}
+
+
+def settled_allocated() -> int:
+    """torch.cuda.memory_allocated() once the card is idle and the caching
+    allocator has freed every block whose last use it waits on by event (a
+    tensor used on a second stream, as the staging copies are, stays counted
+    after its free until the allocator processes that event; empty_cache
+    does, and moves nothing else memory_allocated counts)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def allocated_blocks() -> dict:
+    """address -> bytes of the caching allocator's allocated blocks."""
+    import torch
+
+    return {blk["address"]: blk["size"] for seg in torch.cuda.memory._snapshot()["segments"]
+            for blk in seg["blocks"] if blk["state"] == "active_allocated"}
+
+
+def block_slack(nbytes: int) -> int:
+    """The most bytes the CUDA caching allocator's block for a tensor of
+    `nbytes` can hold beyond them: the size rounds up to 512 bytes, and a
+    free block is split only when more than 1 MiB would be left (large
+    pool, rounded sizes over 1 MiB) or at least 512 bytes (small pool)."""
+    rounded = -(-nbytes // 512) * 512
+    return rounded - nbytes + (511 if rounded <= 1 << 20 else 1 << 20)
+
+
+def memory_state(seed: int, card: str, ids) -> tuple:
+    """The 64 MiB bank, BASELINE config 2's filter and 7 daily 2^27-bit
+    bitmaps on one served client: the ledger against the tensors' nbytes
+    and against the caching allocator's own counts over the window: the
+    bytes requested equal the ledger, and every block made in the window
+    and still held holds a ledger tensor, each block no larger than the
+    allocator's rounding rule allows (`block_slack`). memory_allocated's
+    growth is printed beside them: it depends on what the process freed
+    before, since a cached free block is handed out whole when a split
+    would leave too little."""
+    import gc
+
+    import torch
+
+    def requested() -> int:
+        settled_allocated()
+        return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+    gc.collect()
+    alloc0, req0 = settled_allocated(), requested()
+    before = set(allocated_blocks())
+    c = served_client(memstat={"high_watermark_bytes": 1 << 50})
+    futs = [c.get_hyper_log_log(f"hll:{i}").add_ints_async(keys_for(i * STRIDE, 1000, seed))
+            for i in range(SKETCHES)]
+    [f.result() for f in futs]
+    bf = c.get_bloom_filter("bloom")
+    if not bf.try_init(BLOOM_N, BLOOM_P):
+        raise AssertionError("try_init of a fresh filter returned False")
+    bf.add_ints(bloom_keys(0, BLOOM_BATCH, seed))
+    for d in range(DAYS):
+        c.get_bit_set(f"day:{d}").set_bits(np.append(ids[d], DAY_BITS - 1))
+    gc.collect()
+    grown, req = settled_allocated() - alloc0, requested() - req0
+    blocks = allocated_blocks()
+    v = c.memory_verify()
+    owned = {int(c.sketch.bank.data_ptr()): int(c.sketch.bank.nbytes)}
+    for n in c._store.live_nbytes():
+        t = c._store.get(n).state
+        owned[int(t.data_ptr())] = int(t.nbytes)
+    # Blocks made in the window that hold no ledger tensor (address: bytes).
+    unowned = {a: size for a, size in blocks.items() if a not in before and a not in owned}
+    excess = {addr: blocks[addr] - nb for addr, nb in owned.items() if addr in blocks}
+    tensors = sum(owned.values())
+    live = c.memstat.live_bytes()
+    sv_metric(card, "ledger live bytes, tensors' nbytes (live tensors), allocator bytes "
+              "requested, memory_allocated growth, blocks' excess over their tensors",
+              [live, tensors, len(owned), req, grown, sorted(excess.values())])
+    stats = c.memory_stats()
+    sv_metric(card, "memory_stats", json.dumps(
+        {k: v for k, v in stats.items() if not k.startswith("by_")}))
+    if not v["ok"] or v["drift_bytes"] or live != tensors:
+        raise AssertionError(f"ledger drift: {v}, live {live}, tensors {tensors}")
+    if req != live:
+        raise AssertionError(f"the allocator's requested bytes grew {req}, the ledger "
+                             f"holds {live}")
+    loose = {a: (e, owned[a]) for a, e in excess.items()
+             if not 0 <= e <= block_slack(owned[a])}
+    if unowned or len(excess) != len(owned) or loose:
+        raise AssertionError(f"memory_allocated grew {grown}: blocks held by no ledger "
+                             f"tensor {unowned}, blocks' excess {excess}, beyond "
+                             f"the rounding rule (excess, nbytes) {loose}")
+    kinds = {"hll", "bloom", "bitset"}
+    want_keys = set(MEM_STATS_KEYS) | {f"{k}.bytes" for k in kinds} | {"by_tenant", "by_slot"}
+    if set(stats) != want_keys:
+        raise AssertionError(f"memory_stats keys {sorted(set(stats) ^ want_keys)} differ "
+                             "from the JAX package's")
+    counted = bf.count()
+    cards = [c.get_bit_set(f"day:{d}").cardinality() for d in range(DAYS)]
+    log(f"  Bloom count() {counted}; day cardinalities {cards}")
+    return c, {"ledger_bytes": live, "requested_growth": req, "allocated_growth": grown,
+               "rounding": sum(excess.values())}
+
+
+def churn(seed: int, card: str) -> int:
+    """A seeded create / grow / delete / rename / flushall churn on a card
+    client: memory_verify() clean after every step, zero bytes at the end."""
+    from redisson_tpu_torch.client import RedissonTorch
+    from redisson_tpu_torch.config import Config
+
+    rng = np.random.default_rng(seed + 16)
+    c = RedissonTorch.create(Config().use_cuda(ingest="segment"))
+    try:
+        names = [f"c:{i}" for i in range(12)]
+        for step in range(SV_CHURN_STEPS):
+            n = names[int(rng.integers(len(names)))]
+            op = int(rng.integers(7))
+            if op == 0:
+                c.get_hyper_log_log("h" + n).add_ints(keys_for(step * 997, 500, seed))
+            elif op == 1:
+                c.get_bit_set("b" + n).set(int(rng.integers(1 << int(rng.integers(8, 22)))))
+            elif op == 2:
+                f = c.get_bloom_filter("f" + n)
+                f.try_init(int(rng.integers(1000, 100000)), 0.01)
+            elif op in (3, 4):
+                c.delete(("h", "b", "f")[int(rng.integers(3))] + n)
+            elif op == 5:
+                src = ("h", "b", "f")[int(rng.integers(3))] + n
+                dst = src[0] + names[int(rng.integers(len(names)))]
+                try:
+                    c._dispatch.execute_sync(src, "rename", {"newkey": dst})
+                except KeyError:  # an absent source: nothing moves
+                    pass
+            elif step % 50 == 49:
+                c.flushall()
+            v = c.memory_verify()
+            if not v["ok"]:
+                raise AssertionError(f"churn step {step} (op {op}): {v}")
+        c.flushall()
+        end = c.memstat.live_bytes()
+        if end != 0 or not c.memory_verify()["ok"]:
+            raise AssertionError(f"churn ended at {end} ledger bytes")
+    finally:
+        c.shutdown()
+    sv_metric(card, f"churn of {SV_CHURN_STEPS} steps: drift-free after each; "
+              "ledger bytes at the end", 0)
+    return SV_CHURN_STEPS
+
+
+def watermark(c, card: str) -> None:
+    """The memory gate on the card, driven by configured marks (JAX's rule:
+    it sheds on the ledger's total alone). At the high watermark a SETBIT
+    of a new bitmap is shed with RejectedError(reason="memory") before
+    anything is allocated, and a concurrent PFCOUNT is served; a delete
+    that leaves usage between the marks keeps the gate shedding
+    (hysteresis); below the low watermark the SETBIT is admitted."""
+    import threading
+
+    from redisson_tpu_torch.serve.errors import RejectedError
+
+    def shed(what: str, write) -> RejectedError:
+        try:
+            write()
+        except RejectedError as exc:
+            if exc.reason != "memory" or not exc.retry_after_s > 0:
+                raise
+            return exc
+        raise AssertionError(f"{what} was admitted")
+
+    p = c._pressure
+    p.config.include_overhead = False
+    small = c.get_bit_set("wm:small")
+    small.set(1)  # 1024 cells
+    live = c.memstat.live_bytes()
+    p.config.high_watermark_bytes = live
+    p.config.low_watermark_bytes = live - DAY_BITS // 2
+    b = c.get_bit_set("day:new")
+    before = settled_allocated()
+    counted = []
+    reader = threading.Thread(
+        target=lambda: counted.append(c.get_hyper_log_log("hll:0").count()))
+    reader.start()
+    exc = shed("a SETBIT at the high watermark", lambda: b.set(DAY_BITS - 1))
+    reader.join()
+    after = settled_allocated()
+    if after != before or not counted or not p.snapshot()["shedding"]:
+        raise AssertionError(f"shed write allocated {after - before} bytes; PFCOUNT "
+                             f"served: {counted}; shedding {p.snapshot()['shedding']}")
+    small.delete()  # below the high mark, above the low one: still shedding
+    if not p.config.low_watermark_bytes <= c.memstat.live_bytes() < live:
+        raise AssertionError("the first delete did not land between the marks")
+    shed("a SETBIT between the watermarks, in hysteresis", lambda: b.set(DAY_BITS - 1))
+    c.get_bit_set("day:0").delete()  # below the low mark
+    if c.memstat.live_bytes() >= p.config.low_watermark_bytes:
+        raise AssertionError("the deletes did not bring usage below the low watermark")
+    b.set(DAY_BITS - 1)
+    if p.snapshot()["shedding"] or not c.memory_verify()["ok"]:
+        raise AssertionError("still shedding, or ledger drift, after the admitted write")
+    p.config.high_watermark_bytes = 1 << 50
+    device = p.snapshot()["device"]
+    sv_metric(card, "pressure snapshot: the device's memory", json.dumps(device))
+    if device["source"] != "torch.cuda" or not 0 < device["free_bytes"] <= device["total_bytes"]:
+        raise AssertionError(f"the pressure snapshot's device memory: {device}")
+    sv_metric(card, "watermark: SETBIT shed at the high mark (retry_after_s, bytes "
+              "allocated), PFCOUNT beside it; shed between the marks, admitted below "
+              "the low mark", [exc.retry_after_s, after - before, counted[0], "shed",
+                               "ok"])
+
+
+def served_faults(served, seed: int, card: str) -> dict:
+    """A retryable kernel_launch fault, twice, absorbed by the serve retry;
+    a state-uncertain d2h_complete fault opening the kind's breaker, closed
+    by the rebuild; the learned cost model and the watchdog deadline."""
+    import shutil
+
+    from redisson_tpu_torch.client import RedissonTorch
+    from redisson_tpu_torch.config import Config, FaultConfig
+    from redisson_tpu_torch.fault.taxonomy import StateUncertainFault
+    from redisson_tpu_torch.fault.watchdog import RunWatchdog
+    path = os.path.join(SV_DIR, "faults")
+    shutil.rmtree(path, ignore_errors=True)
+    plan = [{"seam": "kernel_launch", "fault": "retryable", "nth": 1, "times": 2,
+             "kind": "hll_add", "target": "f:retry"},
+            {"seam": "d2h_complete", "fault": "state_uncertain", "nth": 1,
+             "kind": "hll_count", "target": "f:u"}]
+    c = served_client(persist=path, faults={"plan": plan})
+    oracle = RedissonTorch.create(Config().use_cuda(ingest="sort"))
+    keys = keys_for(1 << 49, KEYS, seed)
+    try:
+        if not c.get_hyper_log_log("f:retry").add_ints(keys):
+            raise AssertionError("the retried PFADD reported no change")
+        oracle.get_hyper_log_log("f:retry").add_ints(keys)
+        retries = c.metrics.counter("serve.retries_total")
+        got = c._executor.execute_sync("f:retry", "hll_export", None)[0]
+        want = oracle._executor.execute_sync("f:retry", "hll_export", None)[0]
+        if retries < 2 or not np.array_equal(got, want):
+            raise AssertionError(f"retries {retries}; row equal: {np.array_equal(got, want)}")
+        u = c.get_hyper_log_log("f:u")
+        u.add_ints(keys)
+        before = c._executor.execute_sync("f:u", "hll_export", None)[0]
+        try:
+            u.count()
+            raise AssertionError("the injected d2h_complete fault did not fire")
+        except StateUncertainFault:
+            pass
+        # The fault opens hll_count's breaker and starts the rebuild, which
+        # closes it: both are waited for (polled up to SV_WAIT_S, at least
+        # 10x the breaker's reset interval), never slept for. opens_total
+        # counts the opening however soon the rebuild closes the breaker.
+        breaker = c.serve._breakers.get("hll_count")
+        interval = c.serve._cfg.breaker_reset_timeout_ms / 1e3
+        if SV_WAIT_S < 10 * interval:
+            raise AssertionError(f"wait {SV_WAIT_S} s under 10x the interval {interval} s")
+        t_fault = time.monotonic()
+        deadline = t_fault + SV_WAIT_S
+        while breaker.snapshot()["opens_total"] < 1 and time.monotonic() < deadline:
+            time.sleep(0.005)
+        opened = breaker.snapshot()["opens_total"]
+        settled = c.fault.rebuild.wait_idle(timeout=max(0.0, deadline - time.monotonic()))
+        while breaker.state != "closed" and time.monotonic() < deadline:
+            time.sleep(0.005)
+        state = breaker.snapshot()
+        rebuild = c.fault.rebuild.snapshot()
+        if opened < 1 or not settled or state["state"] != "closed":
+            raise AssertionError(f"breaker opened {opened} times, rebuild settled {settled}, "
+                                 f"breaker {state}, rebuild {rebuild}")
+        if rebuild["rebuilt_total"] < 1 or rebuild["rebuild_failures"]:
+            raise AssertionError(f"rebuild {rebuild}")
+        after = c._executor.execute_sync("f:u", "hll_export", None)[0]
+        if not np.array_equal(after, before):
+            raise AssertionError("the rebuilt row differs from the pre-fault row")
+        n = u.count()
+        log(f"  faults under serve: kernel_launch x2 absorbed ({retries:.0f} retries, row "
+            f"equal to the oracle's); d2h_complete -> breaker opened ({opened}x) -> "
+            f"rebuild -> breaker {state['state']} after "
+            f"{time.monotonic() - t_fault:.3f} s (waits polled, up to {SV_WAIT_S:.0f} s), "
+            f"row as before, PFCOUNT {n}")
+    finally:
+        c.shutdown()
+        oracle.shutdown()
+        shutil.rmtree(path, ignore_errors=True)
+    cm = served.serve.cost_model
+    snap = cm.snapshot()
+    fc = FaultConfig()
+    wd = RunWatchdog(served._executor, estimate=cm.estimate, margin=fc.watchdog_margin,
+                     floor_s=fc.watchdog_floor_s)
+    deadline = wd.deadline_s("hll_add", KEYS)
+    sv_metric(card, "learned cost model: s_per_key per kind", json.dumps(snap["s_per_key"]))
+    sv_metric(card, "learned cost model: overhead_s per kind", json.dumps(snap["overhead_s"]))
+    sv_metric(card, f"learned estimate of a {KEYS}-key PFADD (s)", cm.estimate("hll_add", KEYS))
+    sv_metric(card, f"watchdog deadline for a {KEYS}-key PFADD (s; margin "
+              f"{fc.watchdog_margin}, floor {fc.watchdog_floor_s})", deadline)
+    return {"cost_model": snap, "watchdog_deadline_s": deadline}
+
+
+def item2_checks(served, mem, seed: int, card: str, ids) -> dict:
+    """The ops and engine functions of this slice on the card: xxhash64 of
+    an 8M-key batch against the CPU, bitpos on the 7 bitmaps against numpy,
+    count_estimate of the filter against numpy's float32 formula, and a
+    PFADD with the (hi, lo) payload under segment against add_ints.
+    Returns the kernel launches it made outside the served path."""
+    import torch
+    from redisson_tpu_torch.ingest import kernels as ik
+    from redisson_tpu_torch.ops import bitset, bloom, hashing
+    from redisson_tpu_torch.ops import kernels as ok
+
+    keys = keys_for(0, SV_XXH_KEYS, seed)
+    data = torch.from_numpy(keys.view(np.uint8).reshape(-1, 8).copy())
+    lengths = torch.full((SV_XXH_KEYS,), 8, dtype=torch.int32)
+    t0 = time.perf_counter()
+    on_card = hashing.xxhash64(data.cuda(), lengths.cuda()).cpu()
+    t1 = time.perf_counter()
+    on_cpu = hashing.xxhash64(data, lengths)
+    if not torch.equal(on_card, on_cpu):
+        raise AssertionError("xxhash64 on the card differs from the CPU")
+    log(f"  xxhash64 of {SV_XXH_KEYS} 8-byte keys: card equals CPU "
+        f"(card {t1 - t0:.3f} s with copies, CPU {time.perf_counter() - t1:.3f} s)")
+    for d in range(1, DAYS):  # day:0 went in the watermark check
+        cells = mem._store.get(f"day:{d}").state
+        host = np.zeros(cells.shape[0], bool)
+        host[ids[d]] = True
+        host[DAY_BITS - 1] = True
+        for value in (0, 1):
+            hit = np.flatnonzero(host == bool(value))
+            want = int(hit[0]) if hit.size else -1
+            got = bitset.bitpos(cells, value)
+            if got != want:
+                raise AssertionError(f"bitpos(day:{d}, {value}) = {got}, numpy {want}")
+    log(f"  bitpos(0 / 1) of days 1-{DAYS - 1} equal to numpy's")
+    bits = mem._store.get("bloom").state
+    n0 = ok.launches["popcount_partials"]
+    bc = ok.popcount_partials(bits).to(torch.int64).sum()
+    direct = ok.launches["popcount_partials"] - n0  # not a served-path launch
+    est = float(bloom.count_estimate(bc, BLOOM_M, BLOOM_K))
+    x = np.float32(int(bc))
+    frac = np.clip(x / np.float32(BLOOM_M), np.float32(0), np.float32(1 - 1e-7))
+    want = float(np.float32(-(BLOOM_M / BLOOM_K)) * np.log1p(-frac))
+    if abs(est - want) > 1e-6 * abs(want):
+        raise AssertionError(f"count_estimate {est}, numpy float32 {want}")
+    log(f"  count_estimate of the filter ({int(bc)} bits set): {est} (numpy {want})")
+    # The (hi, lo) payload: the 1024 x 40,000 keys of served_hll, as two
+    # uint32 halves, into fresh sketches; the bank rows must equal the rows
+    # the packed PFADDs of the same keys left.
+    before = ik.launches["seg_insert"]
+    futs = []
+    for i in range(SKETCHES):
+        k = keys_for(i * STRIDE, KEYS, seed)
+        futs.append(served.serve.execute_async(f"hilo:{i}", "hll_add", {
+            "hi": (k >> np.uint64(32)).astype(np.uint32),
+            "lo": (k & np.uint64(0xFFFFFFFF)).astype(np.uint32)}, KEYS))
+    if not all(f.result() for f in futs):
+        raise AssertionError("a first (hi, lo) PFADD reported no change")
+    torch.cuda.synchronize()
+    launched = ik.launches["seg_insert"] - before
+    bank, rows = served.to_numpy_state()
+    same = sum(np.array_equal(bank[rows[f"hilo:{i}"]], bank[rows[f"hll:{i}"]])
+               for i in range(SKETCHES))
+    if not launched or same != SKETCHES:
+        raise AssertionError(f"hi/lo PFADD: seg_insert launches {launched}, {same} of "
+                             f"{SKETCHES} rows equal to the packed PFADD's")
+    log(f"  (hi, lo) PFADD of {SKETCHES} x {KEYS} keys under segment: all {SKETCHES} rows "
+        f"equal to the packed PFADD's, {launched} seg_insert launch(es)")
+    return {"popcount_partials": direct}
+
+
+def serve_path(seed: int, card: str, ref):
+    """Phase 16 on served clients; returns (launches, served client, numbers).
+    The served client stays open for the profiler check after the
+    device-only times."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(SV_DIR, ignore_errors=True)
+    os.makedirs(SV_DIR)
+    ids = [d[:SV_BITS_PER_DAY] for d in day_ids(seed)]
+    log(f"phase 16 on {card}:")
+    served = served_client(tenant_rates={SV_LIMITED: SV_LIMITED_RATE},
+                           tenant_bursts={SV_LIMITED: SV_LIMITED_BURST})
+    out, steps = {}, {}
+
+    def step(name: str, fn):
+        t = time.perf_counter()
+        got = fn()
+        steps[name] = round(time.perf_counter() - t, 3)
+        return got
+
+    try:
+        reset_all_launches()
+        out["served_inserts_per_s"] = step("served", lambda: served_hll(served, seed, card,
+                                                                        ref))
+        mem, out["memory"] = step("memory", lambda: memory_state(seed, card, ids))
+        try:
+            step("watermark", lambda: watermark(mem, card))
+            direct = step("item 2", lambda: item2_checks(served, mem, seed, card, ids))
+        finally:
+            mem.shutdown()
+        out["faults"] = step("faults", lambda: served_faults(served, seed, card))
+        launches = all_launches()
+        for k, n in direct.items():
+            launches[k] -= n
+        for k in ("seg_insert", "merge_stack", "bits_insert_segmented",
+                  "popcount_partials"):
+            if not launches.get(k):
+                raise AssertionError(f"phase 16 never launched {k}: {launches}")
+        log(f"  phase 16 launches: {json.dumps(launches)}")
+        out["overheads"] = step("overheads", lambda: overheads(served, seed, card))
+        out["attribution"] = step("slowlog", lambda: attribution(served, seed, card))
+        out["runs"] = step("stride-1 pass", lambda: run_breakdown(seed, card))
+        out["churn_steps"] = step("churn", lambda: churn(seed, card))
+        if not served.get_nodes_group().ping_all():
+            raise AssertionError("get_nodes_group().ping_all() is False on the card")
+    except BaseException:
+        served.shutdown()
+        raise
+    shutil.rmtree(SV_DIR, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    sv_metric(card, "seconds by step", json.dumps(steps))
+    sv_metric(card, "wall seconds", out["wall_s"])
+    return launches, served, out
+
+
+def serve_profile(served, seed: int, card: str) -> None:
+    """profile(logdir) around 10 served PFADDs: the trace names seg_insert's
+    kernel (taken after every host-timed phase)."""
+    import shutil
+
+    from redisson_tpu_torch.observability import profile
+
+    shutil.rmtree(SV_PROFILE_DIR, ignore_errors=True)
+    h = served.get_hyper_log_log("prof:0")
+    with profile(SV_PROFILE_DIR):
+        for i in range(10):
+            h.add_ints(keys_for((1 << 51) + i * KEYS, KEYS, seed))
+    path = os.path.join(SV_PROFILE_DIR, "trace.json")
+    if not os.path.exists(path):
+        raise AssertionError("profile() wrote no trace")
+    with open(path) as f:
+        names = {e.get("name", "") for e in json.load(f).get("traceEvents", [])}
+    seg = sorted(n for n in names if "seg_" in n and "_kernel" in n)
+    shutil.rmtree(SV_PROFILE_DIR, ignore_errors=True)
+    sv_metric(card, "profile(): seg_insert kernels named in the trace", seg)
+    if not seg:
+        raise AssertionError("the profile() trace names no seg_insert kernel")
+
+
 def merge_pair(tree: str, seed: int) -> int:
     """The client's merge call (`engine._merged_rows`: a numpy row list of
     257 and 1001 bank rows, as the backend passes it) and merge_stack over a
@@ -2635,6 +3502,83 @@ def merge_pair(tree: str, seed: int) -> int:
     return 0
 
 
+def phase_table(seed: int, card: str, deferred: list, out: dict) -> dict:
+    """Phase name -> the call that runs it (reading earlier phases' results
+    from `out`), in the order a whole run takes them."""
+    return {
+        "kernels": lambda: check_kernels(seed, deferred),
+        "bits kernels": lambda: check_bits_kernels(seed, deferred),
+        "delta kernels": lambda: check_delta_kernels(seed, deferred),
+        "hll path": lambda: main_path(seed),
+        "hll rates": lambda: rates(seed, card),
+        "hll auto": lambda: auto_path(seed),
+        "hll small vs cpu": lambda: small_vs_cpu(seed),
+        "fpr probes": lambda: fpr_probes(seed),
+        "bloom path": lambda: bloom_path(seed, out["fpr probes"]),
+        "bloom rates": lambda: bloom_rates(seed, card, out["fpr probes"]),
+        "bitset path": lambda: bitset_path(seed, card),
+        "delta hll path": lambda: delta_hll_path(seed, out["hll path"][1]),
+        "delta bloom path": lambda: delta_bloom_path(seed, out["bloom path"][1]),
+        "delta bitset path": lambda: delta_bitset_path(seed),
+        "mixed tape window": lambda: mixed_window(seed),
+        "delta rates": lambda: delta_rates(seed, card),
+        "batch path": lambda: batch_path(card),
+        "structures": lambda: structures_path(out["batch path"][1], card),
+        "durability": lambda: durability_path(seed, card),
+        "serve": lambda: serve_path(seed, card, out["hll path"][1]),
+    }
+
+
+#: what a phase run alone needs first: the phases whose results it reads
+#: ("serve" reads only the unserved sort reference, made without phase 3)
+PHASE_NEEDS = {"bloom path": ("fpr probes",), "bloom rates": ("fpr probes",),
+               "delta hll path": ("hll path",),
+               "delta bloom path": ("fpr probes", "bloom path"),
+               "structures": ("batch path",)}
+
+
+def no_jax_loaded() -> None:
+    leaked = sorted(m for m in sys.modules
+                    if m in ("jax", "redisson_tpu")
+                    or m.startswith(("jax.", "redisson_tpu.")))
+    if leaked:
+        raise AssertionError(f"the port loaded JAX modules: {leaked[:5]}")
+
+
+def run_phase(name: str, seed: int, card: str, phases: dict, out: dict) -> int:
+    """`--phase NAME`: after the build, only the named phase (and what it
+    reads), its launch counts, then the same last lines as a whole run
+    without the kernels line."""
+    import torch
+
+    if name not in phases:
+        print(f"chip_smoke: no phase {name!r}; phases: {', '.join(phases)}",
+              file=sys.stderr)
+        return 2
+    if name == "serve":
+        out["hll path"] = (None, sort_reference(seed))
+    for dep in PHASE_NEEDS.get(name, ()):
+        out[dep] = phases[dep]()
+    t = time.perf_counter()
+    out[name] = phases[name]()
+    log(f"phase {name}: {time.perf_counter() - t:.1f} s")
+    if name == "serve":
+        launches, served, _ = out[name]
+        try:
+            serve_profile(served, seed, card)
+        finally:
+            served.shutdown()
+        log(f"phase serve launches: {json.dumps(launches)}")
+    if "batch path" in out:
+        out["batch path"][1].shutdown()
+    no_jax_loaded()
+    log(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2643,6 +3587,10 @@ def main() -> int:
     ap.add_argument("--merge-pair", metavar="TREE",
                     help="only time the client's merge call of the package in TREE (a "
                          "checkout of this or another commit), for a paired comparison")
+    ap.add_argument("--phase", metavar="NAME",
+                    help="only build the kernels and run the phase NAME (a key of "
+                         "phase_table, e.g. serve), with the phases whose results it "
+                         "reads (PHASE_NEEDS)")
     ap.add_argument("--child-writer", metavar="DIR",
                     help="phase 15's writer role: reopen the persist directory DIR and "
                          "write acknowledged batches until killed")
@@ -2685,28 +3633,11 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s {native.BUILD_LOG.strip()}")
 
     deferred = []  # (what, row, key, fn, src, reps): device-only times, taken last
-    phases = [("kernels", lambda: check_kernels(args.seed, deferred)),
-              ("bits kernels", lambda: check_bits_kernels(args.seed, deferred)),
-              ("delta kernels", lambda: check_delta_kernels(args.seed, deferred)),
-              ("hll path", lambda: main_path(args.seed)),
-              ("hll rates", lambda: rates(args.seed, card)),
-              ("hll auto", lambda: auto_path(args.seed)),
-              ("hll small vs cpu", lambda: small_vs_cpu(args.seed)),
-              ("fpr probes", lambda: fpr_probes(args.seed)),
-              ("bloom path", lambda: bloom_path(args.seed, out["fpr probes"])),
-              ("bloom rates", lambda: bloom_rates(args.seed, card, out["fpr probes"])),
-              ("bitset path", lambda: bitset_path(args.seed, card)),
-              ("delta hll path", lambda: delta_hll_path(args.seed, out["hll path"][1])),
-              ("delta bloom path", lambda: delta_bloom_path(args.seed,
-                                                            out["bloom path"][1])),
-              ("delta bitset path", lambda: delta_bitset_path(args.seed)),
-              ("mixed tape window", lambda: mixed_window(args.seed)),
-              ("delta rates", lambda: delta_rates(args.seed, card)),
-              ("batch path", lambda: batch_path(card)),
-              ("structures", lambda: structures_path(out["batch path"][1], card)),
-              ("durability", lambda: durability_path(args.seed, card))]
     out = {}
-    for name, fn in phases:
+    phases = phase_table(args.seed, card, deferred, out)
+    if args.phase:
+        return run_phase(args.phase, args.seed, card, phases, out)
+    for name, fn in phases.items():
         t = time.perf_counter()
         out[name] = fn()
         log(f"phase {name}: {time.perf_counter() - t:.1f} s")
@@ -2720,25 +3651,26 @@ def main() -> int:
     del deferred
     log(f"phase device times: {time.perf_counter() - t:.1f} s")
     out["kernels"][1]["client_merge_window"] = merge_window(out["batch path"][1])
+    serve_l, served, _ = out["serve"]
+    try:
+        serve_profile(served, args.seed, card)
+    finally:
+        served.shutdown()
     if args.profile:
         profile_path(args.seed)
     out["batch path"][1].shutdown()
     seg, mrg = out["kernels"]
     pop, bop, bseg = out["bits kernels"]
     dmerge, wmerge = out["delta kernels"]
-    # Phase 15's recovery and the checks after it: this slice's path.
+    # Phase 15's recovery and the checks after it, and phase 16.
     dur_l = out["durability"]["recovery"]["launches"]
     launches = add_launches(add_launches(out["hll path"][0], out["batch path"][0]),
-                            dur_l)
+                            add_launches(dur_l, serve_l))
     bloom_l, bitset_l = out["bloom path"][0], out["bitset path"]
     delta_l = [out[p] for p in ("delta hll path", "delta bloom path",
                                 "delta bitset path", "mixed tape window")] + [dur_l]
 
-    leaked = sorted(m for m in sys.modules
-                    if m in ("jax", "redisson_tpu")
-                    or m.startswith(("jax.", "redisson_tpu.")))
-    if leaked:
-        raise AssertionError(f"the port loaded JAX modules: {leaked[:5]}")
+    no_jax_loaded()
 
     src = "redisson_tpu_torch/csrc/"
     kernels = [
@@ -2750,12 +3682,13 @@ def main() -> int:
              launches=launches["merge_stack"], **mrg),
         dict(name="bits_insert_segmented", route="cuda", source=src + "bits_insert.cu",
              replaces="redisson_tpu/ingest/kernels.py:145",
-             launches=bloom_l["bits_insert_segmented"] + dur_l["bits_insert_segmented"],
+             launches=(bloom_l["bits_insert_segmented"] + dur_l["bits_insert_segmented"]
+                       + serve_l["bits_insert_segmented"]),
              **bseg),
         dict(name="popcount_partials", route="cuda", source=src + "popcount.cu",
              replaces="redisson_tpu/ops/pallas_kernels.py:172",
              launches=(bloom_l["popcount_partials"] + bitset_l["popcount_partials"]
-                       + dur_l["popcount_partials"]),
+                       + dur_l["popcount_partials"] + serve_l["popcount_partials"]),
              **pop),
         dict(name="bitop_cells", route="cuda", source=src + "bitop.cu",
              replaces="redisson_tpu/ops/pallas_kernels.py:223",

@@ -137,6 +137,17 @@ def _fire_d2h_ops(ops: List[Op]) -> None:
     _fire_d2h(ops[0].kind if ops else "", ops[0].target if ops else "")
 
 
+def _trace_cache(ops: List[Op], hit: bool) -> None:
+    """Stamp a read-cache hit or miss on the sampled trace spans riding
+    `ops` (replayed or synthetic ops may lack the attribute)."""
+    name = "cache_hit" if hit else "cache_miss"
+    for op in ops:
+        span = getattr(op, "span", None)
+        if span is not None and span.t1 is None:
+            span.event(name)
+            span.annotations.setdefault("read_cache", "hit" if hit else "miss")
+
+
 def _complete_all(ops: List[Op], materialize: Callable[[], object]) -> Callable:
     """Closure completing every op with materialize()'s value (or error)."""
 
@@ -240,6 +251,21 @@ class EpochReadCache:
     def clear(self) -> None:
         with self._lock:
             self._data.clear()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._data)
+
+    def content_bytes(self) -> int:
+        """Bytes held by cached values (the memstat 'cache' meter): arrays
+        and tensors count their nbytes, scalars 8."""
+        with self._lock:
+            values = [v for _, v in self._data.values()]
+        total = 0
+        for v in values:
+            nb = getattr(v, "nbytes", None)
+            total += int(nb) if nb is not None else 8
+        return total
 
 
 class RowAllocator:
@@ -493,7 +519,12 @@ class TorchBackend:
             "tape_runs": 0,       # windows retired through window_merge
             "window_launches": 0,  # device calls issued retiring windows
             "launch_us": 0.0,     # host wall time spent issuing them
+            "delta_scratch_bytes": 0,  # in-flight delta plane bytes (meter)
         }
+        self._scratch_lock = threading.Lock()
+        # memstat ledger (MemLedger-shaped) or None: the bank's size is
+        # reported on every creation, growth, install and flushall.
+        self.accounting = None
 
     # row-map views
     @property
@@ -511,13 +542,35 @@ class TorchBackend:
     def _grow_bank(self, new_cap: int) -> int:
         """RowAllocator grow hook: reallocate the bank at `new_cap` rows."""
         self.bank = engine.hll_bank_grow(self._ensure_bank(), new_cap)
+        self._account_bank()
         return new_cap
 
     def _ensure_bank(self) -> torch.Tensor:
         if self.bank is None:
             self.bank = engine.hll_bank_make(self.bank_capacity,
                                              device=self.device)
+            self._account_bank()
         return self.bank
+
+    def _account_bank(self) -> None:
+        """Report the bank's bytes to the memstat ledger. Rows are written
+        in place, so only creation, growth, an installed bank and flushall
+        change them, and each of those calls here."""
+        acct = self.accounting
+        if acct is not None:
+            acct.set_bank_bytes(int(self.bank.nbytes)
+                                if self.bank is not None else 0)
+
+    def scratch_bytes(self) -> dict:
+        """Scratch byte meters (the memstat 'scratch' category): the Bloom
+        host mirrors and the delta planes in flight."""
+        mirrors = 0
+        for m in list(self._bloom_mirrors.values()):
+            bits = m.get("bits") if isinstance(m, dict) else None
+            mirrors += int(getattr(bits, "nbytes", 0) or 0)
+        with self._scratch_lock:
+            delta = self.counters["delta_scratch_bytes"]
+        return {"bloom_mirrors": mirrors, "delta_scratch": delta}
 
     def _plan_ingest(self, nkeys: int, allow_delta: bool = False) -> str:
         """One run's HLL insert: 'delta' | 'tape' | 'hostfold' or a device
@@ -646,6 +699,7 @@ class TorchBackend:
         for name in alloc.rows:
             self._bump(name)
         self.read_cache.clear()
+        self._account_bank()
 
     def to_numpy_state(self):
         """(bank as numpy [S, m] int32, name -> row map): the reverse of
@@ -986,7 +1040,23 @@ class TorchBackend:
                 return
             self._complete_entries(entries, host_changed, host_old)
 
-        self.completer.submit(run)
+        self._submit_with_scratch(run, planes)
+
+    def _submit_with_scratch(self, run, planes) -> None:
+        """Hand a window's completion to the completer, charging its delta
+        planes to the scratch meter until it has run (failed or not)."""
+        inflight = sum(int(p.plane_bytes) for p in planes)
+        with self._scratch_lock:
+            self.counters["delta_scratch_bytes"] += inflight
+
+        def run_and_release():
+            try:
+                run()
+            finally:
+                with self._scratch_lock:
+                    self.counters["delta_scratch_bytes"] -= inflight
+
+        self.completer.submit(run_and_release)
 
     def _commit_store_row(self, p, spec, merged_row: torch.Tensor) -> None:
         """Install a merged BitSet / Bloom row (a copy: the stack is a
@@ -1073,7 +1143,7 @@ class TorchBackend:
                 return
             self._complete_entries(entries, host_changed, host_old)
 
-        self.completer.submit(run)
+        self._submit_with_scratch(run, planes)
 
     def ingest_stats(self) -> dict:
         """The delta-ingest counters plus the derived link bytes per key and
@@ -1257,23 +1327,25 @@ class TorchBackend:
             valid.append(op)
         ops = valid
         packed_ops = [op for op in ops if "packed" in op.payload]
+        int_ops = [op for op in ops if "hi" in op.payload]
         byte_ops = [op for op in ops if "data" in op.payload]
         device_ops = [op for op in ops if "device_packed" in op.payload]
-        host_ops = packed_ops + byte_ops
+        host_ops = packed_ops + int_ops + byte_ops
         if host_ops:
             path = self._plan_ingest(sum(op.nkeys or self._payload_nkeys(op)
                                          for op in host_ops))
             if path == "hostfold":
                 self._hll_add_hostfold(host_ops)
             else:
-                for group in (packed_ops, byte_ops):
+                for group in (packed_ops, int_ops, byte_ops):
                     if group:
                         self._hll_add_group(group, path)
         if device_ops:
             self._hll_add_device(device_ops, self._plan_ingest(
                 sum(self._device_nkeys(op) for op in device_ops)))
         for op in ops:
-            if not ({"packed", "data", "device_packed"} & op.payload.keys()):
+            if not ({"packed", "hi", "data", "device_packed"}
+                    & op.payload.keys()):
                 op.future.set_exception(ValueError(
                     f"unknown hll_add payload keys: {sorted(op.payload)}"))
 
@@ -1290,7 +1362,7 @@ class TorchBackend:
 
     @staticmethod
     def _payload_nkeys(op: Op) -> int:
-        for key in ("packed", "data"):
+        for key in ("packed", "hi", "data"):
             if key in op.payload:
                 return op.payload[key].shape[0]
         return 0
@@ -1308,6 +1380,10 @@ class TorchBackend:
             p = op.payload
             if "packed" in p:
                 native.hll_fold_u64(p["packed"], regs, self.seed)
+            elif "hi" in p:
+                keys = ((np.asarray(p["hi"], np.uint64) << np.uint64(32))
+                        | np.asarray(p["lo"], np.uint64))
+                native.hll_fold_u64(keys, regs, self.seed)
             else:
                 native.hll_fold_rows(p["data"], p["lengths"], regs, self.seed)
         names = list(folds)
@@ -1339,7 +1415,8 @@ class TorchBackend:
         # `impl` insert). Multi-target runs carry a per-key row vector: byte
         # keys through the `impl` insert's multi-target form (under
         # 'segment' one kernel launch per chunk), small int ops through the
-        # flat scatter, as in JAX.
+        # flat scatter, as in JAX. (hi, lo) int keys take the scalar-row
+        # kernels for one target and the `impl` multi-target form otherwise.
         parts = []
         if "packed" in ops[0].payload:
             # A large op's keys go through the staging pipeline chunk by
@@ -1379,6 +1456,30 @@ class TorchBackend:
                         self._ensure_bank(), self._to_device(pkeys),
                         self._to_device(prow), count, self.seed, self.family)
                     parts.append(changed)
+        elif "hi" in ops[0].payload:
+            one = self._one_row(ops)
+            # uint32 lanes widen to int64 on the host (torch's uint32 has
+            # few ops).
+            hi = np.concatenate([op.payload["hi"] for op in ops]).astype(np.int64)
+            lo = np.concatenate([op.payload["lo"] for op in ops]).astype(np.int64)
+            rowv = None if one is not None else np.concatenate(
+                [np.full(op.payload["hi"].shape[0], self._rows[op.target],
+                         np.int32) for op in ops])
+            for s, e in engine.chunk_spans(hi.shape[0]):
+                phi, pvalid = engine.pad_ints(hi[s:e])
+                plo, _ = engine.pad_ints(lo[s:e])
+                args = (self._to_device(phi), self._to_device(plo))
+                valid = self._to_device(pvalid)
+                if one is not None:
+                    self.bank, changed = engine.hll_bank_add_u64(
+                        self._ensure_bank(), *args, valid, one, self.seed,
+                        self.family, impl)
+                else:
+                    prow, _ = engine.pad_ints(rowv[s:e])
+                    self.bank, changed = engine.hll_bank_add_u64_rows(
+                        self._ensure_bank(), *args, self._to_device(prow),
+                        valid, self.seed, self.family, impl)
+                parts.append(changed)
         else:
             one = self._one_row(ops)
             data, lengths, spans = self._coalesce_bytes(ops)
@@ -1452,8 +1553,10 @@ class TorchBackend:
         if self.read_cache.is_hit(cached):
             # No kernel, no readback, but still resolved through the
             # completer so per-target results stay FIFO.
+            _trace_cache(ops, hit=True)
             self.completer.submit(_complete_all(ops, lambda v=cached: v))
             return
+        _trace_cache(ops, hit=False)
         rb = Readback(launch())
 
         def materialize():
@@ -1984,9 +2087,11 @@ class TorchBackend:
                 if self.read_cache.is_hit(hit):
                     # Served through the completer, so per-target results
                     # stay in submission order.
+                    _trace_cache([op], hit=True)
                     self.completer.submit(_complete_all([op], lambda v=hit: v.copy()))
                     continue
                 digests[id(op)] = dig
+            _trace_cache([op], hit=False)
             pending.append(op)
         if not pending:
             return
@@ -2049,6 +2154,7 @@ class TorchBackend:
             # The valid mirror holds every bit: a host popcount, no device.
             epoch = self._epoch(target)
             value = self.read_cache.get(target, "bloom_count", epoch)
+            _trace_cache(ops, hit=self.read_cache.is_hit(value))
             if not self.read_cache.is_hit(value):
                 value = int(round(bloom_math.count_estimate(
                     native.popcount(mir["bits"]), m, k)))
@@ -2165,6 +2271,7 @@ class TorchBackend:
         self._epochs.clear()
         self.read_cache.clear()
         self.store.flushall()
+        self._account_bank()
         for op in ops:
             op.future.set_result(None)
 

@@ -13,9 +13,17 @@ keys) on the in-process engine, plus `create_batch()`.
 crash recovery (`client.persist`, `snapshot_now`), `Config.use_faults()`
 the fault injection, run watchdog and self-healing rebuild
 (`client.fault`); `save_checkpoint` / `load_checkpoint` work either way.
+`Config.use_serve()` puts the serving layer (`client.serve`: admission,
+deadlines, retries, breakers) in front of the executor for every object
+getter, `Config.use_trace()` the sampled tracer (`client.trace`: SLOWLOG,
+LATENCY, commandstats, Chrome trace). The metrics registry
+(`client.metrics`) and the byte ledger (`client.memstat`, `memory_usage` /
+`memory_stats` / `memory_doctor` / `memory_verify`, `info`) are always on;
+`Config.use_memstat()` sets its watermarks. `get_nodes_group()` pings the
+client's device.
 
-Getters of tiers the port has not reached yet (nodes / topology, remote
-service, cache manager) raise NotImplementedError naming the ROADMAP item.
+Getters of tiers the port has not reached yet (topology, remote service,
+cache manager) raise NotImplementedError naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -57,6 +65,13 @@ from redisson_tpu_torch.models.scoredsortedset import (RLexSortedSet,
 from redisson_tpu_torch.models.script import RScript
 from redisson_tpu_torch.models.sortedset import RSortedSet
 from redisson_tpu_torch.models.topic import RPatternTopic, RTopic
+from redisson_tpu_torch.memstat import MemLedger, MemoryReport, PressureMonitor
+from redisson_tpu_torch.memstat.pressure import device_memory
+from redisson_tpu_torch.observability import (ExecutorMetrics, MetricsRegistry,
+                                              NodesGroup, register_delta_ingest,
+                                              register_memstat,
+                                              register_read_cache,
+                                              register_trace)
 from redisson_tpu_torch.routing import RoutingBackend
 from redisson_tpu_torch.store import SketchStore
 
@@ -85,9 +100,41 @@ class RedissonTorch:
             ingest=ccfg.ingest, hll_hash=ccfg.hll_hash,
             read_cache_entries=ccfg.read_cache_entries)
         self._routing = RoutingBackend(self.sketch)
-        self._executor = CommandExecutor(
-            self._routing, max_batch_keys=ccfg.max_batch_keys,
-            inflight_runs=self.config.inflight_runs)
+        self.metrics = MetricsRegistry()
+        # The byte ledger is always on and wired before any traffic (a
+        # persist recovery replays through the same seams).
+        self.memstat = MemLedger()
+        self._store.accounting = self.memstat
+        self.sketch.accounting = self.memstat
+        self.sketch._account_bank()
+        self.memstat.register_meter(
+            "backend.bloom_mirrors",
+            lambda: self.sketch.scratch_bytes()["bloom_mirrors"], "scratch")
+        self.memstat.register_meter(
+            "backend.delta_scratch",
+            lambda: self.sketch.scratch_bytes()["delta_scratch"], "scratch")
+        self._build_executor(ccfg.max_batch_keys)
+        self.memstat.register_meter(
+            "executor.staging", self._executor.staging_bytes, "staging")
+        mcfg = self.config.memory
+        self._pressure = None
+        if mcfg is not None and mcfg.high_watermark_bytes > 0:
+            self._pressure = PressureMonitor(
+                self.memstat, mcfg,
+                device_fn=lambda: device_memory(self.device, mcfg.high_watermark_bytes))
+        self._memreport = MemoryReport(self.memstat, store=self._store,
+                                       backend=self.sketch,
+                                       pressure=self._pressure)
+        register_memstat(self.metrics, self.memstat, self._pressure)
+        if self.serve is not None:
+            self.serve.attach_memstat(self.memstat, self._pressure)
+        if self.trace is not None:
+            self.trace.attach_memstat(self.memstat)
+        register_read_cache(self.metrics, self.sketch.read_cache)
+        self.memstat.register_meter(
+            "backend.read_cache", self.sketch.read_cache.content_bytes,
+            "cache")
+        register_delta_ingest(self.metrics, self.sketch)
         self._pubsub = self._routing.pubsub
         self._watchdog = LockWatchdog(self._executor)
         self._eviction = EvictionScheduler(self._executor)
@@ -107,6 +154,17 @@ class RedissonTorch:
             except Exception:
                 self.shutdown()
                 raise
+            journal = self._executor.journal
+            if journal is not None:
+                if self.trace is not None:
+                    # Every fsync's duration, sampled op or not.
+                    journal.set_trace(self.trace)
+                self.memstat.register_meter(
+                    "persist.journal", journal.disk_bytes, "disk")
+            if self._persist.snapshotter is not None:
+                self.memstat.register_meter(
+                    "persist.snapshots", self._persist.snapshotter.disk_bytes,
+                    "disk")
         fcfg = self.config.faults
         if fcfg is not None:
             from redisson_tpu_torch.fault import FaultManager
@@ -117,6 +175,47 @@ class RedissonTorch:
             except Exception:
                 self.shutdown()
                 raise
+
+    def _build_executor(self, max_batch_keys: int) -> None:
+        """The executor waist and, when `Config.serve` is set, the serving
+        layer in front of it. `self._executor` is the raw waist (for
+        maintenance traffic: lock watchdog renewals and eviction sweeps,
+        which must never be shed or expire); `self._dispatch` is what the
+        object getters bind to (the serving layer when configured)."""
+        scfg = self.config.serve
+        policy = None
+        if scfg is not None:
+            from redisson_tpu_torch.serve import AdaptiveBatchPolicy, CostModel
+
+            policy = AdaptiveBatchPolicy(
+                CostModel(), max_linger_s=scfg.max_linger_s,
+                target_batch_service_s=scfg.target_batch_service_s,
+                min_batch_keys=scfg.min_batch_keys)
+        # The tracer is built before the executor, so every op (maintenance
+        # traffic included) passes its sampling hook.
+        self.trace = None
+        if self.config.trace is not None:
+            from redisson_tpu_torch.trace import TraceManager
+
+            self.trace = TraceManager(self.config.trace, registry=self.metrics)
+            register_trace(self.metrics, self.trace)
+        self._executor = CommandExecutor(
+            self._routing, max_batch_keys=max_batch_keys,
+            metrics=ExecutorMetrics(self.metrics), policy=policy,
+            inflight_runs=self.config.inflight_runs, trace=self.trace)
+        self.metrics.gauge("executor.queue_depth", self._executor.queue_depth)
+        self.metrics.gauge(
+            "executor.overlap_ratio",
+            lambda: self._executor.pipeline_stats()["overlap_ratio"])
+        if scfg is not None:
+            from redisson_tpu_torch.serve import ServingLayer
+
+            self.serve = ServingLayer(self._executor, scfg,
+                                      registry=self.metrics)
+            self._dispatch = self.serve
+        else:
+            self.serve = None
+            self._dispatch = self._executor
 
     @classmethod
     def create(cls, config: Union[Config, CudaConfig, None] = None) -> "RedissonTorch":
@@ -132,131 +231,131 @@ class RedissonTorch:
     # -- sketch objects (the device tier) -----------------------------------
 
     def get_hyper_log_log(self, name: str, codec=None) -> RHyperLogLog:
-        return RHyperLogLog(name, self._executor, self._resolve_codec(codec),
+        return RHyperLogLog(name, self._dispatch, self._resolve_codec(codec),
                             self._widths)
 
     def get_bit_set(self, name: str) -> RBitSet:
-        return RBitSet(name, self._executor, self._codec, self._widths)
+        return RBitSet(name, self._dispatch, self._codec, self._widths)
 
     def get_bloom_filter(self, name: str, codec=None) -> RBloomFilter:
-        return RBloomFilter(name, self._executor, self._resolve_codec(codec),
+        return RBloomFilter(name, self._dispatch, self._resolve_codec(codec),
                             self._widths)
 
     def create_batch(self, **submit_kwargs) -> RBatch:
         """RBatch over every object family; `submit_kwargs` (a `deadline`)
         budget the whole pipeline."""
-        return RBatch(self._executor, self._codec, self._widths,
+        return RBatch(self._dispatch, self._codec, self._widths,
                       **submit_kwargs)
 
     # -- structure objects (the in-process engine) --------------------------
 
     def get_bucket(self, name: str, codec=None) -> RBucket:
-        return RBucket(name, self._executor, self._resolve_codec(codec), self._widths)
+        return RBucket(name, self._dispatch, self._resolve_codec(codec), self._widths)
 
     def get_buckets(self, codec=None) -> RBuckets:
-        return RBuckets(self._executor, self._resolve_codec(codec))
+        return RBuckets(self._dispatch, self._resolve_codec(codec))
 
     def get_atomic_long(self, name: str) -> RAtomicLong:
-        return RAtomicLong(name, self._executor, self._codec, self._widths)
+        return RAtomicLong(name, self._dispatch, self._codec, self._widths)
 
     def get_atomic_double(self, name: str) -> RAtomicDouble:
-        return RAtomicDouble(name, self._executor, self._codec, self._widths)
+        return RAtomicDouble(name, self._dispatch, self._codec, self._widths)
 
     def get_map(self, name: str, codec=None) -> RMap:
-        return RMap(name, self._executor, self._resolve_codec(codec), self._widths)
+        return RMap(name, self._dispatch, self._resolve_codec(codec), self._widths)
 
     def get_map_cache(self, name: str, codec=None) -> RMapCache:
-        return RMapCache(name, self._executor, self._resolve_codec(codec),
+        return RMapCache(name, self._dispatch, self._resolve_codec(codec),
                          self._widths, eviction_scheduler=self._eviction)
 
     def get_set(self, name: str, codec=None) -> RSet:
-        return RSet(name, self._executor, self._resolve_codec(codec), self._widths)
+        return RSet(name, self._dispatch, self._resolve_codec(codec), self._widths)
 
     def get_set_cache(self, name: str, codec=None) -> RSetCache:
-        return RSetCache(name, self._executor, self._resolve_codec(codec),
+        return RSetCache(name, self._dispatch, self._resolve_codec(codec),
                          self._widths, eviction_scheduler=self._eviction)
 
     def get_list(self, name: str, codec=None) -> RList:
-        return RList(name, self._executor, self._resolve_codec(codec), self._widths)
+        return RList(name, self._dispatch, self._resolve_codec(codec), self._widths)
 
     def get_queue(self, name: str, codec=None) -> RQueue:
-        return RQueue(name, self._executor, self._resolve_codec(codec), self._widths)
+        return RQueue(name, self._dispatch, self._resolve_codec(codec), self._widths)
 
     def get_deque(self, name: str, codec=None) -> RDeque:
-        return RDeque(name, self._executor, self._resolve_codec(codec), self._widths)
+        return RDeque(name, self._dispatch, self._resolve_codec(codec), self._widths)
 
     def get_blocking_queue(self, name: str, codec=None) -> RBlockingQueue:
-        return RBlockingQueue(name, self._executor, self._resolve_codec(codec),
+        return RBlockingQueue(name, self._dispatch, self._resolve_codec(codec),
                               self._widths)
 
     def get_blocking_deque(self, name: str, codec=None) -> RBlockingDeque:
-        return RBlockingDeque(name, self._executor, self._resolve_codec(codec),
+        return RBlockingDeque(name, self._dispatch, self._resolve_codec(codec),
                               self._widths)
 
     def get_sorted_set(self, name: str, codec=None,
                        key: Optional[Callable] = None) -> RSortedSet:
         return RSortedSet(
-            name, self._executor, self._resolve_codec(codec), self._widths,
+            name, self._dispatch, self._resolve_codec(codec), self._widths,
             key=key, guard_lock=self.get_lock(name + "__sortedset_guard"))
 
     def get_scored_sorted_set(self, name: str, codec=None) -> RScoredSortedSet:
-        return RScoredSortedSet(name, self._executor, self._resolve_codec(codec),
+        return RScoredSortedSet(name, self._dispatch, self._resolve_codec(codec),
                                 self._widths)
 
     def get_lex_sorted_set(self, name: str) -> RLexSortedSet:
-        return RLexSortedSet(name, self._executor, self._codec, self._widths)
+        return RLexSortedSet(name, self._dispatch, self._codec, self._widths)
 
     def get_set_multimap(self, name: str, codec=None) -> RSetMultimap:
-        return RSetMultimap(name, self._executor, self._resolve_codec(codec),
+        return RSetMultimap(name, self._dispatch, self._resolve_codec(codec),
                             self._widths)
 
     def get_list_multimap(self, name: str, codec=None) -> RListMultimap:
-        return RListMultimap(name, self._executor, self._resolve_codec(codec),
+        return RListMultimap(name, self._dispatch, self._resolve_codec(codec),
                              self._widths)
 
     def get_set_multimap_cache(self, name: str, codec=None) -> RSetMultimapCache:
-        return RSetMultimapCache(name, self._executor,
+        return RSetMultimapCache(name, self._dispatch,
                                  self._resolve_codec(codec), self._widths)
 
     def get_list_multimap_cache(self, name: str, codec=None) -> RListMultimapCache:
-        return RListMultimapCache(name, self._executor,
+        return RListMultimapCache(name, self._dispatch,
                                   self._resolve_codec(codec), self._widths)
 
     def get_geo(self, name: str, codec=None) -> RGeo:
-        return RGeo(name, self._executor, self._resolve_codec(codec), self._widths)
+        return RGeo(name, self._dispatch, self._resolve_codec(codec), self._widths)
 
     def get_topic(self, name: str, codec=None) -> RTopic:
-        return RTopic(name, self._executor, self._resolve_codec(codec), self._pubsub)
+        return RTopic(name, self._dispatch, self._resolve_codec(codec), self._pubsub)
 
     def get_pattern_topic(self, pattern: str, codec=None) -> RPatternTopic:
-        return RPatternTopic(pattern, self._executor, self._resolve_codec(codec),
+        return RPatternTopic(pattern, self._dispatch, self._resolve_codec(codec),
                              self._pubsub)
 
     # -- coordination -------------------------------------------------------
 
     def get_lock(self, name: str) -> RLock:
-        return RLock(name, self._executor, self._pubsub, self.id, self._watchdog)
+        return RLock(name, self._dispatch, self._pubsub, self.id, self._watchdog)
 
     def get_fair_lock(self, name: str) -> RFairLock:
-        return RFairLock(name, self._executor, self._pubsub, self.id, self._watchdog)
+        return RFairLock(name, self._dispatch, self._pubsub, self.id, self._watchdog)
 
     def get_read_write_lock(self, name: str) -> RReadWriteLock:
-        return RReadWriteLock(name, self._executor, self._pubsub, self.id,
+        return RReadWriteLock(name, self._dispatch, self._pubsub, self.id,
                               self._watchdog)
 
     def get_multi_lock(self, *locks: RLock) -> RMultiLock:
         return RMultiLock(*locks)
 
     def get_semaphore(self, name: str) -> RSemaphore:
-        return RSemaphore(name, self._executor, self._pubsub)
+        return RSemaphore(name, self._dispatch, self._pubsub)
 
     def get_count_down_latch(self, name: str) -> RCountDownLatch:
-        return RCountDownLatch(name, self._executor, self._pubsub)
+        return RCountDownLatch(name, self._dispatch, self._pubsub)
 
     def get_script(self) -> RScript:
         """Atomic scripting: python functions run on the dispatcher over the
         structure engine."""
-        return RScript(self._executor)
+        return RScript(self._dispatch)
 
     # -- bucket batch helpers -----------------------------------------------
 
@@ -342,15 +441,53 @@ class RedissonTorch:
                 self.sketch.notify_restored(n)
         return restored
 
+    # -- memory facade (the MEMORY command family; memstat/) ----------------
+
+    def memory_usage(self, name: str) -> Optional[int]:
+        """MEMORY USAGE: exact device bytes plus metadata overhead for one
+        key, or None when the key does not exist."""
+        return self._memreport.memory_usage(name)
+
+    def memory_stats(self):
+        """MEMORY STATS over the byte ledger."""
+        return self._memreport.memory_stats()
+
+    def memory_doctor(self):
+        """MEMORY DOCTOR: rule-based findings."""
+        return self._memreport.memory_doctor()
+
+    def memory_verify(self):
+        """The ledger invariant: ledger totals against the live tensors'
+        nbytes (zero drift when healthy)."""
+        return self.memstat.verify(self._store, self.sketch)
+
+    def info(self, section: Optional[str] = None):
+        """INFO: dict of section dicts (server, memory, persistence);
+        `section` filters to one block, like INFO MEMORY."""
+        sections = {
+            "server": {"mode": "cuda", "device": str(self.device),
+                       "client_id": str(self.id)},
+            "memory": self._memreport.info_memory(),
+        }
+        if self._persist is not None:
+            sections["persistence"] = self._persist.stats()
+        if section is not None:
+            key = section.lower()
+            if key not in sections:
+                raise ValueError(f"unknown INFO section '{section}'")
+            return {key: sections[key]}
+        return sections
+
     # -- tiers still queued -------------------------------------------------
 
     def get_cluster_nodes_group(self):
-        raise _not_ported("get_cluster_nodes_group", "serve, trace, memstat, "
-                          "observability (observability.py NodesGroup)")
+        """Cluster-scoped health surface; on one device, the same group as
+        `get_nodes_group`."""
+        return self.get_nodes_group()
 
-    def get_nodes_group(self):
-        raise _not_ported("get_nodes_group", "serve, trace, memstat, "
-                          "observability (observability.py NodesGroup)")
+    def get_nodes_group(self) -> NodesGroup:
+        """Nodes / health: ping the client's device (NodesGroup.pingAll)."""
+        return NodesGroup(self)
 
     def get_topology_manager(self, scan_interval_s: float = 1.0,
                              failed_attempts: int = 3):
@@ -368,17 +505,17 @@ class RedissonTorch:
     # -- keyspace -----------------------------------------------------------
 
     def get_keys(self) -> RKeys:
-        return RKeys(self._executor, self._routing)
+        return RKeys(self._dispatch, self._routing)
 
     def keys(self, pattern: str = "*"):
-        return self._executor.execute_sync("", "keys", {"pattern": pattern})
+        return self._dispatch.execute_sync("", "keys", {"pattern": pattern})
 
     def flushall(self) -> None:
         # Through the executor, so it serializes with in-flight ops.
-        self._executor.execute_sync("", "flushall", None)
+        self._dispatch.execute_sync("", "flushall", None)
 
     def delete(self, name: str) -> bool:
-        return self._executor.execute_sync(name, "delete", None)
+        return self._dispatch.execute_sync(name, "delete", None)
 
     # -- state carry-over ---------------------------------------------------
 
@@ -426,7 +563,12 @@ class RedissonTorch:
             self._persist.stop_background()
         self._eviction.shutdown()
         self._watchdog.shutdown()
-        self._executor.shutdown()
+        if self.serve is not None:
+            # The retry timer first (pending retries resolve their outer
+            # futures with CancelledError), then the executor.
+            self.serve.shutdown()
+        else:
+            self._executor.shutdown()
         if self._persist is not None:
             self._persist.close()
             self._persist = None

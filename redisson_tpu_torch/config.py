@@ -3,12 +3,17 @@ single-device sketch engine on a CUDA card.
 
 `Config.use_cuda()` is the builder, like `Config.use_tpu()`: it creates (or
 returns) the `CudaConfig` section, applies any keyword overrides, and
-returns that section. `use_persist(dir)` and `use_faults()` do the same for
-the durability and fault sections (the JAX package's fields and defaults).
+returns that section. `use_persist(dir)`, `use_faults()`, `use_serve()`,
+`use_trace()` and `use_memstat()` do the same for the durability, fault,
+serving, trace and memory sections (the JAX package's fields and
+defaults). `to_dict` / `from_dict` / `to_json` / `from_json` round-trip a
+Config through plain data.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field, fields
 from typing import Any, Dict, List, Optional
 
@@ -90,8 +95,9 @@ class FaultConfig:
     # "nth", "times", "kind", "target"}); empty = no injection.
     plan: List[Dict[str, Any]] = field(default_factory=list)
     seed: int = 0  # documents how a random plan was generated
-    # Run watchdog over the executor's in-flight window (floor deadlines:
-    # no cost model without a serving layer).
+    # Run watchdog over the executor's in-flight window: deadlines of
+    # margin x the serving layer's cost-model estimate (the floor without
+    # a serving layer).
     watchdog: bool = False
     watchdog_margin: float = 8.0
     watchdog_floor_s: float = 2.0
@@ -99,6 +105,70 @@ class FaultConfig:
     # Self-healing rebuild on StateUncertain/DeviceLost retirement; needs
     # Config.persist for host truth, else faulted targets degrade.
     rebuild: bool = True
+
+
+@dataclass
+class ServeConfig:
+    """QoS serving layer (`serve/`) in front of the executor (mirrors
+    `redisson_tpu.config.ServeConfig`): Redisson's `retryAttempts`,
+    `retryInterval` and `timeout`, plus admission and batching knobs."""
+
+    # -- admission ----------------------------------------------------------
+    # Per-tenant token-bucket rate in keys/sec (0 = unlimited); a tenant is
+    # whatever string the caller passes ("" = the default tenant).
+    default_tenant_rate: float = 0.0
+    default_tenant_burst: float = 0.0  # 0 = one second's worth of rate
+    tenant_rates: Dict[str, float] = field(default_factory=dict)
+    tenant_bursts: Dict[str, float] = field(default_factory=dict)
+    # Bounded global queue: shed on depth, or once the cost model's
+    # estimated queueing delay passes the budget (0 = depth only).
+    max_queue_ops: int = 10000
+    max_queue_delay_s: float = 0.0
+    # -- adaptive batching --------------------------------------------------
+    max_linger_s: float = 0.002  # hold a batch open at most this long
+    target_batch_service_s: float = 0.005  # size batches to this service time
+    min_batch_keys: int = 4096
+    # -- deadlines / retry / breaker ----------------------------------------
+    default_timeout_ms: int = 3000  # 0 = no deadline
+    retry_attempts: int = 3  # retries, not tries
+    retry_interval_ms: int = 50  # base backoff
+    breaker_failure_threshold: int = 5
+    breaker_reset_timeout_ms: int = 1000
+    breaker_half_open_probes: int = 1
+
+
+@dataclass
+class TraceConfig:
+    """Trace subsystem (`trace/`): sampled per-op spans, latency
+    histograms, SLOWLOG / MONITOR / LATENCY surfaces and Chrome-trace
+    export (mirrors `redisson_tpu.config.TraceConfig`)."""
+
+    # Sample 1 op in `sample_every` (counter stride seeded by `seed`).
+    sample_every: int = 128
+    seed: int = 0
+    ring: int = 4096  # finished spans kept for chrome_trace()
+    slowlog_threshold_ms: float = 10.0
+    slowlog_max_len: int = 128
+    monitor_queue: int = 1024  # per-subscriber MONITOR queue bound
+    latency_threshold_ms: float = 100.0  # LATENCY HISTORY spike threshold
+    latency_history_len: int = 160
+
+
+@dataclass
+class MemConfig:
+    """Memory watermarks and pressure behaviour (`memstat/`; mirrors
+    `redisson_tpu.config.MemConfig`). The byte ledger is always on; this
+    section configures the pressure gate. high_watermark_bytes == 0
+    disables shedding."""
+
+    high_watermark_bytes: int = 0  # shed growing writes at/above this total
+    # Hysteresis: once shedding, resume only below this (0 = the high mark).
+    low_watermark_bytes: int = 0
+    include_overhead: bool = True  # count cache/scratch/staging meters
+    ewma_halflife_s: float = 30.0  # growth-rate EWMA for the forecast
+    retry_after_s: float = 1.0  # hint on shed RejectedErrors
+    meter_refresh_s: float = 0.05  # meter sampling throttle on admission
+    doctor_watermark_ratio: float = 0.9  # MEMORY DOCTOR near-watermark rule
 
 
 def _apply(section, overrides: dict):
@@ -119,6 +189,9 @@ class Config:
     inflight_runs: int = 2
     persist: Optional[PersistConfig] = None
     faults: Optional[FaultConfig] = None
+    serve: Optional[ServeConfig] = None
+    trace: Optional[TraceConfig] = None
+    memory: Optional[MemConfig] = None
 
     def use_cuda(self, **overrides) -> CudaConfig:
         self.cuda = _apply(self.cuda or CudaConfig(), overrides)
@@ -139,3 +212,57 @@ class Config:
         """The fault section: injection plan, watchdog, rebuild."""
         self.faults = _apply(self.faults or FaultConfig(), overrides)
         return self.faults
+
+    def use_serve(self, **overrides) -> ServeConfig:
+        """The serving section: admission, batching, deadlines, retries,
+        breakers."""
+        self.serve = _apply(self.serve or ServeConfig(), overrides)
+        return self.serve
+
+    def use_trace(self, **overrides) -> TraceConfig:
+        """The trace section: sampling stride, slowlog, latency events."""
+        self.trace = _apply(self.trace or TraceConfig(), overrides)
+        return self.trace
+
+    def use_memstat(self, **overrides) -> MemConfig:
+        """The memory section: the pressure gate's watermarks."""
+        self.memory = _apply(self.memory or MemConfig(), overrides)
+        return self.memory
+
+    # -- (de)serialization --------------------------------------------------
+
+    def to_dict(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {}
+        for f in fields(self):
+            v = getattr(self, f.name)
+            if v is None:
+                continue
+            out[f.name] = dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v
+        return out
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "Config":
+        kwargs: Dict[str, Any] = {}
+        for key, value in d.items():
+            sec = SECTION_TYPES.get(key)
+            if sec is not None:
+                value = dict(value)
+                if "key_width_buckets" in value:
+                    value["key_width_buckets"] = tuple(value["key_width_buckets"])
+                kwargs[key] = sec(**value)
+            else:
+                kwargs[key] = value
+        return cls(**kwargs)
+
+    @classmethod
+    def from_json(cls, text: str) -> "Config":
+        return cls.from_dict(json.loads(text))
+
+
+#: Config attribute -> section type (the dict round trip's schema)
+SECTION_TYPES = {"cuda": CudaConfig, "persist": PersistConfig,
+                 "faults": FaultConfig, "serve": ServeConfig,
+                 "trace": TraceConfig, "memory": MemConfig}

@@ -187,6 +187,30 @@ def hll_add_packed(regs, packed, count: int, impl: str = "scatter",
     return _hll_add(regs, _hll_h1_u64(packed, seed, family), valid, impl)
 
 
+def join_u64(hi, lo) -> torch.Tensor:
+    """The JAX package's (hi, lo) uint32 lanes -> one int64 key tensor."""
+    hi = torch.as_tensor(hi).to(torch.int64) & 0xFFFFFFFF
+    lo = torch.as_tensor(lo).to(torch.int64) & 0xFFFFFFFF
+    return (hi << 32) | lo
+
+
+def hll_add_u64(regs, hi, lo, valid, impl: str = "scatter", seed: int = 0,
+                family: str = "m3"):
+    """PFADD of a padded batch of 64-bit keys given as uint32 (hi, lo)
+    lanes (the 8-byte LE fast path), into `regs` in place."""
+    return _hll_add(regs, _hll_h1_u64(join_u64(hi, lo), seed, family), valid,
+                    impl)
+
+
+def hll_absorb(regs, folded_u8):
+    """Merge a host-folded uint8 sketch into the registers, in place ->
+    (regs, changed)."""
+    f = folded_u8.to(regs.dtype)
+    changed = (f > regs).any()
+    torch.maximum(regs, f, out=regs)
+    return regs, changed
+
+
 def hll_count(regs):
     return hll.count(regs)
 
@@ -282,6 +306,22 @@ def hll_bank_add_packed_rows(bank, packed, rows, count: int, seed: int = 0,
     """Multi-target PFADD: per-key target row (cross-sketch coalesced run)."""
     valid = _valid_prefix(packed.shape[0], count, packed.device)
     return _bank_add(bank, _hll_h1_u64(packed, seed, family), rows, valid)
+
+
+def hll_bank_add_u64(bank, hi, lo, valid, row: int, seed: int = 0,
+                     family: str = "m3", impl: str = "scatter"):
+    """Single-target PFADD of (hi, lo) keys into bank row `row`."""
+    return _bank_add_row(bank, _hll_h1_u64(join_u64(hi, lo), seed, family),
+                         row, valid, impl)
+
+
+def hll_bank_add_u64_rows(bank, hi, lo, rows, valid, seed: int = 0,
+                          family: str = "m3", impl: str = "scatter"):
+    """Multi-target PFADD of (hi, lo) keys (per-key target row); `impl`
+    'segment' takes the segmented kernel's multi-target form, any other
+    the flat scatter."""
+    return _bank_add(bank, _hll_h1_u64(join_u64(hi, lo), seed, family), rows,
+                     valid, impl)
 
 
 def hll_bank_add_bytes(bank, data, lengths, valid, row: int, seed: int = 0,

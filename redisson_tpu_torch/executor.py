@@ -17,8 +17,22 @@ Dispatch model:
     predecessor run holds its gate; backends that commit all observable
     state inside `run()` (`DISPATCH_TIME_STATE`) release the gate when
     `run()` returns, so only the window bounds their depth;
-  * ops may carry an absolute `deadline`; expired ops fail with
-    `DeadlineExceeded` before dispatch;
+  * batching decisions are delegated to a policy object: the default
+    `GreedyBatchPolicy` drains up to the key cap and never waits; the
+    serving layer installs `serve.policy.AdaptiveBatchPolicy`, which sizes
+    batches from an online cost model and holds a batch open up to
+    min(deadline slack, max_linger). The cost model is fed when a run's
+    results have landed (`_run_completed`, on the backend's completer after
+    its event wait), never from the dispatcher's return, which on a card
+    is only the staging time;
+  * ops may carry an absolute `deadline` and a `tenant`; expired ops fail
+    with `DeadlineExceeded` before dispatch;
+  * with a trace manager attached (`set_trace`), sampled ops carry a span
+    stamped along admitted -> queued -> dispatched -> journaled -> staged
+    -> completed, and each run that carries one gets a run span;
+  * with `ExecutorMetrics` attached, per-kind op counts, batch sizes,
+    completion latency, staging time and queue delay are recorded, and
+    the in-flight payload bytes feed the memstat staging meter;
   * with a write-ahead journal attached (`set_journal`), each run's
     mutating ops are appended on the dispatcher before `backend.run`, so an
     acknowledged op is always journaled and journal order is apply order;
@@ -40,8 +54,7 @@ RBatch: `execute_many` enqueues a staged pipeline under one lock
 acquisition; `BatchCollector` / `StagedFuture` collect, dispatch and return
 results in staging order.
 
-Tracing, metrics, the serving layer's policies and the contract witness
-arrive with their own slices.
+The contract witness and the mesh shard tag arrive with their slices.
 """
 
 from __future__ import annotations
@@ -104,14 +117,71 @@ class Op:
     future: Future = field(default_factory=Future)
     index: int = field(default_factory=lambda: next(_op_counter))
     nkeys: int = 0  # key lanes this op contributes
+    tenant: str = ""  # admission identity ("" = the default tenant)
     deadline: Optional[float] = None  # absolute executor-clock time
+    enqueued_at: float = 0.0  # executor-clock enqueue time (queue delay)
+    # Sampled trace span (trace/spans.py) or None (the unsampled majority:
+    # every stamp guards on it, so disabled tracing costs one read).
+    span: Any = None
+
+
+_UNMETERED = frozenset({type(None), bool, int, float, str, bytes, tuple, list})
+
+
+def _op_payload_nbytes(op: Op) -> int:
+    """Payload byte size for the staging meter: arrays and tensors report
+    nbytes (metadata, no sync); dict payloads sum their array members;
+    anything else (scalars, callables) is uncounted."""
+    p = op.payload
+    if type(p) in _UNMETERED:  # the structure tier's scalar payloads
+        return 0
+    nb = getattr(p, "nbytes", None)
+    if nb is not None:
+        try:
+            return int(nb)
+        except (TypeError, ValueError):
+            return 0
+    if isinstance(p, dict):
+        total = 0
+        for v in p.values():
+            if type(v) in _UNMETERED:
+                continue
+            vnb = getattr(v, "nbytes", None)
+            if vnb is not None:
+                try:
+                    total += int(vnb)
+                except (TypeError, ValueError):
+                    pass
+        return total
+    return 0
+
+
+class GreedyBatchPolicy:
+    """The default dispatch behaviour as a policy object: drain whatever is
+    queued up to the key cap, never hold a batch open. The serving layer
+    swaps in `serve.policy.AdaptiveBatchPolicy`."""
+
+    def batch_key_limit(self, kind: str, default_cap: int) -> int:
+        return default_cap
+
+    def linger_s(self, kind: str, keys: int, cap: int,
+                 run: Sequence[Op], now: float) -> float:
+        return 0.0
+
+    def observe(self, kind: str, nkeys: int, seconds: float) -> None:
+        pass
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {"policy": "greedy"}
 
 
 class _InflightRun:
     """One dispatched run, alive until its last op future resolves."""
 
-    __slots__ = ("kind", "target", "targets", "is_global", "nkeys", "t0",
-                 "pending", "gates_held", "lock", "ops", "fault_exc")
+    __slots__ = ("kind", "target", "targets", "is_global", "nops", "nkeys",
+                 "t0", "queue_delay_s", "stage_s", "pending", "failed",
+                 "op_failed", "overlapped", "depth", "gates_held", "lock",
+                 "ops", "fault_exc", "run_span", "staged_bytes")
 
     def __init__(self, kind: str, target: str, targets: frozenset,
                  is_global: bool):
@@ -119,13 +189,22 @@ class _InflightRun:
         self.target = target
         self.targets = targets
         self.is_global = is_global
+        self.nops = 0
         self.nkeys = 0
         self.t0 = 0.0  # executor-clock dispatch time (the watchdog's age)
+        self.queue_delay_s = 0.0
+        self.stage_s = None
         self.pending = 0
+        self.failed = False  # staging (journal / backend.run) raised
+        self.op_failed = False  # some op future resolved with an error
+        self.overlapped = False
+        self.depth = 1
         self.gates_held = True
         self.lock = make_lock("executor._InflightRun.lock")
         self.ops: Sequence[Op] = ()  # live ops (watchdog trip)
         self.fault_exc = None  # first StateUncertainFault among the ops
+        self.run_span = None  # parent trace span of this run
+        self.staged_bytes = 0  # payload bytes charged to the staging meter
 
 
 class CommandExecutor:
@@ -135,10 +214,17 @@ class CommandExecutor:
     completing each op's future (inline or later, from another thread).
     """
 
-    def __init__(self, backend, max_batch_keys: int = 1 << 21,
-                 clock: Callable[[], float] = None, inflight_runs: int = 2):
+    def __init__(self, backend, max_batch_keys: int = 1 << 21, metrics=None,
+                 policy=None, clock: Callable[[], float] = None,
+                 inflight_runs: int = 2, trace=None):
         self._backend = backend
+        # TraceManager or None; it must share this executor's clock, so
+        # span stamps and deadlines live on one timeline.
+        self._trace = trace
         self._max_batch_keys = max_batch_keys
+        self._metrics = metrics  # ExecutorMetrics or None
+        self._policy = policy or GreedyBatchPolicy()
+        self._observe_dispatch = getattr(self._policy, "observe_dispatch", None)
         self._clock = clock or time.monotonic
         self._global_kinds = frozenset(getattr(backend, "GLOBAL_COALESCE", ()))
         # Kinds that share one gate and steal group (the delta window mixes
@@ -149,6 +235,9 @@ class CommandExecutor:
         self._inflight: set = set()  # _InflightRun tokens
         self._inflight_targets: set = set()  # gated object names
         self._inflight_kinds: set = set()  # gated GLOBAL_COALESCE kinds
+        self._staging_bytes = 0  # in-flight payload bytes (memstat meter)
+        self._runs_completed = 0
+        self._runs_overlapped = 0
         self._lock = make_lock("executor.CommandExecutor._lock")
         self._cv = make_condition("executor.CommandExecutor._lock", self._lock)
         self._queues: Dict[str, deque] = {}
@@ -174,9 +263,26 @@ class CommandExecutor:
         return self._backend
 
     @property
+    def policy(self):
+        """The live batch policy (greedy unless the serving layer installed
+        an adaptive one)."""
+        return self._policy
+
+    @property
     def journal(self):
         """The attached write-ahead journal, or None (journaling off)."""
         return self._journal
+
+    @property
+    def trace(self):
+        """The attached TraceManager, or None (tracing off)."""
+        return self._trace
+
+    def set_trace(self, trace) -> None:
+        """Attach/detach the trace manager; ordered with enqueue so no op
+        is half-stamped across the switch."""
+        with self._cv:
+            self._trace = trace
 
     def set_journal(self, journal) -> None:
         """Attach/detach the write-ahead journal. The persistence manager
@@ -189,24 +295,34 @@ class CommandExecutor:
     # -- submission ---------------------------------------------------------
 
     def execute_async(self, target: str, kind: str, payload: Any,
-                      nkeys: int = 0,
+                      nkeys: int = 0, tenant: str = "",
                       deadline: Optional[float] = None) -> Future:
         op = Op(target=target, kind=kind, payload=payload, nkeys=nkeys,
-                deadline=deadline)
+                tenant=tenant, deadline=deadline)
         with self._cv:
             self._enqueue_locked(op)
             self._cv.notify()
         return op.future
 
     def execute_many(self, staged: Sequence[Tuple[str, str, Any, int]],
-                     deadline: Optional[float] = None) -> List[Future]:
+                     tenant: str = "", deadline: Optional[float] = None,
+                     admitted_ats: Optional[Sequence[float]] = None
+                     ) -> List[Future]:
         """Enqueue a pre-staged op list under one lock acquisition (the
         RBatch dispatch path): per-target FIFO order follows list order,
-        and the whole batch shares one deadline."""
-        ops = [Op(target=t, kind=k, payload=p, nkeys=n, deadline=deadline)
-               for (t, k, p, n) in staged]
+        and the whole batch shares one tenant and deadline. `admitted_ats`
+        (parallel to `staged`) carries upstream admission stamps into the
+        tracer's same-thread handoff."""
+        ops = [Op(target=t, kind=k, payload=p, nkeys=n, tenant=tenant,
+                  deadline=deadline) for (t, k, p, n) in staged]
+        trace = self._trace
+        annotate = (trace.tracer.annotate_next
+                    if trace is not None and admitted_ats is not None
+                    else None)
         with self._cv:
-            for op in ops:
+            for i, op in enumerate(ops):
+                if annotate is not None and op.kind != BARRIER_KIND:
+                    annotate(admitted_at=admitted_ats[i])
                 self._enqueue_locked(op)
             self._cv.notify()
         return [op.future for op in ops]
@@ -230,6 +346,12 @@ class CommandExecutor:
             q = self._queues[op.target] = deque()
         if not q:
             self._ready.append(op.target)
+        op.enqueued_at = self._clock()
+        trace = self._trace
+        if trace is not None and op.kind != BARRIER_KIND:
+            # Sampling decision + the "queued" stamp; None for the
+            # unsampled majority.
+            op.span = trace.begin_op(op.kind, op.target, op.tenant, op.nkeys)
         q.append(op)
 
     def execute_sync(self, target: str, kind: str, payload: Any,
@@ -308,23 +430,38 @@ class CommandExecutor:
         is_global = kind in self._global_kinds
         targets = frozenset({op.target for op in run} | {target})
         token = _InflightRun(kind, target, targets, is_global)
+        token.overlapped = bool(self._inflight)
         self._inflight.add(token)
+        token.depth = len(self._inflight)
         self._inflight_targets |= targets
         if is_global:
             self._inflight_kinds.add(self._group_of(kind))
         return token
 
     def _collect_run_locked(self, target: str) -> Tuple[str, str, List[Op]]:
-        """Pop the next run: per-target coalesce up to the key cap, then the
-        cross-target steal for global kinds."""
+        """Pop the next run: per-target coalesce up to the policy's key cap
+        (with its linger), then the cross-target steal for global kinds."""
         q = self._queues[target]
         run = [q.popleft()]
         kind = run[0].kind
-        cap = max(run[0].nkeys, self._max_batch_keys)
+        cap = min(self._max_batch_keys,
+                  max(run[0].nkeys, int(self._policy.batch_key_limit(
+                      kind, self._max_batch_keys))))
         keys = run[0].nkeys
         if kind in COALESCABLE:
             keys = self._drain_same_kind(q, kind, run, keys, cap)
+            # Adaptive linger: the policy may hold the batch open for late
+            # arrivals. cv.wait releases the lock, so submitters keep
+            # appending; every wake re-drains. Greedy returns 0.0.
+            while not self._shutdown and keys < cap:
+                wait_s = self._policy.linger_s(kind, keys, cap, run,
+                                               self._clock())
+                if wait_s <= 0.0:
+                    break
+                self._cv.wait(wait_s)
+                keys = self._drain_same_kind(q, kind, run, keys, cap)
         if kind in self._global_kinds:
+            keys = sum(op.nkeys for op in run)
             # Steal the heads of other targets in the same group. Mutate
             # _ready/_queues only after the scan: removing entries while
             # walking the round-robin drops targets.
@@ -343,12 +480,20 @@ class CommandExecutor:
                        and keys + oq[0].nkeys <= cap):
                     op = oq.popleft()
                     keys += op.nkeys
+                    if op.span is not None:
+                        op.span.event("stolen")
                     run.append(op)
                 if not oq:
                     emptied.append(other)
             for other in emptied:
                 self._ready.remove(other)
                 del self._queues[other]
+        # A linger wait releases the lock, so a submitter that found the
+        # drained queue empty re-added `target` to the round-robin, maybe
+        # more than once: strip every copy, then re-add one iff work
+        # remains.
+        while target in self._ready:
+            self._ready.remove(target)
         if q:
             self._ready.append(target)
         else:
@@ -367,21 +512,32 @@ class CommandExecutor:
     def _dispatch(self, token: _InflightRun, run: List[Op]) -> None:
         """Stage one run: deadline-filter, call backend.run (non-blocking
         for device backends), and let completion callbacks retire it."""
+        m = self._metrics
+        kind, target = token.kind, token.target
         now = self._clock()
         live: List[Op] = []
+        n_expired = 0
         for op in run:
             if op.deadline is not None and op.deadline <= now:
+                n_expired += 1
                 if not op.future.done():
                     op.future.set_exception(DeadlineExceeded(
-                        f"op {token.kind}@{op.target or token.target}: "
+                        f"op {kind}@{op.target or target}: "
                         f"deadline passed {now - op.deadline:.6f}s before "
                         "dispatch"))
+                if op.span is not None:
+                    # No done-callback is armed for an expired op: finish
+                    # its span here.
+                    op.span.event("expired", now)
+                    op.span.finish(error="DeadlineExceeded")
             else:
                 live.append(op)
+        if n_expired and m:
+            m.record_expired(kind, n_expired)
         if not live:
-            self._retire(token)
+            self._retire(token, completed=False)
             return
-        if token.kind == BARRIER_KIND:
+        if kind == BARRIER_KIND:
             for op in live:
                 try:
                     op.future.set_result(op.payload())
@@ -389,22 +545,50 @@ class CommandExecutor:
                     # Barrier callables (snapshot cuts, state swaps) can
                     # fail on device/IO errors too: classify them.
                     op.future.set_exception(classify(exc, seam="snapshot_io"))
-            self._retire(token)
+            self._retire(token, completed=False)
             return
         token.ops = live
-        token.nkeys = sum(op.nkeys for op in live)
-        token.t0 = self._clock()
-        token.pending = len(live)
+        token.nops = len(live)
+        # One pass over the ops: keys, the staging meter's bytes (memstat:
+        # payload bytes held while this run is in flight, released at
+        # retire; nbytes is metadata, no device sync), the oldest enqueue
+        # and the sampled spans riding this run (usually none; the run span
+        # links them to the run they shared).
+        nkeys = staged = 0
+        oldest = live[0].enqueued_at
+        spans = []
+        for op in live:
+            nkeys += op.nkeys
+            staged += _op_payload_nbytes(op)
+            if op.enqueued_at < oldest:
+                oldest = op.enqueued_at
+            if op.span is not None:
+                spans.append(op.span)
+        token.nkeys = nkeys
         with self._cv:
             self._runs_dispatched += 1
-        parked = token.kind in PARKED_KINDS
+            if staged:
+                token.staged_bytes = staged
+                self._staging_bytes += staged
+        t0 = token.t0 = self._clock()
+        token.queue_delay_s = t0 - oldest
+        token.pending = len(live)
+        if spans and self._trace is not None:
+            run_span = token.run_span = self._trace.begin_run(
+                kind, target, len(live), token.nkeys)
+            for s in spans:
+                s.run_id = run_span.span_id
+                s.event("dispatched", t0)
+        parked = kind in PARKED_KINDS
         if not parked:
             # Arm completion accounting before the backend sees the ops: a
             # synchronous backend resolves futures inside run(). Parked
-            # kinds skip it: a later op completes them.
+            # kinds skip it: a later op completes them, and their wait time
+            # must feed neither the window nor the cost model.
             for op in live:
                 op.future.add_done_callback(
-                    lambda fut, token=token: self._op_done(token, fut))
+                    lambda fut, token=token, op=op: self._op_done(
+                        token, fut, op))
         journal = self._journal
         if journal is not None and not parked:
             # Write-ahead: the record reaches the journal before the backend
@@ -413,19 +597,49 @@ class CommandExecutor:
             # "always" policy more dispatch is queued, so one fsync covers
             # the in-flight window.
             try:
-                journal.append_run(token.kind, live, defer=self.has_ready())
+                journal.append_run(kind, live, defer=self.has_ready())
+                if spans:
+                    t_j = self._clock()
+                    for s in spans:
+                        s.event("journaled", t_j)
+                    if token.run_span is not None:
+                        token.run_span.event("journaled", t_j)
             except Exception as exc:  # noqa: BLE001 — fail the run unapplied
                 # Applying an unjournaled mutation would break the recovery
                 # contract; nothing has committed, so the fault is retryable.
                 exc = classify(exc, seam="journal_fsync")
+                token.failed = True
+                if m:
+                    m.record_error(kind)
+                for s in spans:
+                    # Annotate before the futures resolve: the done-callback
+                    # finishes the span and the slowlog entry must carry
+                    # the seam.
+                    s.annotate(fault=type(exc).__name__,
+                               seam=getattr(exc, "seam", "journal_fsync"))
                 for op in live:
                     if not op.future.done():
                         op.future.set_exception(exc)
                 return
         try:
-            fault_inject.fire("kernel_launch", kind=token.kind,
-                              target=token.target)
-            self._backend.run(token.kind, token.target, live)
+            fault_inject.fire("kernel_launch", kind=kind, target=target)
+            self._backend.run(kind, target, live)
+            t_staged = self._clock()
+            token.stage_s = t_staged - t0
+            if spans:
+                # A synchronous backend resolves futures inside run(): such
+                # spans are already finished and keep run() in their device
+                # stage.
+                for s in spans:
+                    if s.t1 is None:
+                        s.event("staged", t_staged)
+                if token.run_span is not None:
+                    token.run_span.event("staged", t_staged)
+            od = self._observe_dispatch
+            if od is not None:
+                # Staging time only (host prep + launches), never service
+                # time: the cost model's service EWMA feeds from completion.
+                od(kind, token.nkeys, token.stage_s)
             if self._eager_release and not parked:
                 self._release_gates(token)
         except Exception as exc:  # complete, never kill the loop
@@ -434,29 +648,75 @@ class CommandExecutor:
             # between retryable (nothing committed) and uncertain (the
             # rebuild path re-materializes; _op_done notes it).
             exc = classify(exc, seam="kernel_launch")
+            token.failed = True
+            token.stage_s = self._clock() - t0
+            if m:
+                m.record_error(kind)
+            for s in spans:
+                if s.t1 is None:
+                    s.annotate(fault=type(exc).__name__,
+                               seam=getattr(exc, "seam", "kernel_launch"))
             for op in live:
                 if not op.future.done():
                     op.future.set_exception(exc)
         if parked:
             # The waiter is parked (or was served inline): drop the gates
             # and the window slot now, so the op that fulfils it can
-            # dispatch against this same target.
-            self._retire(token)
+            # dispatch against this same target. Its span closes at park.
+            for s in spans:
+                if s.t1 is None:
+                    s.annotate(parked=True)
+                    s.finish()
+            self._retire(token, completed=False)
 
     # -- completion path ----------------------------------------------------
 
-    def _op_done(self, token: _InflightRun, fut: Future) -> None:
+    def _op_done(self, token: _InflightRun, fut: Future,
+                 op: Optional[Op] = None) -> None:
+        """Done-callback of each live op future; runs on the thread that
+        resolves it (the backend's completer, or the dispatcher for a
+        synchronous backend)."""
         exc = None if fut.cancelled() else fut.exception()
+        if op is not None and op.span is not None and op.span.t1 is None:
+            span = op.span
+            span.event("completed")
+            err = None
+            if exc is not None:
+                err = type(exc).__name__
+                seam = getattr(exc, "seam", None)
+                if seam is not None:
+                    span.annotations.setdefault("seam", seam)
+            span.finish(error=err)
         with token.lock:
-            if token.fault_exc is None and isinstance(exc, StateUncertainFault):
-                # State-uncertain retirement (device loss, a watchdog trip,
-                # a failed readback): the run's targets go to the rebuild
-                # listener once the run retires.
-                token.fault_exc = exc
+            if exc is not None:
+                token.op_failed = True
+                if (token.fault_exc is None
+                        and isinstance(exc, StateUncertainFault)):
+                    # State-uncertain retirement (device loss, a watchdog
+                    # trip, a failed readback): the run's targets go to the
+                    # rebuild listener once the run retires.
+                    token.fault_exc = exc
             token.pending -= 1
             if token.pending > 0:
                 return
-        self._retire(token)
+        self._run_completed(token)
+
+    def _run_completed(self, token: _InflightRun) -> None:
+        """The run's results have landed (on a card, after the completer's
+        event wait): service time is observable here, so the cost model and
+        the latency metrics feed from this point, never from the
+        dispatcher's return."""
+        dt = self._clock() - token.t0
+        if token.op_failed and not token.failed and self._metrics:
+            self._metrics.record_error(token.kind)
+        if not token.failed:
+            self._policy.observe(token.kind, token.nkeys, dt)
+            if self._metrics:
+                self._metrics.record_batch(
+                    token.kind, token.nops, token.nkeys, dt,
+                    queue_delay_s=token.queue_delay_s,
+                    cap=self._max_batch_keys, stage_s=token.stage_s)
+        self._retire(token, completed=True)
         listener = self.fault_listener
         if listener is not None and token.fault_exc is not None:
             try:
@@ -479,11 +739,50 @@ class CommandExecutor:
             self._release_gates_locked(token)
             self._cv.notify_all()
 
-    def _retire(self, token: _InflightRun) -> None:
+    def _retire(self, token: _InflightRun, completed: bool) -> None:
+        run_span = token.run_span
+        if run_span is not None:
+            token.run_span = None
+            run_span.event("completed")
+            run_span.finish(error=type(token.fault_exc).__name__
+                            if token.fault_exc is not None else None)
         with self._cv:
             self._release_gates_locked(token)
             self._inflight.discard(token)
+            self._staging_bytes -= token.staged_bytes
+            token.staged_bytes = 0
+            if completed:
+                self._runs_completed += 1
+                if token.overlapped:
+                    self._runs_overlapped += 1
             self._cv.notify_all()
+        if completed and self._metrics:
+            self._metrics.record_run(token.depth, token.overlapped)
+
+    def pipeline_stats(self) -> Dict[str, Any]:
+        """Live pipeline counters; overlap_ratio is the share of completed
+        runs dispatched while another run was still in flight."""
+        with self._lock:
+            done = self._runs_completed
+            return {
+                "window": self._window,
+                "eager_release": self._eager_release,
+                "inflight": len(self._inflight),
+                "runs_completed": done,
+                "runs_overlapped": self._runs_overlapped,
+                "overlap_ratio": (self._runs_overlapped / done) if done else 0.0,
+                "staging_bytes": self._staging_bytes,
+            }
+
+    def staging_bytes(self) -> int:
+        """In-flight payload bytes (the memstat 'staging' meter)."""
+        with self._lock:
+            return self._staging_bytes
+
+    def is_alive(self) -> bool:
+        """True while the dispatcher thread runs and shutdown has not
+        begun (racy by one probe round at most)."""
+        return not self._shutdown and self._thread.is_alive()
 
     # -- fault-subsystem surface -------------------------------------------
 
@@ -524,6 +823,9 @@ class CommandExecutor:
         for op in swept:
             if not op.future.done():
                 op.future.set_exception(exc_factory(op))
+            if op.span is not None and op.span.t1 is None:
+                op.span.annotate(swept=True)
+                op.span.finish(error="swept")
         return len(swept)
 
     def _cancel_remaining(self) -> None:
@@ -531,9 +833,15 @@ class CommandExecutor:
             pending = [op for q in self._queues.values() for op in q]
             self._queues.clear()
             self._ready.clear()
+        cancelled = 0
         for op in pending:
             if op.future.cancel():
                 op.future.set_running_or_notify_cancel()
+                cancelled += 1
+            if op.span is not None and op.span.t1 is None:
+                op.span.finish(error="CancelledError")
+        if cancelled and self._metrics:
+            self._metrics.record_cancelled(cancelled)
 
     def shutdown(self, wait: bool = True, timeout: float = 30.0):
         with self._cv:

@@ -2,17 +2,19 @@
 of `redisson_tpu.fault.manager`).
 
 Config.use_faults() -> the client constructs a FaultManager after the
-executor and persistence are up (the rebuild path needs both), and tears it
-down first in shutdown (the watchdog and rebuild threads must stop before
-the executor they poll does). The port has no serving layer yet: no breaker
-board and no cost model, so watchdog deadlines are the floor.
+executor, the serving layer and persistence are up (the rebuild path needs
+all three), and tears it down first in shutdown (the watchdog and rebuild
+threads must stop before the executor they poll does). With a serving
+layer, the watchdog's deadlines come from its cost model and both the
+watchdog and the rebuild drive its breaker board; without one, deadlines
+are the floor and there is no board.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict, Optional
 
-from redisson_tpu_torch.fault import inject
+from redisson_tpu_torch.fault import inject, taxonomy
 from redisson_tpu_torch.fault.inject import FaultInjector, FaultPlan
 from redisson_tpu_torch.fault.rebuild import RebuildCoordinator
 from redisson_tpu_torch.fault.watchdog import RunWatchdog
@@ -31,25 +33,33 @@ class FaultManager:
         client = self._client
         cfg = self.cfg
         executor = client._executor
+        serve = getattr(client, "serve", None)
+        breakers = getattr(serve, "_breakers", None) if serve else None
         if cfg.plan:
             self.injector = FaultInjector(
                 FaultPlan.from_dicts(cfg.plan, seed=cfg.seed))
             inject.install(self.injector)
         if cfg.rebuild:
-            self.rebuild = RebuildCoordinator(client)
+            self.rebuild = RebuildCoordinator(client, breakers=breakers)
             executor.fault_guard = self.rebuild.guard
         executor.fault_listener = self._on_fault
         if cfg.watchdog:
+            cost_model = getattr(serve, "cost_model", None) if serve else None
+            estimate = cost_model.estimate if cost_model is not None else None
             self.watchdog = RunWatchdog(
                 executor,
-                estimate=None,
+                estimate=estimate,
                 margin=cfg.watchdog_margin,
                 floor_s=cfg.watchdog_floor_s,
                 poll_s=cfg.watchdog_poll_s,
                 on_trip=self._on_fault,
+                breakers=breakers,
             )
             self.watchdog.start()
         self._started = True
+        from redisson_tpu_torch.observability import register_fault
+
+        register_fault(client.metrics, self)
 
     def _on_fault(self, kind, targets, exc) -> None:
         if self.rebuild is not None:
@@ -72,3 +82,13 @@ class FaultManager:
             executor.fault_guard = None
         if self.injector is not None and inject.installed() is self.injector:
             inject.uninstall()
+
+    def snapshot(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {"taxonomy": taxonomy.stats()}
+        if self.injector is not None:
+            out["injector"] = self.injector.snapshot()
+        if self.watchdog is not None:
+            out["watchdog"] = self.watchdog.snapshot()
+        if self.rebuild is not None:
+            out["rebuild"] = self.rebuild.snapshot()
+        return out

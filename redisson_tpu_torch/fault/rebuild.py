@@ -33,8 +33,8 @@ directory with `PersistConfig.auto_recover` (the default) loads the newest
 snapshot and replays the journal suffix on a fresh context. Injected
 faults and transient errors leave the context whole and rebuild in place.
 
-There is no serving layer in the port yet, so the client passes
-`breakers=None`.
+With a serving layer the client passes its breaker board (forced open at
+quarantine, force-closed after a rebuild); without one, `breakers=None`.
 
 Replayed ops DO re-journal (the journal hook stays attached for
 concurrent live traffic to healthy targets); the rebuild ends with a

@@ -7,9 +7,11 @@ stuck on an event) would hold its target gates forever and quietly stall
 every op queued behind it. This watchdog closes that hole:
 
   * every in-flight run gets a deadline `max(floor_s, margin *
-    estimate(kind, nkeys))`. The port has no serving layer yet and so no
-    cost model: the client passes `estimate=None`, and every deadline is
-    the floor;
+    estimate(kind, nkeys))`, the estimate from the serving layer's cost
+    model (learned at completion); the margin (default 8x the
+    mean-tracking EWMA) stands in for a p99 bound and the floor keeps
+    cold-start estimates from tripping at once. Without a serving layer
+    `estimate` is None and every deadline is the floor;
   * a run past its deadline is *tripped*: its still-pending futures
     complete with `StateUncertainFault` (the run may have committed —
     blind retry is unsafe), which retires the run through the normal

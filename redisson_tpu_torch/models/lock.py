@@ -70,6 +70,7 @@ class LockWatchdog:
         self._cv = threading.Condition()
         self._thread: Optional[threading.Thread] = None
         self._shutdown = False
+        self._renewing: Optional[Tuple[str, str]] = None  # renewal in flight
 
     def register(self, name: str, owner: str) -> None:
         with self._cv:
@@ -82,8 +83,13 @@ class LockWatchdog:
             self._cv.notify()
 
     def unregister(self, name: str, owner: str) -> None:
+        """Drop the entry; if its renewal is in flight, wait for it to land,
+        so no renewal of the entry follows the return."""
+        key = (name, owner)
         with self._cv:
-            self._entries.pop((name, owner), None)
+            self._entries.pop(key, None)
+            while self._renewing == key:
+                self._cv.wait()
 
     def shutdown(self) -> None:
         with self._cv:
@@ -99,15 +105,22 @@ class LockWatchdog:
                 if self._shutdown:
                     return
                 entries = list(self._entries)
-            for name, owner in entries:
+            for key in entries:
+                with self._cv:
+                    if key not in self._entries:  # unregistered since
+                        continue
+                    self._renewing = key
                 try:
                     ok = self._executor.execute_sync(
-                        name, "lock_renew", {"owner": owner, "lease_ms": int(self.lease_s * 1000)}
+                        key[0], "lock_renew", {"owner": key[1], "lease_ms": int(self.lease_s * 1000)}
                     )
                 except Exception:
                     ok = False
-                if not ok:
-                    self.unregister(name, owner)
+                with self._cv:
+                    self._renewing = None
+                    if not ok:
+                        self._entries.pop(key, None)
+                    self._cv.notify_all()
 
 
 class RLock:
@@ -148,6 +161,13 @@ class RLock:
         the wait budget + slack so an abandoned waiter never wedges the
         queue)."""
         effective = DEFAULT_LEASE_S if lease_s is None else lease_s
+        if lease_s is not None:
+            # An explicit lease is never renewed. A registration left by an
+            # earlier hold of this name and owner (the key flushed or
+            # force-unlocked before the watchdog noticed) would otherwise
+            # stretch this lease to the watchdog's 30 s: drop it before the
+            # lease is set, so no renewal can land after it.
+            self._watchdog.unregister(self.name, self._owner())
         ttl = self._executor.execute_sync(
             self.name,
             "lock_try",

@@ -43,6 +43,16 @@ def clear_bits(bits: torch.Tensor, idx: torch.Tensor):
     return new, old
 
 
+def flip_bits(bits: torch.Tensor, idx: torch.Tensor):
+    """Flip each indexed bit -> (new_bits, old_values). `old` is gathered
+    before the scatter, so duplicate indexes in one batch all write the same
+    flipped value: one flip per unique index."""
+    old = bits[idx]
+    new = bits.clone()
+    new[idx] = 1 - old
+    return new, old
+
+
 def set_range(bits: torch.Tensor, start: int, end: int, value: bool) -> torch.Tensor:
     """Set [start, end) to `value` in one select (not one op per bit)."""
     pos = torch.arange(bits.shape[0], dtype=torch.int64, device=bits.device)
@@ -102,6 +112,33 @@ def combine_length(partials) -> int:
 def length(bits: torch.Tensor) -> int:
     """Index of the highest set bit + 1 (0 if empty)."""
     return combine_length(length_partials(bits))
+
+
+def bitpos_partials(bits: torch.Tensor, value: int) -> torch.Tensor:
+    """Per-chunk first index holding `value` as int32 local offsets; -1
+    where the chunk has no match. Pad cells hold the complement of `value`,
+    so the pad never gives a false hit (scanning for 0)."""
+    match = _chunks(bits, fill=0 if value else 1) == (1 if value else 0)
+    idx = match.to(torch.uint8).argmax(dim=1).to(torch.int32)
+    return torch.where(match.any(dim=1), idx, -1)
+
+
+def combine_bitpos(partials) -> int:
+    """64-bit exact host combine: the first chunk with a hit wins."""
+    if isinstance(partials, torch.Tensor):
+        partials = partials.cpu().numpy()
+    p = np.asarray(partials)
+    hit = np.flatnonzero(p >= 0)
+    if hit.size == 0:
+        return -1
+    g = int(hit[0])
+    return g * _CARD_CHUNK + int(p[g])
+
+
+def bitpos(bits: torch.Tensor, value: int) -> int:
+    """First index holding `value` (0/1), -1 if none (Redis BITPOS); a
+    python int, exact past 2^31."""
+    return combine_bitpos(bitpos_partials(bits, value))
 
 
 def bitop_and(a, b):

@@ -82,6 +82,14 @@ def contains(bits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 BLOCK_BITS = 512
 
 
+def count_estimate(bit_count, size: int, hash_iterations: int) -> torch.Tensor:
+    """Estimated cardinality from BITCOUNT: -m/k * ln(1 - X/m), in float32
+    as the JAX package computes it."""
+    x = torch.as_tensor(bit_count, dtype=torch.float32)
+    frac = torch.clamp(x / size, 0.0, 1.0 - 1e-7)
+    return -(size / hash_iterations) * torch.log1p(-frac)
+
+
 def blocked_geometry(m: int) -> int:
     """Round a sizing-formula bit count up to whole blocks."""
     return ((m + BLOCK_BITS - 1) // BLOCK_BITS) * BLOCK_BITS

@@ -10,8 +10,8 @@ select, and the tail is gathered at each key's block end, where zero padding
 makes the canonical tail switch an unconditional mix.
 
 The Bloom filter hashes with the two murmur3 x64 128 halves, as the JAX
-package does. `xxhash64` (`redisson_tpu/ops/hashing.py`) is still to port;
-ROADMAP.md lists it.
+package does; `xxhash64` and the 4-byte murmur3 fast path complete the
+module.
 """
 
 from __future__ import annotations
@@ -23,6 +23,13 @@ from redisson_tpu_torch.ops import u64 as u
 # MurmurHash3 x64 128 constants.
 _C1 = 0x87C37B91114253D5
 _C2 = 0x4CF5AD432745937F
+
+# xxHash64 primes.
+_P1 = 0x9E3779B185EBCA87
+_P2 = 0xC2B2AE3D27D4EB4F
+_P3 = 0x165667B19E3779F9
+_P4 = 0x85EBCA77C2B2AE63
+_P5 = 0x27D4EB2F165667C5
 
 # MurmurHash64A (Redis's HLL hash, hyperloglog.c hllPatLen).
 REDIS_HLL_SEED = 0xADC83B19
@@ -36,6 +43,12 @@ def _le64(b: torch.Tensor) -> torch.Tensor:
     for i in range(1, 8):
         out = out | (b[..., i] << (8 * i))
     return out
+
+
+def _le32(b: torch.Tensor) -> torch.Tensor:
+    """[..., 4] uint8 -> int64 holding the little-endian uint32."""
+    b = b.to(torch.int64)
+    return b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)
 
 
 def _masked_buffer(data: torch.Tensor, lengths: torch.Tensor, block: int):
@@ -117,6 +130,17 @@ def murmur3_x64_128_u64(x: torch.Tensor, seed: int = 0):
     return _mm_final(h1, h2, lengths)
 
 
+def murmur3_x64_128_u32(x: torch.Tensor, seed: int = 0):
+    """MurmurHash3 x64 128 of each key's 4-byte little-endian encoding
+    (`x` holds uint32 values in any integer dtype)."""
+    k = x.to(torch.int64) & 0xFFFFFFFF
+    h1 = u.full(k.shape, seed, k.device)
+    h2 = u.full(k.shape, seed, k.device)
+    h1 = h1 ^ _mm_mix_k1(k)
+    lengths = torch.full(k.shape, 4, dtype=torch.int64, device=k.device)
+    return _mm_final(h1, h2, lengths)
+
+
 def _m64a_mix(k: torch.Tensor) -> torch.Tensor:
     k = u.mul(k, _M64A)
     k = k ^ u.shr(k, 47)
@@ -156,3 +180,68 @@ def murmur2_64a_u64(x: torch.Tensor, seed: int = REDIS_HLL_SEED) -> torch.Tensor
     h0 = (seed ^ (8 * _M64A)) & u.MASK64
     h = u.mul(u.full(x.shape, h0, x.device) ^ _m64a_mix(x), _M64A)
     return _m64a_final(h)
+
+
+def _xx_round(acc: torch.Tensor, lane: torch.Tensor) -> torch.Tensor:
+    acc = acc + u.mul(lane, _P2)
+    return u.mul(u.rotl(acc, 31), _P1)
+
+
+def _xx_merge_round(h: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    h = h ^ _xx_round(torch.zeros_like(v), v)
+    return u.mul(h, _P1) + u.s64(_P4)
+
+
+def xxhash64(data: torch.Tensor, lengths: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """Batched xxHash64 over [N, W] zero-padded uint8 keys -> int64 (the
+    hash's bits). Branch-free like the JAX version: every stripe, 8-byte
+    lane, 4-byte lane and tail byte is computed for all keys and selected
+    per key by its length."""
+    n, w = data.shape
+    dev = data.device
+    buf = _masked_buffer(data, lengths, 32)
+    lengths = lengths.to(torch.int64)
+    nstripes = torch.where(lengths >= 32, lengths // 32, 0)
+    v = [u.full((n,), seed + _P1 + _P2, dev), u.full((n,), seed + _P2, dev),
+         u.full((n,), seed, dev), u.full((n,), seed - _P1, dev)]
+    for i in range(w // 32):
+        active = i < nstripes
+        for j in range(4):
+            lane = _le64(buf[:, 32 * i + 8 * j: 32 * i + 8 * j + 8])
+            v[j] = torch.where(active, _xx_round(v[j], lane), v[j])
+    h_long = (u.rotl(v[0], 1) + u.rotl(v[1], 7)) + (u.rotl(v[2], 12)
+                                                     + u.rotl(v[3], 18))
+    for vj in v:
+        h_long = _xx_merge_round(h_long, vj)
+    h = torch.where(lengths >= 32, h_long, u.full((n,), seed + _P5, dev))
+    h = h + lengths
+
+    # The bytes after the stripes: r in [0, 32).
+    base = nstripes * 32
+    n8 = (lengths - base) // 8
+    ar8 = torch.arange(8, dtype=torch.int64, device=dev)[None, :]
+    for i in range(3):
+        idx = (base + 8 * i)[:, None] + ar8
+        lane = _le64(torch.take_along_dim(buf, idx, dim=1))
+        hn = h ^ _xx_round(torch.zeros_like(h), lane)
+        hn = u.mul(u.rotl(hn, 27), _P1) + u.s64(_P4)
+        h = torch.where(i < n8, hn, h)
+    base4 = base + n8 * 8
+    has4 = (lengths - base4) >= 4
+    idx4 = base4[:, None] + ar8[:, :4]
+    lane32 = _le32(torch.take_along_dim(buf, idx4, dim=1))
+    hn = h ^ u.mul(lane32, _P1)
+    hn = u.mul(u.rotl(hn, 23), _P2) + u.s64(_P3)
+    h = torch.where(has4, hn, h)
+    base1 = base4 + torch.where(has4, 4, 0)
+    for j in range(3):
+        off = base1 + j
+        byte = torch.take_along_dim(buf, off[:, None], dim=1)[:, 0].to(torch.int64)
+        hn = h ^ u.mul(byte, _P5)
+        hn = u.mul(u.rotl(hn, 11), _P1)
+        h = torch.where(off < lengths, hn, h)
+    h = h ^ u.shr(h, 33)
+    h = u.mul(h, _P2)
+    h = h ^ u.shr(h, 29)
+    h = u.mul(h, _P3)
+    return h ^ u.shr(h, 32)

@@ -231,6 +231,7 @@ class Journal:
         self._runs_appended = 0
         self._bytes_appended = 0
         self._fsyncs = 0
+        self._trace = None  # TraceManager (fsync-duration hook) or None
         self._group_sum = 0
         self._synced_seq = 0
         self._recovered_tail_bytes = 0
@@ -375,11 +376,18 @@ class Journal:
 
     # -- durability ---------------------------------------------------------
 
+    def set_trace(self, trace) -> None:
+        """Attach/detach the trace manager's fsync-duration hook."""
+        with self._io:
+            self._trace = trace
+
     def sync(self) -> None:
         """Flush + fsync everything appended so far (group commit point)."""
         with self._io:
             if not self._dirty or self._closed:
                 return
+            trace = self._trace
+            t0 = time.monotonic() if trace is not None else 0.0
             # Fault seam: a failed fsync propagates to the caller — the
             # executor's journal-append path classifies it RetryableFault
             # (write-ahead: no state committed for the unsynced records);
@@ -388,6 +396,8 @@ class Journal:
             self._f.flush()
             # group commit IS the design: appends queue behind the fsync so one disk flush covers the whole group; releasing _io here would ack unsynced records
             os.fsync(self._f.fileno())
+            if trace is not None:
+                trace.record_fsync(time.monotonic() - t0)
             self._fsyncs += 1
             self._group_sum += self._unsynced_runs
             self._unsynced_runs = 0
@@ -488,6 +498,19 @@ class Journal:
         """Highest sequence number known fsynced to stable storage."""
         with self._io:
             return self._synced_seq
+
+    def disk_bytes(self) -> int:
+        """On-disk bytes across live segments (the memstat 'disk' meter);
+        a racing rotation or prune tolerates the missing file."""
+        with self._io:
+            paths = [p for _, p in self._segments]
+        total = 0
+        for p in paths:
+            try:
+                total += os.path.getsize(p)
+            except OSError:
+                pass
+        return total
 
     def stats(self) -> Dict[str, Any]:
         with self._io:

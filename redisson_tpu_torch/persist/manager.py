@@ -52,6 +52,11 @@ class PersistenceManager:
             client, self.journal, cfg.dir,
             interval_s=cfg.snapshot_interval_s, keep=cfg.snapshot_keep)
         self.snapshotter.start()
+        registry = getattr(client, "metrics", None)
+        if registry is not None:
+            from redisson_tpu_torch.observability import register_persist
+
+            register_persist(registry, self)
 
     # -- operations ----------------------------------------------------------
 

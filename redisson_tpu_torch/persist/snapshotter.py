@@ -194,6 +194,19 @@ class Snapshotter:
                         pass
         return total
 
+    def disk_bytes(self) -> int:
+        """On-disk bytes across kept snapshot directories (the memstat
+        'disk' meter); tolerant of a concurrent prune."""
+        total = 0
+        for _, snap_path in find_snapshots(self.path):
+            for root, _dirs, files in os.walk(snap_path):
+                for f in files:
+                    try:
+                        total += os.path.getsize(os.path.join(root, f))
+                    except OSError:
+                        pass
+        return total
+
     def stats(self) -> Dict[str, Any]:
         return {
             "snapshots_taken": self.snapshots_taken,

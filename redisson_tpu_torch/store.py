@@ -5,7 +5,9 @@ HLLs live as rows of the backend's bank, not here; the store holds the
 other sketch kinds (BitSet and Bloom cell tensors), and the backend
 consults it so an operation on a name of another kind fails with WRONGTYPE.
 Every `swap` of an object's state bumps its `version`, with an optional
-compare-and-set on it.
+compare-and-set on it. With a memstat ledger attached (`accounting`), every
+create, swap, delete, rename and flushall fires its lifecycle event inside
+the registry lock, so the ledger equals the live tensors' `nbytes`.
 Names map to cluster hash slots with the same CRC16 function as Redis.
 """
 
@@ -51,6 +53,8 @@ class SketchStore:
         self._lock = threading.RLock()
         self._objects: Dict[str, StoredObject] = {}
         self.device = torch.device(device)
+        # memstat ledger (MemLedger-shaped) or None.
+        self.accounting: Optional[Any] = None
 
     @staticmethod
     def slot_of(name: str) -> int:
@@ -75,6 +79,10 @@ class SketchStore:
                                    slot=self.slot_of(name),
                                    meta=dict(meta or {}))
                 self._objects[name] = obj
+                if self.accounting is not None:
+                    self.accounting.on_create(
+                        name, otype, int(obj.state.nbytes), slot=obj.slot,
+                        tenant=str(obj.meta.get("tenant", "")))
         if obj.otype != otype:
             raise WrongTypeError(
                 f"key '{name}' holds {obj.otype}, operation needs {otype}")
@@ -93,11 +101,16 @@ class SketchStore:
                 return False
             obj.state = new_state
             obj.version += 1
+            if self.accounting is not None:
+                self.accounting.on_resize(name, int(new_state.nbytes))
             return True
 
     def delete(self, name: str) -> bool:
         with self._lock:
-            return self._objects.pop(name, None) is not None
+            gone = self._objects.pop(name, None) is not None
+            if gone and self.accounting is not None:
+                self.accounting.on_delete(name)
+            return gone
 
     def rename(self, name: str, new_name: str) -> bool:
         """Move an object under a new key (the destination is overwritten)."""
@@ -108,6 +121,9 @@ class SketchStore:
             obj.name = new_name
             obj.slot = self.slot_of(new_name)
             self._objects[new_name] = obj
+            if self.accounting is not None:
+                # The ledger debits a clobbered destination.
+                self.accounting.on_rename(name, new_name, slot=obj.slot)
             return True
 
     def exists(self, name: str) -> bool:
@@ -124,3 +140,18 @@ class SketchStore:
     def flushall(self) -> None:
         with self._lock:
             self._objects.clear()
+            if self.accounting is not None:
+                self.accounting.on_flushall()
+
+    def live_nbytes(self) -> Dict[str, int]:
+        """Name -> device bytes of every live object (memstat verify walks
+        this; `nbytes` is metadata, no device sync)."""
+        with self._lock:
+            return {n: int(o.state.nbytes) for n, o in self._objects.items()}
+
+    def snapshot(self, name: str) -> Optional[torch.Tensor]:
+        """The object's current state tensor, or None. The port writes
+        cells in place, so this is a live handle, not a frozen copy:
+        clone it for a consistent view."""
+        obj = self.get(name)
+        return None if obj is None else obj.state

@@ -301,3 +301,50 @@ def test_not_invalidates_cached_reads():
     finally:
         jc.shutdown()
         tc.shutdown()
+
+
+def test_flip_bits_matches_jax():
+    rng = np.random.default_rng(3)
+    cells = _cells(5000, 0.3, 4)
+    idx = rng.integers(0, 5000, 1200)  # duplicates flip once
+    jn, jo = jbitset.flip_bits(jnp.asarray(cells), jnp.asarray(idx.astype(np.int32)))
+    tn, to = tbitset.flip_bits(torch.from_numpy(cells), torch.from_numpy(idx))
+    np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+    np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
+
+
+def _bitpos_cases():
+    n = 3 * (1 << 20) + 777  # a ragged last chunk
+    empty = np.zeros(n, np.uint8)
+    ones = np.ones(n, np.uint8)
+    tail_hit = np.zeros(n, np.uint8)
+    tail_hit[n - 1] = 1  # the only 1 sits in the padded chunk
+    tail_zero = np.ones(n, np.uint8)
+    tail_zero[n - 3] = 0  # the only 0 as well: pad cells must not match
+    mid = _cells(n, 0.001, 9)
+    return {"empty": empty, "all_ones": ones, "tail_hit": tail_hit,
+            "tail_zero": tail_zero, "sparse": mid, "tiny": np.array([1, 1, 0], np.uint8)}
+
+
+@pytest.mark.parametrize("case", sorted(_bitpos_cases()))
+@pytest.mark.parametrize("value", [0, 1])
+def test_bitpos_matches_jax(case, value):
+    cells = _bitpos_cases()[case]
+    jp = jbitset.bitpos_partials(jnp.asarray(cells), value)
+    tp = tbitset.bitpos_partials(torch.from_numpy(cells), value)
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    want = jbitset.bitpos(jnp.asarray(cells), value)
+    assert tbitset.bitpos(torch.from_numpy(cells), value) == want
+    hit = np.flatnonzero(cells == value)
+    assert want == (int(hit[0]) if hit.size else -1)
+
+
+def test_combine_bitpos_is_exact_past_2_31():
+    """The host combine works in python ints: a hit in chunk 3000 of 2^20
+    cells lies past 2^31."""
+    partials = np.full(3001, -1, np.int32)
+    partials[3000] = 12345
+    want = 3000 * (1 << 20) + 12345
+    assert want > 2**31
+    assert tbitset.combine_bitpos(partials) == want == jbitset.combine_bitpos(partials)
+    assert tbitset.combine_bitpos(torch.from_numpy(partials)) == want

@@ -305,3 +305,15 @@ def test_planner_keeps_segment_off_filters_past_2_31():
         assert b._plan_bits(1 << 20, 1 << 32) == "scatter"
     finally:
         b.completer.shutdown()
+
+
+@pytest.mark.parametrize("m,k", [(257_296_945, 7), (958_505, 7), (1000, 3), (2**31 - 1, 10)])
+def test_count_estimate_matches_jax(m, k):
+    for bits in sorted({0, 1, 12345, m // 3, m // 2, m - 1, m}):
+        want = float(jbloom.count_estimate(bits, m, k))
+        got = tbloom.count_estimate(bits, m, k)
+        assert got.dtype == torch.float32
+        assert got.item() == pytest.approx(want, rel=1e-6, abs=0.0)
+    # a tensor bit count keeps its device and gives the same value
+    t = tbloom.count_estimate(torch.tensor(m // 3), m, k)
+    assert t.item() == pytest.approx(float(jbloom.count_estimate(m // 3, m, k)), rel=1e-6)

@@ -17,9 +17,15 @@ from redisson_tpu_torch import native as tnative
 from redisson_tpu_torch.client import RedissonTorch
 from redisson_tpu_torch.config import Config
 
-pytestmark = pytest.mark.skipif(
-    not (tnative.available() and jnative.available()),
-    reason="a host fold library failed to build")
+@pytest.fixture(autouse=True, scope="module")
+def _fold_libraries():
+    """Both host fold libraries, asked for when the module's first test
+    runs, not while pytest imports it: the JAX package's library is built
+    by `make` at first use, and several test workers starting at once race
+    on that build (a worker that loses reads a half-written file; the JAX
+    package retries the build on the next call)."""
+    if not (tnative.available() and jnative.available()):
+        pytest.skip("a host fold library failed to build")
 
 
 def _client(ingest: str):

@@ -4,7 +4,10 @@
 and its edge cases, delta_merge, window_merge), and the client (HLL,
 Bloom, BitSet, the delta / tape / hostfold ingest) on the card against the
 client on the CPU; persistence, the snapshot cut, add_device replay and a
-real out-of-memory error on the card. They skip where no card is visible. Run them on a
+real out-of-memory error on the card; the served, traced path against the
+CPU, the (hi, lo) PFADD under segment, the memory gate shedding a SETBIT
+at the high watermark before it allocates, xxhash64 and bitpos on the card against the CPU and
+numpy. They skip where no card is visible. Run them on a
 machine with one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -615,3 +618,124 @@ def test_real_oom_is_retryable_and_not_sticky(dev, tmp_path):
         assert h.add_ints(np.arange(1000, 2000, dtype=np.uint64))
     finally:
         c.shutdown()
+
+
+def _served(device, **mem):
+    cfg = Config()
+    cfg.use_cuda(device=device, ingest="segment")
+    cfg.use_serve()
+    cfg.use_trace(sample_every=1)
+    cfg.use_memstat(**mem)
+    return RedissonTorch.create(cfg)
+
+
+def test_served_path_on_card_matches_cpu(dev):
+    """The served, traced PFADD / PFCOUNT / PFMERGE path on the card: rows
+    and replies equal the same client on the CPU, seg_insert and
+    merge_stack launched, the ledger without drift."""
+    rng = np.random.default_rng(21)
+    batches = [rng.integers(0, 2**63, 40_000, dtype=np.uint64) for _ in range(8)]
+    got = {}
+    ik.reset_launches()
+    ok.reset_launches()
+    for device in ("cuda:0", "cpu"):
+        c = _served(device)
+        try:
+            with c.serve.tenant("t1"):
+                futs = [c.get_hyper_log_log(f"s{i}").add_ints_async(b)
+                        for i, b in enumerate(batches)]
+                flags = [f.result() for f in futs]
+            counts = [c.get_hyper_log_log(f"s{i}").count() for i in range(8)]
+            union = c.get_hyper_log_log("u").merge_with_and_count(
+                *[f"s{i}" for i in range(8)])
+            assert c.memory_verify()["ok"]
+            assert c.trace.snapshot()["tracer"]["sampled"] >= 17
+            got[device] = (flags, counts, union, c.to_numpy_state())
+        finally:
+            c.shutdown()
+    assert ik.launches["seg_insert"] and ok.launches["merge_stack"]
+    card, cpu = got["cuda:0"], got["cpu"]
+    assert card[:3] == cpu[:3]
+    (cb, cr), (pb, pr) = card[3], cpu[3]
+    for n in pr:
+        np.testing.assert_array_equal(cb[cr[n]], pb[pr[n]])
+
+
+def test_hilo_payload_under_segment_on_card(dev):
+    keys = np.random.default_rng(22).integers(0, 2**64, 40_000, dtype=np.uint64)
+    hi = (keys >> np.uint64(32)).astype(np.uint32)
+    lo = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    c = RedissonTorch.create(Config().use_cuda(ingest="segment"))
+    try:
+        ik.reset_launches()
+        assert c._executor.execute_sync("a", "hll_add", {"hi": hi, "lo": lo}, 40_000)
+        torch.cuda.synchronize()
+        assert ik.launches["seg_insert"] >= 1
+        c.get_hyper_log_log("b").add_ints(keys)
+        a = c._executor.execute_sync("a", "hll_export", None)[0]
+        b = c._executor.execute_sync("b", "hll_export", None)[0]
+        np.testing.assert_array_equal(a, b)
+    finally:
+        c.shutdown()
+
+
+def test_watermark_sheds_setbit_before_it_allocates_on_card(dev):
+    from redisson_tpu_torch.serve.errors import RejectedError
+
+    c = _served("cuda:0", high_watermark_bytes=1 << 50,
+                include_overhead=False)
+    try:
+        c.get_bit_set("a").set((1 << 25) - 1)
+        live = c.memstat.live_bytes()
+        c._pressure.config.high_watermark_bytes = live  # at the mark
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # frees blocks whose last use waits on an event
+        before = torch.cuda.memory_allocated()
+        with pytest.raises(RejectedError) as ei:
+            c.get_bit_set("b").set((1 << 25) - 1)
+        assert ei.value.reason == "memory"
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        assert torch.cuda.memory_allocated() == before
+        device = c._pressure.snapshot()["device"]
+        free, total = torch.cuda.mem_get_info()
+        assert device["source"] == "torch.cuda" and device["total_bytes"] == total
+        assert 0 < device["free_bytes"] <= total
+        assert c.get_bit_set("a").cardinality() == 1  # reads flow
+        c.delete("a")
+        c.get_bit_set("b").set((1 << 25) - 1)
+        assert c.memory_verify()["ok"]
+    finally:
+        c.shutdown()
+
+
+@pytest.mark.parametrize("width", [8, 33, 72])
+def test_xxhash64_on_card_matches_cpu(dev, width):
+    from redisson_tpu_torch.ops import hashing
+
+    rng = np.random.default_rng(width)
+    n = 1 << 20
+    data = torch.from_numpy(rng.integers(0, 256, (n, width), dtype=np.uint8))
+    lengths = torch.from_numpy(rng.integers(0, width + 1, n).astype(np.int32))
+    for seed in (0, 2**64 - 1):
+        want = hashing.xxhash64(data, lengths, seed)
+        got = hashing.xxhash64(data.to(dev), lengths.to(dev), seed)
+        assert got.is_cuda and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("case", ["empty", "ones", "sparse", "last"])
+def test_bitpos_on_card_matches_numpy(dev, case):
+    from redisson_tpu_torch.ops import bitset
+
+    n = (1 << 27) + 12345  # a daily bitmap's width and a ragged last chunk
+    cells = np.zeros(n, np.uint8)
+    if case == "ones":
+        cells[:] = 1
+    elif case == "sparse":
+        cells[np.random.default_rng(5).integers(1 << 20, n, 1000)] = 1
+    elif case == "last":
+        cells[n - 1] = 1
+    t = torch.from_numpy(cells).to(dev)
+    for value in (0, 1):
+        hit = np.flatnonzero(cells == value)
+        assert bitset.bitpos(t, value) == (int(hit[0]) if hit.size else -1)

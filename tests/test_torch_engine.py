@@ -275,3 +275,91 @@ def test_from_jax_state_round_trip():
     finally:
         jc.shutdown()
         tc.shutdown()
+
+
+def _hilo(keys: np.ndarray):
+    return ((keys >> np.uint64(32)).astype(np.uint32),
+            (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+
+
+@pytest.mark.parametrize("impl", ["scatter", "sort", "segment"])
+@pytest.mark.parametrize("family", ["m3", "redis"])
+def test_hll_add_u64_matches_jax(impl, family):
+    regs = _bank(5)[1]
+    hi, lo = _hilo(_keys(1800, 8))
+    phi, valid = te.pad_ints(hi)
+    plo, _ = te.pad_ints(lo)
+    tr, tc = te.hll_add_u64(torch.from_numpy(regs.copy()), torch.from_numpy(phi.astype(np.int64)),
+                            torch.from_numpy(plo.astype(np.int64)), torch.from_numpy(valid),
+                            impl, 3, family)
+    jr, jc = je.hll_add_u64(jnp.asarray(regs), phi, plo, valid, impl, 3, family)
+    _same(tr, jr, tc, jc)
+    assert bool(tc)
+
+
+def test_hll_absorb_matches_jax():
+    rng = np.random.default_rng(12)
+    regs = _bank(6)[2]
+    for folded in (rng.integers(0, 9, M).astype(np.uint8), np.zeros(M, np.uint8)):
+        tr, tc = te.hll_absorb(torch.from_numpy(regs.copy()), torch.from_numpy(folded))
+        jr, jc = je.hll_absorb(jnp.asarray(regs), jnp.asarray(folded))
+        _same(tr, jr, tc, jc)
+
+
+@pytest.mark.parametrize("impl", ["scatter", "sort", "segment"])
+@pytest.mark.parametrize("family", ["m3", "redis"])
+def test_bank_add_u64_matches_jax(impl, family):
+    bank = _bank(7)
+    hi, lo = _hilo(_keys(2500, 9))
+    phi, valid = te.pad_ints(hi)
+    plo, _ = te.pad_ints(lo)
+    args = (torch.from_numpy(phi.astype(np.int64)), torch.from_numpy(plo.astype(np.int64)))
+    tb, tc = te.hll_bank_add_u64(torch.from_numpy(bank.copy()), *args,
+                                 torch.from_numpy(valid), 4, 1, family, impl)
+    jb, jc = je.hll_bank_add_u64(jnp.asarray(bank), phi, plo, valid, np.int32(4), 1,
+                                 family, impl)
+    _same(tb, jb, tc, jc)
+    rows, _ = te.pad_ints(np.random.default_rng(10).integers(0, S - 1, 2500).astype(np.int32))
+    tb, tc = te.hll_bank_add_u64_rows(torch.from_numpy(bank.copy()), *args,
+                                      torch.from_numpy(rows), torch.from_numpy(valid), 1,
+                                      family, impl)
+    jb, jc = je.hll_bank_add_u64_rows(jnp.asarray(bank), phi, plo, rows, valid, 1, family)
+    _same(tb, jb, tc, jc)
+
+
+@pytest.mark.parametrize("ingest", ["sort", "segment", "scatter", "delta", "hostfold"])
+def test_hilo_payload_through_the_client_matches_jax(ingest):
+    """PFADD with the (hi, lo) uint32 payload, one target and several in one
+    run: the port's bank equals the JAX backend's, the flags agree, and the
+    rows equal add_ints of the same keys."""
+    from redisson_tpu_torch import native
+
+    if ingest in ("delta", "hostfold") and not native.available():
+        pytest.skip("the host fold library did not build here")
+    jcfg = JConfig()
+    jcfg.use_tpu().ingest = "sort" if ingest == "segment" else ingest
+    jc = RedissonTPU.create(jcfg)
+    tc = RedissonTorch.create(Config().use_cuda(device="cpu", ingest=ingest))
+    try:
+        flags = []
+        for c in (jc, tc):
+            got = []
+            hi, lo = _hilo(_keys(3000, 20))
+            got.append(c._executor.execute_sync("hl:one", "hll_add",
+                                                {"hi": hi, "lo": lo}, 3000))
+            futs = [c._executor.execute_async(f"hl:{i % 3}", "hll_add",
+                                              dict(zip(("hi", "lo"), _hilo(_keys(700, 30 + i)))),
+                                              700) for i in range(6)]
+            got.extend(f.result() for f in futs)
+            c.get_hyper_log_log("ints:one").add_ints(_keys(3000, 20))
+            flags.append(got)
+        assert flags[1] == flags[0]
+        jb = jc._routing.sketch
+        jbank, jrows = np.asarray(jb.bank), dict(jb._rows)
+        tbank, trows = tc.to_numpy_state()
+        for n in jrows:
+            np.testing.assert_array_equal(tbank[trows[n]], jbank[jrows[n]], err_msg=n)
+        np.testing.assert_array_equal(tbank[trows["hl:one"]], tbank[trows["ints:one"]])
+    finally:
+        jc.shutdown()
+        tc.shutdown()

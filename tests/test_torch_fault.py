@@ -6,8 +6,8 @@ message and exception tables of `classify`.
    semantic passthrough; the CUDA runtime's sticky, transient and fatal
    errors, and `torch.cuda.OutOfMemoryError` by type;
 2. injection units;
-3. seams through the real client (a caller-side retry on RetryableError
-   stands in for the serving layer's, which the port has not reached);
+3. seams through the real client (the serving layer's retry absorbs the
+   retryable faults, as in the JAX tests);
 4. the watchdog; 5. the rebuild; 6. the chaos properties; 7. satellites.
 
 All clients run on `Config().use_cuda(device="cpu")`.
@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from redisson_tpu_torch.client import RedissonTorch
-from redisson_tpu_torch.config import Config, FaultConfig
+from redisson_tpu_torch.config import Config, FaultConfig, ServeConfig
 from redisson_tpu_torch.executor import CommandExecutor
 from redisson_tpu_torch.fault import inject, taxonomy
 from redisson_tpu_torch.fault.inject import FaultInjector, FaultPlan, FaultRule
@@ -36,22 +36,14 @@ from redisson_tpu_torch.fault.taxonomy import (
     classify,
 )
 from redisson_tpu_torch.fault.watchdog import RunWatchdog
+from redisson_tpu_torch.observability import MetricsRegistry
+from redisson_tpu_torch.serve import BreakerBoard, ServingLayer
 from redisson_tpu_torch.serve.errors import RetryableError
 from tests.test_torch_persist import digest
 
-#: tests of tests/test_fault.py with no counterpart here, and why
-EXCLUDED = {
-    "TestServeShutdownCancelsRetries (3 tests)":
-        "they build the serving layer (serve/), a later slice",
-    "TestPlumbing.test_fault_gauges_registered":
-        "the metrics registry is observability.py's, a later slice",
-    "TestWatchdog.test_trip_completes_futures_and_opens_breaker (its breaker)":
-        "serve.breaker.BreakerBoard is a later slice; "
-        "test_trip_completes_futures_and_releases_gates keeps the rest",
-    "TestPlumbing.test_config_roundtrip (to_dict/from_dict)":
-        "the port's Config has no dict round trip; test_fault_config_section "
-        "checks the use_faults builder",
-}
+#: tests of tests/test_fault.py with no counterpart here, and why (none:
+#: the serving layer, the registry and the dict round trip are ported)
+EXCLUDED = {}
 
 
 @pytest.fixture(autouse=True)
@@ -63,26 +55,17 @@ def _clean_fault_globals():
     inject.uninstall()
 
 
-def make_client(tmp_path=None, plan=None, seed=0, watchdog=False,
-                rebuild=True, **fault_kw):
+def make_client(tmp_path=None, serve=True, plan=None, seed=0, watchdog=False,
+                rebuild=True, retry_interval_ms=5, **fault_kw):
     cfg = Config()
     cfg.use_cuda(device="cpu")
     if tmp_path is not None:
         cfg.use_persist(str(tmp_path), fsync="always")
+    if serve:
+        cfg.use_serve(retry_interval_ms=retry_interval_ms)
     cfg.use_faults(plan=plan or [], seed=seed, watchdog=watchdog,
                    rebuild=rebuild, **fault_kw)
     return RedissonTorch.create(cfg)
-
-
-def retried(fn, attempts=50):
-    """The caller's retry loop on RetryableError (the serving layer's
-    retryAttempts / retryInterval, which the port has not reached)."""
-    for _ in range(attempts - 1):
-        try:
-            return fn()
-        except RetryableError:
-            time.sleep(0.002)
-    return fn()
 
 
 # ---------------------------------------------------------------------------
@@ -282,20 +265,17 @@ class TestInjection:
 
 class TestSeams:
     def test_kernel_launch_retryable_absorbed_by_a_retry(self):
+        """The serving layer's retry absorbs the fault: the caller never
+        sees it (the JAX package's test_kernel_launch_retryable_absorbed_by_serve)."""
         c = make_client(plan=[{"seam": "kernel_launch", "fault": "retryable",
                                "nth": 3, "times": 1}])
         try:
             h = c.get_hyper_log_log("h")
-            failures = []
             for i in range(10):
-                try:
-                    h.add(f"k{i}")
-                except RetryableFault as exc:
-                    failures.append(exc.seam)
-                    h.add(f"k{i}")  # re-running is safe
-            assert failures == ["kernel_launch"]
+                h.add(f"k{i}")  # one add trips the seam; retry absorbs it
             assert h.count() == 10
             assert c.fault.injector.injected == 1
+            assert c.metrics.counter("serve.retries_total") == 1
         finally:
             c.shutdown()
 
@@ -306,7 +286,7 @@ class TestSeams:
         try:
             bits = c.get_bit_set("bits")
             for i in range(8):
-                retried(lambda i=i: bits.set(i, True))
+                bits.set(i, True)
             assert bits.cardinality() == 8
             assert c.fault.injector.injected == 1
         finally:
@@ -418,6 +398,50 @@ class TestWatchdog:
             wd.stop()
             ex.shutdown()
 
+    def test_trip_completes_futures_and_opens_breaker(self):
+        backend = WedgedBackend()
+        ex = CommandExecutor(backend)
+        breakers = BreakerBoard(clock=time.monotonic)
+        trips = []
+        wd = RunWatchdog(ex, estimate=None, margin=1.0, floor_s=0.05,
+                         breakers=breakers,
+                         on_trip=lambda k, t, f: trips.append((k, set(t), f)))
+        try:
+            f = ex.execute_async("t", "noop", "v", nkeys=1)
+            assert backend.entered.wait(timeout=5)
+            time.sleep(0.1)  # age past the 0.05s floor
+            assert wd.check_once() == 1
+            with pytest.raises(StateUncertainFault):
+                f.result(timeout=5)
+            assert wd.check_once() == 0  # no double trip
+            assert wd.trips == 1
+            assert taxonomy.stats()["watchdog_trips"] == 1
+            assert breakers.get("noop").state == "open"
+            assert trips and trips[0][0] == "noop" and trips[0][1] == {"t"}
+            assert isinstance(trips[0][2], StateUncertainFault)
+            backend.release.set()
+            assert ex.execute_async("t", "noop", "w",
+                                    nkeys=1).result(timeout=10) == "late"
+        finally:
+            backend.release.set()
+            wd.stop()
+            ex.shutdown()
+
+    def test_deadline_comes_from_the_serving_cost_model(self):
+        """With a serving layer the client's watchdog prices a run from the
+        cost model (JAX's wiring), and the breaker board is the layer's."""
+        c = make_client(watchdog=True)
+        try:
+            wd, cm = c.fault.watchdog, c.serve.cost_model
+            assert wd._breakers is c.serve._breakers
+            assert c.fault.rebuild._breakers is c.serve._breakers
+            cm.observe("hll_add", 10_000_000, 2.0)  # a slow learned rate
+            assert wd.deadline_s("hll_add", 10_000_000) == pytest.approx(
+                8.0 * cm.estimate("hll_add", 10_000_000))
+            assert wd.deadline_s("hll_add", 1) == 2.0  # the floor
+        finally:
+            c.shutdown()
+
     def test_healthy_runs_never_trip(self):
         c = make_client(watchdog=True)
         try:
@@ -520,10 +544,8 @@ class TestRebuild:
 # 6. the chaos property
 # ---------------------------------------------------------------------------
 
-def _workload(client, rng_seed=0xC0FFEE, n=120, retry=False):
-    """Deterministic hll/bloom/bitset mix; returns per-op outcomes. With
-    `retry`, each op re-runs on RetryableError (what the JAX package's
-    serving layer does for it)."""
+def _workload(client, rng_seed=0xC0FFEE, n=120):
+    """Deterministic hll/bloom/bitset mix; returns per-op outcomes."""
     import random as _random
 
     rng = _random.Random(rng_seed)
@@ -534,14 +556,13 @@ def _workload(client, rng_seed=0xC0FFEE, n=120, retry=False):
     outcomes = []
     for i in range(n):
         op = rng.choice(("hll", "bits", "bloom"))
-        if op == "hll":
-            fn = lambda i=i: h.add(f"u{i}")  # noqa: E731
-        elif op == "bits":
-            fn = lambda off=rng.randint(0, 512): bits.set(off, True)  # noqa: E731
-        else:
-            fn = lambda i=i: bloom.add(f"b{i}")  # noqa: E731
         try:
-            retried(fn) if retry else fn()
+            if op == "hll":
+                h.add(f"u{i}")
+            elif op == "bits":
+                bits.set(rng.randint(0, 512), True)
+            else:
+                bloom.add(f"b{i}")
             outcomes.append(("ok", op))
         except Exception as exc:  # noqa: BLE001 - the property audits types
             outcomes.append((type(exc).__name__, op))
@@ -568,7 +589,7 @@ def test_chaos_retryable_plans_are_bit_identical_to_oracle(tmp_path, seed):
         {"seam": r.seam, "fault": r.fault, "nth": r.nth, "times": r.times}
         for r in plan.rules])
     try:
-        outcomes = _workload(c, retry=True)
+        outcomes = _workload(c)
         assert all(o == "ok" for o, _ in outcomes), outcomes
         assert digest(c) == want
     finally:
@@ -593,7 +614,8 @@ def test_chaos_uncertain_plans_recover_committed_state(tmp_path, seed):
     try:
         outcomes = _workload(c, rng_seed=seed)
         allowed = {"ok", "StateUncertainFault", "DeviceLostFault",
-                   "TargetQuarantinedError", "RetryableFault"}
+                   "CircuitOpenError", "TargetQuarantinedError",
+                   "DeadlineExceeded", "RetryableFault"}
         assert {o for o, _ in outcomes} <= allowed, outcomes
         assert c.fault.rebuild.wait_idle(timeout=60)
         assert c.fault.rebuild.snapshot()["rebuild_failures"] == 0
@@ -635,6 +657,62 @@ class TestRoutingRenameRegression:
             c.shutdown()
 
 
+class FailNTimesBackend:
+    """Fails the first `n` runs with a RetryableError, then succeeds."""
+
+    def __init__(self, n):
+        self.n = n
+        self.runs = 0
+
+    def run(self, kind, target, ops):
+        self.runs += 1
+        for op in ops:
+            if self.runs <= self.n:
+                op.future.set_exception(RetryableError("transient"))
+            else:
+                op.future.set_result(op.payload)
+
+
+class TestServeShutdownCancelsRetries:
+    def test_pending_retry_outer_cancelled_at_shutdown(self):
+        backend = FailNTimesBackend(n=10)
+        ex = CommandExecutor(backend)
+        serve = ServingLayer(
+            ex, ServeConfig(retry_attempts=3, retry_interval_ms=60_000),
+            registry=MetricsRegistry())
+        # timeout_s=0 -> no deadline, so the 30-60s backoff IS scheduled
+        outer = serve.execute_async("t", "noop", "v", nkeys=1, timeout_s=0)
+        deadline = time.monotonic() + 5
+        while not serve._timer._heap and time.monotonic() < deadline:
+            time.sleep(0.005)
+        assert serve._timer._heap, "retry was never scheduled"
+        serve.shutdown()
+        assert outer.cancelled()
+        with pytest.raises(CancelledError):
+            outer.result(timeout=0)
+
+    def test_timer_closed_inline_fallback_cancels(self):
+        backend = FailNTimesBackend(n=10)
+        ex = CommandExecutor(backend)
+        serve = ServingLayer(
+            ex, ServeConfig(retry_attempts=3, retry_interval_ms=60_000),
+            registry=MetricsRegistry())
+        serve._timer.close()  # race shutdown ahead of the attempt
+        outer = serve.execute_async("t", "noop", "v", nkeys=1, timeout_s=0)
+        with pytest.raises(CancelledError):
+            outer.result(timeout=5)
+        ex.shutdown()
+
+    def test_entries_without_cancel_still_fire_at_close(self):
+        from redisson_tpu_torch.serve.scheduler import _Timer
+
+        t = _Timer()
+        fired = []
+        t.call_later(60.0, lambda: fired.append("fn"))
+        t.close()
+        assert fired == ["fn"]  # no cancel hook -> fire
+
+
 class TestShutdownSweep:
     def test_staged_but_undispatched_ops_cancel_at_shutdown(self):
         backend = WedgedBackend()
@@ -663,6 +741,29 @@ class TestPlumbing:
         assert fc.watchdog is True and fc.rebuild is True
         with pytest.raises(TypeError):
             Config().use_faults(no_such_field=1)
+
+    def test_config_roundtrip(self):
+        cfg = Config()
+        fc = cfg.use_faults()
+        fc.plan = [{"seam": "kernel_launch", "nth": 2}]
+        fc.watchdog = True
+        d = cfg.to_dict()
+        back = Config.from_dict(d)
+        assert isinstance(back.faults, FaultConfig)
+        assert back.faults.plan == fc.plan
+        assert back.faults.watchdog is True
+
+    def test_fault_gauges_registered(self):
+        c = make_client(watchdog=True)
+        try:
+            gauges = c.metrics.snapshot()["gauges"]
+            for name in ("fault.injected", "fault.classified",
+                         "fault.retried", "fault.rebuilt",
+                         "fault.quarantined", "fault.degraded",
+                         "fault.rebuild_s", "fault.watchdog_trips"):
+                assert name in gauges, name
+        finally:
+            c.shutdown()
 
     def test_manager_stop_uninstalls_injector(self):
         c = make_client(plan=[{"seam": "kernel_launch", "nth": 999}])

@@ -104,3 +104,39 @@ def test_u64_lane_ops_match_python_unsigned(n):
                                   np.array([(v * c) & mask for v in vals], np.uint64))
     want_ctz = [64 if v == 0 else (v & -v).bit_length() - 1 for v in vals]
     np.testing.assert_array_equal(tu.ctz(x).numpy(), np.array(want_ctz, np.int32))
+
+
+def _xx_keys(seed: int, width: int = 64):
+    """Keys of every length 0..width (twice), garbage past each length."""
+    rng = np.random.default_rng(seed)
+    lens = np.array(list(range(width + 1)) * 2 + list(rng.integers(0, width + 1, 40)),
+                    np.int32)
+    data = rng.integers(0, 256, (lens.shape[0], width), dtype=np.uint8)
+    data[np.arange(width)[None, :] >= lens[:, None]] = 0xCD
+    return data, lens
+
+
+@pytest.mark.parametrize("width", [8, 31, 64, 72])
+@pytest.mark.parametrize("seed", [0, 1, 2**32 + 5, 2**64 - 1])
+def test_xxhash64_matches_jax(width, seed):
+    data, lens = _xx_keys(width + 3, width)
+    want = _np64(jh.xxhash64(data, lens, seed))
+    got = tu.to_numpy_u64(th.xxhash64(torch.from_numpy(data), torch.from_numpy(lens),
+                                      seed))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed", [0, 42, 2**63 + 1])
+def test_murmur3_u32_matches_jax(seed):
+    rng = np.random.default_rng(seed % 1000)
+    x = np.concatenate([np.array([0, 1, 2**31, 2**32 - 1], np.uint32),
+                        rng.integers(0, 2**32, 400, dtype=np.uint64).astype(np.uint32)])
+    jh1, jh2 = jh.murmur3_x64_128_u32(x, seed)
+    th1, th2 = th.murmur3_x64_128_u32(torch.from_numpy(x.astype(np.int64)), seed)
+    np.testing.assert_array_equal(tu.to_numpy_u64(th1), _np64(jh1))
+    np.testing.assert_array_equal(tu.to_numpy_u64(th2), _np64(jh2))
+    # the same 4-byte keys through the general byte-key hash
+    data = x.view(np.uint8).reshape(-1, 4)
+    b1, b2 = th.murmur3_x64_128(torch.from_numpy(data.copy()),
+                                torch.full((x.shape[0],), 4, dtype=torch.int32), seed)
+    assert torch.equal(b1, th1) and torch.equal(b2, th2)

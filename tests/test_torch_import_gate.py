@@ -17,8 +17,9 @@ from redisson_tpu_torch.config import Config
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: modules of redisson_tpu_torch the walk must find (52 with the structures
-#: tier and RBatch, 67 with persist/, fault/, checkpoint and serve/errors)
-NMODS = 67
+#: tier and RBatch, 67 with persist/, fault/, checkpoint and serve/errors, 84
+#: with observability, trace/, memstat/ and the rest of serve/)
+NMODS = 84
 
 _GATE = textwrap.dedent("""
     import importlib, pkgutil, runpy, sys
@@ -53,6 +54,15 @@ _GATE = textwrap.dedent("""
               *(f"redisson_tpu_torch.fault.{m}" for m in
                 ("taxonomy", "inject", "watchdog", "rebuild", "manager"))}
     print("SLICE8", sorted(slice8 - set(mods)))
+    slice9 = {"redisson_tpu_torch.observability",
+              "redisson_tpu_torch.trace", "redisson_tpu_torch.memstat",
+              *(f"redisson_tpu_torch.trace.{m}" for m in
+                ("hist", "spans", "slowlog", "monitor", "export", "manager")),
+              *(f"redisson_tpu_torch.memstat.{m}" for m in
+                ("accounting", "pressure", "report")),
+              *(f"redisson_tpu_torch.serve.{m}" for m in
+                ("admission", "breaker", "policy", "scheduler", "windows"))}
+    print("SLICE9", sorted(slice9 - set(mods)))
     print("MODULES", len(mods), "SMOKE_RC", rc, "LEAKED", leaked)
 """)
 
@@ -68,6 +78,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert "SLICE3 []" in out.stdout  # the walk covered slice 3's modules
     assert "SLICE6 []" in out.stdout  # and the structures tier's
     assert "SLICE8 []" in out.stdout  # and the durability and fault modules
+    assert "SLICE9 []" in out.stdout  # and the serving / tracing / memory tier
     assert rc == "2"  # chip_smoke refuses to run without a card
     assert leaked == "[]"
     assert '"ok"' not in out.stdout

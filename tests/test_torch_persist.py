@@ -69,12 +69,6 @@ EXCLUDED = {
         "JournalFollower (replica tier)",
     "test_watermark_scanner_incremental_lag":
         "follower._WatermarkScanner (replica tier)",
-    "test_recovery_stats_and_gauges (its persist.* gauges)":
-        "the metrics registry is observability.py's, a later slice; "
-        "test_recovery_stats keeps the stats() half",
-    "test_persist_config_from_dict_and_redis_mode_guard (from_dict)":
-        "the port's Config has no dict round trip; test_persist_config_section "
-        "checks the use_persist builder",
 }
 
 
@@ -500,6 +494,39 @@ def test_recovery_stats(tmp_path):
         assert st["snapshotter"]["snapshots_taken"] == 0
     finally:
         r.shutdown()
+
+
+def test_recovery_stats_and_gauges(tmp_path):
+    lead = tmp_path / "lead"
+    c = make_client(lead, fsync="always")
+    try:
+        c.get_bucket("b").set(1)
+        _crash_image(lead, tmp_path / "img")
+    finally:
+        c.shutdown()
+    r = make_client(tmp_path / "img", fsync="always")
+    try:
+        gauges = r.metrics.snapshot()["gauges"]
+        assert gauges["persist.last_seq"] == 1
+        assert gauges["persist.replayed"] == 1
+        assert gauges["persist.segments"] >= 1
+        st = r.persist.stats()
+        assert st["journal"]["last_seq"] == 1
+        assert st["recovery"]["replayed"] == 1
+        # the journal and snapshot disk meters of the memstat ledger
+        assert r.memstat.meter_totals()["disk"] > 0
+    finally:
+        r.shutdown()
+
+
+def test_persist_config_from_dict_and_redis_mode_guard(tmp_path):
+    cfg = Config.from_dict({
+        "persist": {"dir": str(tmp_path / "p"), "fsync": "off",
+                    "snapshot_keep": 5},
+    })
+    assert isinstance(cfg.persist, PersistConfig)
+    assert cfg.persist.fsync == "off" and cfg.persist.snapshot_keep == 5
+    assert Config.from_json(cfg.to_json()) == cfg
 
 
 def test_persist_config_section(tmp_path):

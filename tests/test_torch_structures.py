@@ -199,6 +199,14 @@ def test_keys_facade_matches_jax():
                                     "get_topology_manager", "get_remote_service",
                                     "get_cache_manager"])
 def test_getters_of_queued_tiers_raise(client, getter):
+    """The tiers still queued raise naming their ROADMAP item; the nodes
+    groups arrived with observability.py and ping the client's device."""
+    if getter in ("get_cluster_nodes_group", "get_nodes_group"):
+        from redisson_tpu_torch.observability import NodesGroup
+
+        group = getattr(client, getter)()
+        assert isinstance(group, NodesGroup) and group.ping_all()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         getattr(client, getter)()
 
@@ -226,3 +234,77 @@ def test_codecs_match_jax():
             assert tc.decode(want) == jc.decode(want), (name, v)
     with pytest.raises(ValueError, match="unknown codec"):
         codecs.get_codec("nope")
+
+
+def test_lease_lock_is_not_renewed_by_a_stale_watchdog_entry(client):
+    """What made `test_lock__expire_releases` fail under load: an earlier
+    test's watchdog registration for the same lock name and owner (the
+    test thread) outlived the flushed key, and a renewal tick landing
+    inside the new 0.5 s lease stretched it to 30 s, so the waiter timed
+    out. An explicit lease now drops such a registration."""
+    lock = client.get_lock("lock")
+    lock.lock()  # watchdog-renewed hold
+    owner = lock._owner()
+    assert ("lock", owner) in client._watchdog._entries
+    client.get_keys().flushall()  # the key goes, the registration stays
+    lock.lock(lease_time_s=0.5)
+    assert ("lock", owner) not in client._watchdog._entries
+    # the renewal tick the watchdog would run now: nothing to renew
+    for name, own in list(client._watchdog._entries):
+        client._executor.execute_sync(name, "lock_renew",
+                                      {"owner": own, "lease_ms": 30_000})
+    t0 = time.monotonic()
+    acquired = []
+
+    def worker():
+        other = client.get_lock("lock")
+        other.lock()
+        acquired.append(time.monotonic() - t0)
+        other.unlock()
+
+    import threading
+
+    t = threading.Thread(target=worker)
+    t.start()
+    t.join(timeout=5)
+    assert acquired and acquired[0] < 2.0
+
+
+def test_lease_lock_is_not_renewed_by_a_renewal_in_flight(client, monkeypatch):
+    """The same race one step later, as it failed under load: the watchdog
+    had already taken the old registration for a renewal (woken by the
+    hold's register) when the explicit lease was set, and the renewal
+    landed after it. A renewal now holds the watchdog's lock and the
+    lease's unregister waits for it, so the lease set after it stays
+    0.5 s."""
+    import threading
+
+    ex = client._executor
+    real = ex.execute_sync
+    in_flight = threading.Event()
+
+    def slow_renewal(target, kind, *args, **kwargs):
+        if kind == "lock_renew" and target == "lock":
+            in_flight.set()
+            time.sleep(0.3)
+        return real(target, kind, *args, **kwargs)
+
+    monkeypatch.setattr(ex, "execute_sync", slow_renewal)
+    lock = client.get_lock("lock")
+    lock.lock()  # registers: the watchdog wakes and renews at once
+    assert in_flight.wait(5)
+    client.get_keys().flushall()  # the key goes while the renewal sleeps
+    lock.lock(lease_time_s=0.5)
+    t0 = time.monotonic()
+    acquired = []
+
+    def worker():
+        other = client.get_lock("lock")
+        other.lock()
+        acquired.append(time.monotonic() - t0)
+        other.unlock()
+
+    t = threading.Thread(target=worker)
+    t.start()
+    t.join(timeout=5)
+    assert acquired and acquired[0] < 2.0

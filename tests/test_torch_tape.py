@@ -28,9 +28,15 @@ from redisson_tpu_torch.ingest import delta as tdelta
 from redisson_tpu_torch.ingest import tape as ttape
 from redisson_tpu_torch.ops import window_kernel as twk
 
-pytestmark = pytest.mark.skipif(
-    not (tnative.available() and jnative.available()),
-    reason="a host fold library failed to build")
+@pytest.fixture(autouse=True, scope="module")
+def _fold_libraries():
+    """Both host fold libraries, asked for when the module's first test
+    runs, not while pytest imports it: the JAX package's library is built
+    by `make` at first use, and several test workers starting at once race
+    on that build (a worker that loses reads a half-written file; the JAX
+    package retries the build on the next call)."""
+    if not (tnative.available() and jnative.available()):
+        pytest.skip("a host fold library failed to build")
 
 
 # -- encode_window ----------------------------------------------------------------
