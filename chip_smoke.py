@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--profile]
     python3 chip_smoke.py --phase serve       # the build and one phase (see phase_table)
+    python3 chip_smoke.py --phase replica     # the build and phase 19 alone
     python3 chip_smoke.py --merge-pair TREE   # the client's merge call only, of TREE's package
     python3 chip_smoke.py --child-writer DIR  # phase 15's writer (the phase starts it)
 
@@ -151,11 +152,38 @@ Phases, each of which fails the run on error:
      observability.profile() around 10 served PFADDs, whose trace names a
      seg_insert kernel;
  18. with --profile, torch.profiler traces of short HLL and Bloom windows
-     (device busy share, device time by kernel).
+     (device busy share, device time by kernel);
+ 19. the read-replica tier (persist/follower.py, replica/, reactive/,
+     services/; run after 16, before the device-only times): (1) a
+     persisting primary (fsync="always", ingest="segment") writes the HLL
+     path's 1024 x 40,000 keys, BASELINE config 2's Bloom filter with 10M
+     adds and one 2^27-bit day with 8M SETBITs, and shuts down; a
+     standalone JournalFollower on the card replays its journal (the only
+     launches of that window: seg_insert and the segment-OR must), ending
+     bit-identical to the primary with lag 0 and every state tensor on the
+     card; (2) a client with two replicas on the same card takes the same
+     writes: wait_for_replicas(2) = 2, both replicas bit-identical to the
+     primary, then PFCOUNT of all 1024, countWith over 1000, contains of 1M
+     Bloom keys and BITCOUNT routed to the replicas (each answer equal to
+     the primary executor's; merge_stack and popcount_partials launched);
+     a replica whose tail is stopped never serves once outside
+     max_lag_seqs, reads fall back with both stopped, and a read after the
+     tenant's write is pinned at or above its acked seq; (3) a failover
+     drill on config 3's 256 x 40,000 keys: the old journal fenced (a
+     write there refused), the promotee equal to the old primary at the
+     fence, its journal continuing the numbering, the survivor resynced
+     and caught up, writes after the failover reaching it, every
+     acknowledged PFADD present (a `sort` oracle); (4) create_reactive on
+     the card (8 awaited PFADDs and PFCOUNTs equal to a sync client's,
+     seg_insert launched), an async lock between two tasks, an
+     RRemoteService round trip and a CacheManager put / get / TTL. Every
+     wait polls a state (timeout 120 s); catch-up seconds, replay keys/s,
+     lag, reads per replica, failover seconds and the snapshot's bytes are
+     printed, never checked.
 
 Each path (3, 7, 8, 10, 11, 13, 15's recovery with the checks after it,
-and 16) resets the launch counters just before it and reads them just
-after. The last lines are the card's name and power limit, a
+16 and each step of 19) resets the launch counters just before it and
+reads them just after. The last lines are the card's name and power limit, a
 JSON object with one entry per kernel, and `{"ok": true, "device": {...}}`.
 Exits non-zero, with no result, when no card is visible or the package is
 missing.
@@ -294,6 +322,20 @@ MEM_STATS_KEYS = ("peak.allocated", "total.allocated", "dataset.bytes",
                   "fragmentation", "bank.bytes", "lifecycle.events")
 SV_DIR = "build/phase16"  # git-ignored, inside the checkout; removed after
 SV_PROFILE_DIR = "build/phase16-profile"
+# Phase 19, the read-replica tier: a journal follower replaying the HLL
+# path's 1024 x 40,000 keys, BASELINE config 2's Bloom filter (10M adds) and
+# one 2^27-bit daily bitmap (8M SETBITs); a fleet of two replicas taking the
+# same writes; a failover drill on config 3's 256 x 40,000 state. Every wait
+# polls for a state and fails only after RP_WAIT_S; no check reads a rate, a
+# latency or a lag in seconds (those are printed).
+RP_DIR = "build/phase19"  # git-ignored, inside the checkout; removed after
+RP_WAIT_S = 120.0
+RP_MAX_LAG = 64  # the fleet's max_lag_seqs
+RP_FREEZE_WRITES = 2 * RP_MAX_LAG  # PFADDs that push a frozen replica out
+RP_FREEZE_KEYS = 1000
+RP_POST_BATCHES = 16  # PFADDs of 40,000 keys through the router after the failover
+RP_RX_SKETCHES = 8
+RP_CACHE_TTL_S = 0.5
 # Per-sketch estimates: the RMS error must stay below 2%, and at most this
 # share of sketches may exceed 2%. A single sketch is not held to 2%: the
 # standard error at p = 14 is 0.81%, so 2% is a 2.5-sigma draw, and among
@@ -3457,6 +3499,454 @@ def serve_profile(served, seed: int, card: str) -> None:
         raise AssertionError("the profile() trace names no seg_insert kernel")
 
 
+# -- phase 19: the read-replica tier -----------------------------------------
+
+
+def rp_metric(card: str, what: str, value) -> None:
+    """One phase-19 number on its own line, beside the card it ran on."""
+    log(f"[{card}] phase 19 {what}: {value}")
+
+
+def wait_state(what: str, pred, timeout_s: float = RP_WAIT_S) -> None:
+    """Poll `pred` until it holds; fail only after `timeout_s`."""
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"phase 19: no {what} within {timeout_s} s")
+        time.sleep(0.005)
+
+
+def card_config(ingest: str = "segment"):
+    from redisson_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.use_cuda(ingest=ingest)
+    return cfg
+
+
+def rp_day(seed: int) -> np.ndarray:
+    return np.random.default_rng(seed + 19).integers(0, DAY_BITS, DAY_SETS)
+
+
+def rp_write(client, seed: int) -> int:
+    """The data set of steps 1 and 2: 1024 x 40,000 HLL keys, BASELINE
+    config 2's Bloom filter with 10M adds, one 2^27-bit day with 8M
+    SETBITs, all acknowledged -> keys written."""
+    futs = [client.get_hyper_log_log(f"hll:{i}").add_ints_async(
+        keys_for(i * STRIDE, KEYS, seed)) for i in range(SKETCHES)]
+    [f.result() for f in futs]
+    bloom_fill(client, "bloom", seed)
+    client.get_bit_set("day:0").set_bits(rp_day(seed))
+    return SKETCHES * KEYS + BLOOM_KEYS + DAY_SETS
+
+
+def rp_state(client):
+    """(bank, rows, objects) of a client, read after a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    bank, rows = client.to_numpy_state()
+    return bank, rows, client.to_numpy_objects()
+
+
+def same_state(got, want, what: str) -> None:
+    bank, rows, objects = got
+    wbank, wrows, wobjects = want
+    if set(rows) != set(wrows) or any(not np.array_equal(bank[r], wbank[wrows[n]])
+                                      for n, r in rows.items()):
+        raise AssertionError(f"{what}: HLL registers differ")
+    same_objects(objects, wobjects, what)
+
+
+def on_card(client) -> bool:
+    """Every state tensor of the client (the bank, each BitSet and Bloom) is
+    on the card."""
+    tensors = [client.sketch.bank] + [client._store.get(n).state
+                                      for n in client._store.keys()]
+    return all(t is not None and t.is_cuda for t in tensors)
+
+
+def follower_replay(seed: int, card: str) -> dict:
+    """Step 1: a persisting primary writes the data set and shuts down; a
+    standalone JournalFollower on the card replays its journal. Only the
+    follower launches kernels in this window."""
+    from redisson_tpu_torch.persist.follower import JournalFollower
+
+    path = os.path.join(RP_DIR, "leader")
+    primary = persist_client(path)
+    try:
+        nkeys = rp_write(primary, seed)
+        want = rp_state(primary)
+        last = primary.persist.journal.last_seq
+    finally:
+        primary.shutdown()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    follower = JournalFollower(path, config=card_config(), poll_interval_s=0.005)
+    try:
+        follower.start()
+        max_lag = [0]
+
+        def caught_up() -> bool:
+            max_lag[0] = max(max_lag[0], follower.lag())
+            return follower.applied_seq >= last
+
+        wait_state("follower catch-up to the journal's last seq", caught_up)
+        catch_up = time.perf_counter() - t0
+        launches = all_launches()
+        got = rp_state(follower.client)
+        stats = follower.stats()
+        lag, card_state = follower.lag(), on_card(follower.client)
+    finally:
+        follower.close()
+    rp_metric(card, "follower: records replayed", stats["records_applied"])
+    rp_metric(card, "follower: catch-up seconds (create, bootstrap, replay)", catch_up)
+    rp_metric(card, "follower: replay keys/s", nkeys / catch_up)
+    rp_metric(card, "follower: max lag (records) seen while catching up", max_lag[0])
+    rp_metric(card, "follower: kernel launches", json.dumps(launches))
+    if stats["apply_errors"]:
+        raise AssertionError(f"follower apply errors: {stats}")
+    for name in ("seg_insert", "bits_insert_segmented"):
+        if not launches[name]:
+            raise AssertionError(f"the follower's replay never launched {name}: {launches}")
+    if lag != 0:
+        raise AssertionError(f"follower lag {lag} after catch-up")
+    if not card_state:
+        raise AssertionError("a follower state tensor is not on the card")
+    same_state(got, want, "follower")
+    log(f"  follower: {stats['records_applied']} records replayed on the card; bank, "
+        "Bloom cells and bitmap equal the primary's bit for bit; lag 0")
+    return {"launches": launches, "catch_up_s": catch_up, "keys_per_s": nkeys / catch_up,
+            "max_lag": max_lag[0]}
+
+
+def primary_view(c):
+    """The client's HLL, Bloom and BitSet models bound to the primary's own
+    executor (the router never sees their ops)."""
+    from redisson_tpu_torch.models.bitset import RBitSet
+    from redisson_tpu_torch.models.bloomfilter import RBloomFilter
+    from redisson_tpu_torch.models.hyperloglog import RHyperLogLog
+
+    ex = c._executor
+    return (lambda n: RHyperLogLog(n, ex, c._codec, c._widths),
+            lambda n: RBloomFilter(n, ex, c._codec, c._widths),
+            lambda n: RBitSet(n, ex, c._codec, c._widths))
+
+
+def fleet_client(path: str, ingest: str = "segment"):
+    from redisson_tpu_torch.client import RedissonTorch
+
+    cfg = card_config(ingest)
+    cfg.use_persist(path, fsync="always")
+    cfg.use_replicas(2, auto_failover=False, health_interval_s=0.0,
+                     poll_interval_s=0.005, max_lag_seqs=RP_MAX_LAG)
+    return RedissonTorch.create(cfg)
+
+
+def fleet_reads(c, seed: int, card: str) -> dict:
+    """With no write in flight: PFCOUNT of every sketch, countWith over
+    1000, contains of 1M Bloom keys and BITCOUNT, routed; each answer equal
+    to the primary executor's; the kernels they launched."""
+    router = c._dispatch
+    hll, bloom, bits = primary_view(c)
+    names = [f"hll:{i}" for i in range(SKETCHES)]
+    probe = bloom_keys(0, BLOOM_CONTAINS, seed)  # the first 1M keys added
+    reads0, fb0 = router.replica_reads, router.primary_fallbacks
+    reset_all_launches()
+    counts = [c.get_hyper_log_log(n).count() for n in names]
+    cw = c.get_hyper_log_log(names[0]).count_with(*names[1:MERGE_N])
+    contains = c.get_bloom_filter("bloom").contains_ints(probe)
+    bitcount = c.get_bit_set("day:0").cardinality()
+    launches = all_launches()
+    served, fallbacks = router.replica_reads - reads0, router.primary_fallbacks - fb0
+    per_replica = {r.name: r.reads_served for r in c.replicas.replicas}
+    rp_metric(card, "fleet reads: kernel launches (replica reads only)",
+              json.dumps(launches))
+    rp_metric(card, "fleet reads: served per replica", json.dumps(per_replica))
+    if served < SKETCHES + 3 or fallbacks:
+        raise AssertionError(f"{served} reads served by replicas, {fallbacks} fell back")
+    for name in ("merge_stack", "popcount_partials"):
+        if not launches[name]:
+            raise AssertionError(f"replica reads never launched {name}: {launches}")
+    if counts != [hll(n).count() for n in names]:
+        raise AssertionError("a replica's PFCOUNT differs from the primary's")
+    if cw != hll(names[0]).count_with(*names[1:MERGE_N]):
+        raise AssertionError("a replica's countWith differs from the primary's")
+    if not np.array_equal(contains, bloom("bloom").contains_ints(probe)) or not contains.all():
+        raise AssertionError("a replica's Bloom contains differs from the primary's")
+    if bitcount != bits("day:0").cardinality():
+        raise AssertionError("a replica's BITCOUNT differs from the primary's")
+    log(f"  fleet reads: {served} served by replicas, each equal to the primary "
+        f"executor's (countWith over {MERGE_N}: {cw}, BITCOUNT {bitcount})")
+    return {"launches": launches, "per_replica": per_replica}
+
+
+def fleet_freeze(c, seed: int, card: str) -> None:
+    """A replica whose tail is stopped falls outside max_lag_seqs and is
+    never picked; with both stopped, reads fall back to the primary; a
+    tenant's read after its own write is pinned at or above its acked seq."""
+    router, journal = c._dispatch, c.persist.journal
+    hll = primary_view(c)[0]
+    frozen, live = c.replicas.replicas
+    frozen._stop.set()  # as the JAX corpus does: the tail loop ends
+    frozen._thread.join(RP_WAIT_S)
+    mark = frozen.applied_seq
+    for i in range(RP_FREEZE_WRITES):
+        c.get_hyper_log_log(f"lag:{i % 8}").add_ints(
+            keys_for((1 << 44) + i * RP_FREEZE_KEYS, RP_FREEZE_KEYS, seed))
+    if journal.last_seq - mark <= RP_MAX_LAG:
+        raise AssertionError("the frozen replica is still inside max_lag_seqs")
+    wait_state("the live replica's catch-up", lambda: live.applied_seq >= journal.last_seq)
+    picks = [router.routed_read(f"lag:{i}", "hll_count", None) for i in range(8)]
+    if any(rep is frozen for _, rep, _ in picks):
+        raise AssertionError("a replica outside max_lag_seqs served a read")
+    live._stop.set()
+    live._thread.join(RP_WAIT_S)
+    fb0 = router.primary_fallbacks
+    for i in range(8):
+        c.get_hyper_log_log(f"lag:{i}").add_ints(
+            keys_for((1 << 45) + i * RP_FREEZE_KEYS, RP_FREEZE_KEYS, seed))
+    got = [c.get_hyper_log_log(f"lag:{i}").count() for i in range(8)]
+    fallbacks = router.primary_fallbacks - fb0
+    if fallbacks < 8 or got != [hll(f"lag:{i}").count() for i in range(8)]:
+        raise AssertionError(f"stale replicas: {fallbacks} fallbacks, counts {got}")
+    for rep in (frozen, live):
+        rep.retarget(rep.path)  # the same journal: a partial resync, tail restarted
+    wait_state("both replicas' catch-up after the freeze",
+               lambda: c.replicas.min_watermark() >= journal.last_seq)
+    c.get_hyper_log_log("ryw").add_ints(keys_for(1 << 46, KEYS, seed))
+    seq = journal.last_seq
+    acked = router.acked_seq("")
+    fut, rep, watermark = router.routed_read("ryw", "hll_count", None)
+    if acked < seq or (rep is not None and watermark < acked):
+        raise AssertionError(f"read-your-writes: acked {acked}, write {seq}, read at "
+                             f"{watermark} on {rep and rep.name}")
+    if fut.result() != hll("ryw").count():
+        raise AssertionError("the pinned read differs from the primary's")
+    rp_metric(card, "freeze: primary fallbacks with both tails stopped", fallbacks)
+    log(f"  freeze: the frozen replica (watermark {mark}, primary at {journal.last_seq}) "
+        f"never served; {fallbacks} reads fell back; the pinned read after a write "
+        f"(acked {acked}) was served by {rep.name if rep else 'the primary'}")
+
+
+def fleet_path(seed: int, card: str) -> dict:
+    """Step 2: a client with two replicas on the same card takes the data
+    set; the replicas catch up to the same state; routed reads."""
+    path = os.path.join(RP_DIR, "fleet")
+    c = fleet_client(path)
+    try:
+        reset_all_launches()
+        t0 = time.perf_counter()
+        nkeys = rp_write(c, seed)
+        last = c.persist.journal.last_seq
+        max_lag = [0]
+
+        def caught_up() -> bool:
+            max_lag[0] = max(max_lag[0], c.replicas.max_lag())
+            return c.replicas.min_watermark() >= last
+
+        wait_state("fleet catch-up", caught_up)
+        catch_up = time.perf_counter() - t0
+        if c.wait_for_replicas(2, timeout_s=RP_WAIT_S) != 2:
+            raise AssertionError("wait_for_replicas(2) did not return 2")
+        replay = all_launches()
+        want = rp_state(c)
+        for rep in c.replicas.replicas:
+            if not on_card(rep.client):
+                raise AssertionError(f"a state tensor of {rep.name} is not on the card")
+            same_state(rp_state(rep.client), want, rep.name)
+        rp_metric(card, "fleet: write + catch-up seconds", catch_up)
+        rp_metric(card, "fleet: replay keys/s (per replica, both in step)", nkeys / catch_up)
+        rp_metric(card, "fleet: max lag (records) seen while catching up", max_lag[0])
+        rp_metric(card, "fleet: kernel launches (primary and both replicas)",
+                  json.dumps(replay))
+        log("  fleet: wait_for_replicas(2) = 2; both replicas' bank, Bloom cells and "
+            "bitmap equal the primary's bit for bit")
+        reads = fleet_reads(c, seed, card)
+        fleet_freeze(c, seed, card)
+    finally:
+        c.shutdown()
+    return {"replay_launches": replay, "read_launches": reads["launches"],
+            "catch_up_s": catch_up, "keys_per_s": nkeys / catch_up, "max_lag": max_lag[0],
+            "per_replica": reads["per_replica"]}
+
+
+def failover_drill(card: str) -> dict:
+    """Step 3, on config 3's 256 x 40,000 state: fence, promote, retarget,
+    continue; every acknowledged PFADD is in the new primary."""
+    from redisson_tpu_torch.client import RedissonTorch
+    from redisson_tpu_torch.persist.journal import iter_records
+
+    path = os.path.join(RP_DIR, "failover")
+    c = fleet_client(path)
+    acked = []  # (name, keys) of every acknowledged PFADD
+    try:
+        names = [f"b3:{i}" for i in range(B3_SKETCHES)]
+        keys = b3_keys()
+        futs = [c.get_hyper_log_log(n).add_ints_async(k) for n, k in zip(names, keys)]
+        [f.result() for f in futs]
+        acked += list(zip(names, keys))
+        if c.wait_for_replicas(2, timeout_s=RP_WAIT_S) != 2:
+            raise AssertionError("wait_for_replicas(2) did not return 2 before the failover")
+        mgr, old = c.replicas, c.persist.journal
+        promoted = mgr.failover("phase 19 drill")
+        if promoted is None or not old.fenced:
+            raise AssertionError("failover() did not promote a replica behind a fence")
+        fence = mgr.last_fence_seq
+        probe = keys_for(1 << 47, 8, 0).view(np.uint32).reshape(-1, 2)
+        try:
+            c._executor.execute_sync("fenced:probe", "hll_add", {"packed": probe}, 8)
+        except Exception as exc:  # the executor classifies the journal's refusal
+            if "fenced" not in str(exc):
+                raise
+        else:
+            raise AssertionError("a write on the fenced primary was acknowledged")
+        if old.last_seq != fence or mgr._promoted.applied_seq != fence:
+            raise AssertionError(f"fence {fence}: old journal at {old.last_seq}, "
+                                 f"promotee at {mgr._promoted.applied_seq}")
+        same_state(rp_state(promoted), rp_state(c), "promotee at the fence seq")
+        snap_bytes = promoted.persist.snapshotter.disk_bytes()
+        survivor = mgr.replicas[0]
+        resyncs = survivor._partial_resyncs + survivor._full_resyncs
+        post = [(f"b3:{i}", keys_for((1 << 48) + i * KEYS, KEYS, 0))
+                for i in range(RP_POST_BATCHES)]
+        for n, k in post:
+            c.get_hyper_log_log(n).add_ints(k)  # through the router: the promotee
+        acked += post
+        new_journal = promoted.persist.journal
+        first = next(iter_records(new_journal.path)).seq
+        if first != fence + 1 or new_journal.last_seq != fence + RP_POST_BATCHES:
+            raise AssertionError(f"the new journal starts at {first}, ends at "
+                                 f"{new_journal.last_seq}; the fence was {fence}")
+        if c.wait_for_replicas(1, timeout_s=RP_WAIT_S) != 1:
+            raise AssertionError("the surviving replica did not catch up")
+        if resyncs < 2:
+            raise AssertionError("the survivor's retarget counted no resync")
+        now = rp_state(promoted)
+        same_state(rp_state(survivor.client), now, "survivor after the failover")
+        oracle = RedissonTorch.create(card_config("sort"))
+        try:
+            for n, k in acked:
+                oracle.get_hyper_log_log(n).add_ints(k)
+            want = rp_state(oracle)
+        finally:
+            oracle.shutdown()
+        same_state(now, want, "new primary vs a sort oracle fed the acknowledged PFADDs")
+        seconds = mgr.last_failover_s
+    finally:
+        c.shutdown()
+    rp_metric(card, "failover: seconds (fence, promote, snapshot, retarget)", seconds)
+    rp_metric(card, "failover: the promotee's snapshot bytes on disk", snap_bytes)
+    log(f"  failover: fenced at seq {fence}, the fenced write refused; the promotee "
+        f"equal to the old primary; its journal continues at {fence + 1}; the survivor "
+        f"resynced ({survivor._partial_resyncs} partial, {survivor._full_resyncs} full) "
+        f"and caught up; all {len(acked)} acknowledged PFADDs present (sort oracle)")
+    return {"seconds": seconds, "snapshot_bytes": snap_bytes}
+
+
+def facades_on_card(seed: int, card: str) -> dict:
+    """Step 4: create_reactive on the card; an async lock between two tasks;
+    an RRemoteService round trip and a CacheManager on the card client."""
+    import asyncio
+
+    from redisson_tpu_torch.client import RedissonTorch
+    from redisson_tpu_torch.reactive import create_reactive
+
+    batches = [keys_for((1 << 49) + i * KEYS, KEYS, seed) for i in range(RP_RX_SKETCHES)]
+    names = [f"rx:{i}" for i in range(RP_RX_SKETCHES)]
+    rx = create_reactive(card_config())
+    try:
+        async def hll():
+            hs = [rx.get_hyper_log_log(n) for n in names]
+            await asyncio.gather(*(h.add_ints(b) for h, b in zip(hs, batches)))
+            return await asyncio.gather(*(h.count() for h in hs))
+
+        async def lock():
+            lk, inside, most = rx.get_lock("rx:lock"), [], [0]
+
+            async def critical(tag):
+                async with lk:
+                    inside.append(tag)
+                    most[0] = max(most[0], len(inside))
+                    await asyncio.sleep(0.01)
+                    inside.remove(tag)
+
+            await asyncio.gather(critical("a"), critical("b"))
+            return most[0], await lk.is_locked()
+
+        reset_all_launches()
+        counts = asyncio.run(hll())
+        launches = all_launches()
+        state = rp_state(rx.sync)
+        most, locked = asyncio.run(lock())
+        ref = RedissonTorch.create(card_config())
+        try:
+            for n, b in zip(names, batches):
+                ref.get_hyper_log_log(n).add_ints(b)
+            want = rp_state(ref)
+            ref_counts = [ref.get_hyper_log_log(n).count() for n in names]
+        finally:
+            ref.shutdown()
+        same_state(state, want, "reactive PFADDs vs the sync client's")
+        if counts != ref_counts or not launches["seg_insert"]:
+            raise AssertionError(f"reactive counts {counts} vs {ref_counts}, "
+                                 f"launches {launches}")
+        if most != 1 or locked:
+            raise AssertionError("the async lock let two tasks in, or stayed locked")
+        c = rx.sync
+        rs = c.get_remote_service("phase19")
+
+        class Adder:
+            def add(self, a, b):
+                return a + b
+
+        rs.register("Adder", Adder())
+        if rs.get("Adder").add(20, 22) != 42:
+            raise AssertionError("the remote service round trip failed")
+        cache = c.get_cache_manager({"ttl": {"ttl_s": RP_CACHE_TTL_S}}).get_cache("ttl")
+        cache.put("k", {"v": 1})
+        if cache.get("k") != {"v": 1}:
+            raise AssertionError("the cache manager lost a put")
+        wait_state("the TTL'd cache entry's expiry", lambda: cache.get("k") is None)
+    finally:
+        rx.sync.shutdown()
+    rp_metric(card, "reactive: kernel launches of the 8 awaited PFADDs + PFCOUNTs",
+              json.dumps(launches))
+    log(f"  facades: {RP_RX_SKETCHES} awaited PFADDs' rows equal the sync client's; the "
+        "async lock admitted one task at a time; RRemoteService 20 + 22 = 42; the "
+        "cache entry expired")
+    return {"launches": launches}
+
+
+def replica_path(seed: int, card: str) -> dict:
+    """Phase 19: the journal follower, the fleet, the failover drill and the
+    facades, each resetting the launch counters just before it."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(RP_DIR, ignore_errors=True)
+    os.makedirs(RP_DIR)
+    log(f"phase 19 on {card}:")
+    steps, out = {}, {}
+    for name, fn in (("follower", lambda: follower_replay(seed, card)),
+                     ("fleet", lambda: fleet_path(seed, card)),
+                     ("failover", lambda: failover_drill(card)),
+                     ("facades", lambda: facades_on_card(seed, card))):
+        t = time.perf_counter()
+        out[name] = fn()
+        steps[name] = round(time.perf_counter() - t, 3)
+    shutil.rmtree(RP_DIR, ignore_errors=True)
+    launches = {}
+    for d in (out["follower"]["launches"], out["fleet"]["read_launches"],
+              out["facades"]["launches"]):
+        launches = add_launches(launches, d)
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - t_phase
+    rp_metric(card, "seconds by step", json.dumps(steps))
+    rp_metric(card, "wall seconds", out["wall_s"])
+    return out
+
+
 def merge_pair(tree: str, seed: int) -> int:
     """The client's merge call (`engine._merged_rows`: a numpy row list of
     257 and 1001 bank rows, as the backend passes it) and merge_stack over a
@@ -3526,6 +4016,7 @@ def phase_table(seed: int, card: str, deferred: list, out: dict) -> dict:
         "structures": lambda: structures_path(out["batch path"][1], card),
         "durability": lambda: durability_path(seed, card),
         "serve": lambda: serve_path(seed, card, out["hll path"][1]),
+        "replica": lambda: replica_path(seed, card),
     }
 
 
@@ -3569,6 +4060,8 @@ def run_phase(name: str, seed: int, card: str, phases: dict, out: dict) -> int:
         finally:
             served.shutdown()
         log(f"phase serve launches: {json.dumps(launches)}")
+    if name == "replica":
+        log(f"phase replica launches: {json.dumps(out[name]['launches'])}")
     if "batch path" in out:
         out["batch path"][1].shutdown()
     no_jax_loaded()
@@ -3664,8 +4157,10 @@ def main() -> int:
     dmerge, wmerge = out["delta kernels"]
     # Phase 15's recovery and the checks after it, and phase 16.
     dur_l = out["durability"]["recovery"]["launches"]
+    # Phase 19: the follower's replay, the fleet's replica reads, the facades.
+    rep_l = out["replica"]["launches"]
     launches = add_launches(add_launches(out["hll path"][0], out["batch path"][0]),
-                            add_launches(dur_l, serve_l))
+                            add_launches(add_launches(dur_l, serve_l), rep_l))
     bloom_l, bitset_l = out["bloom path"][0], out["bitset path"]
     delta_l = [out[p] for p in ("delta hll path", "delta bloom path",
                                 "delta bitset path", "mixed tape window")] + [dur_l]
@@ -3683,12 +4178,14 @@ def main() -> int:
         dict(name="bits_insert_segmented", route="cuda", source=src + "bits_insert.cu",
              replaces="redisson_tpu/ingest/kernels.py:145",
              launches=(bloom_l["bits_insert_segmented"] + dur_l["bits_insert_segmented"]
-                       + serve_l["bits_insert_segmented"]),
+                       + serve_l["bits_insert_segmented"]
+                       + rep_l["bits_insert_segmented"]),
              **bseg),
         dict(name="popcount_partials", route="cuda", source=src + "popcount.cu",
              replaces="redisson_tpu/ops/pallas_kernels.py:172",
              launches=(bloom_l["popcount_partials"] + bitset_l["popcount_partials"]
-                       + dur_l["popcount_partials"] + serve_l["popcount_partials"]),
+                       + dur_l["popcount_partials"] + serve_l["popcount_partials"]
+                       + rep_l["popcount_partials"]),
              **pop),
         dict(name="bitop_cells", route="cuda", source=src + "bitop.cu",
              replaces="redisson_tpu/ops/pallas_kernels.py:223",

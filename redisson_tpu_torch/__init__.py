@@ -9,3 +9,7 @@ Pass `device="cpu"` to run the same engine on the CPU.
 
 The package imports neither JAX nor any `redisson_tpu` module.
 """
+
+from redisson_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

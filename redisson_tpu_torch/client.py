@@ -20,10 +20,16 @@ LATENCY, commandstats, Chrome trace). The metrics registry
 (`client.metrics`) and the byte ledger (`client.memstat`, `memory_usage` /
 `memory_stats` / `memory_doctor` / `memory_verify`, `info`) are always on;
 `Config.use_memstat()` sets its watermarks. `get_nodes_group()` pings the
-client's device.
+client's device. `Config.use_replicas()` (with `use_persist`) starts a
+read-replica fleet on the same device (`client.replicas`,
+`wait_for_replicas`): each replica tails the journal through its own
+engine, and the object getters bind to the ReplicaRouter, which sends
+reads to a replica inside the staleness bound and writes to the primary.
+`get_remote_service()` and `get_cache_manager()` are the services tier
+(`services/`); `reactive.create_reactive()` is the asyncio client.
 
-Getters of tiers the port has not reached yet (topology, remote service,
-cache manager) raise NotImplementedError naming the ROADMAP item.
+`get_topology_manager` belongs to a tier the port has not reached yet and
+raises NotImplementedError naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -71,6 +77,7 @@ from redisson_tpu_torch.observability import (ExecutorMetrics, MetricsRegistry,
                                               NodesGroup, register_delta_ingest,
                                               register_memstat,
                                               register_read_cache,
+                                              register_replica,
                                               register_trace)
 from redisson_tpu_torch.routing import RoutingBackend
 from redisson_tpu_torch.store import SketchStore
@@ -141,6 +148,8 @@ class RedissonTorch:
         self._is_shutdown = False
         self._persist = None
         self._fault = None
+        self._replicas = None
+        self._remote_services = {}
         # Durability first (recovery replays before any user traffic and
         # before the journal attaches), then faults (the rebuild path needs
         # the recovered journal); a failure unwinds the whole client.
@@ -175,6 +184,29 @@ class RedissonTorch:
             except Exception:
                 self.shutdown()
                 raise
+        # Read-replica fleet (replica/): N serving replicas tailing the
+        # journal (persist IS the replication stream) + bounded-staleness
+        # read routing + failover. Wired after fault so the DeviceLost
+        # trigger can chain onto the fault listener fan-out.
+        repcfg = self.config.replicas
+        if repcfg is not None:
+            if self._persist is None:
+                self.shutdown()
+                raise ValueError(
+                    "Config.replicas requires Config.persist with a dir — "
+                    "replicas tail that journal as the replication stream")
+            from redisson_tpu_torch.replica import ReplicaManager
+
+            self._replicas = ReplicaManager(self, repcfg)
+            try:
+                self._replicas.start()
+            except Exception:
+                self.shutdown()
+                raise
+            # Model getters bind to _dispatch when called, so every object
+            # created from here on routes reads through the fleet.
+            self._dispatch = self._replicas.router
+            register_replica(self.metrics, self._replicas)
 
     def _build_executor(self, max_batch_keys: int) -> None:
         """The executor waist and, when `Config.serve` is set, the serving
@@ -387,6 +419,19 @@ class RedissonTorch:
         """The FaultManager when Config.faults is set, else None."""
         return self._fault
 
+    @property
+    def replicas(self):
+        """The ReplicaManager when Config.replicas is set, else None."""
+        return self._replicas
+
+    def wait_for_replicas(self, n: int, timeout_s: float = 5.0) -> int:
+        """Redis WAIT analogue: block until n replicas have applied at
+        least the primary's current committed journal seq; returns how
+        many have (possibly < n on timeout)."""
+        if self._replicas is None:
+            raise RuntimeError("no replica fleet configured (Config.replicas)")
+        return self._replicas.wait_for_replicas(n, timeout_s=timeout_s)
+
     def snapshot_now(self) -> str:
         """On-demand persistent snapshot (BGSAVE analogue): cuts through
         the dispatcher barrier, writes via checkpoint.py, truncates covered
@@ -462,7 +507,8 @@ class RedissonTorch:
         return self.memstat.verify(self._store, self.sketch)
 
     def info(self, section: Optional[str] = None):
-        """INFO: dict of section dicts (server, memory, persistence);
+        """INFO: dict of section dicts (server, memory, persistence,
+        replication);
         `section` filters to one block, like INFO MEMORY."""
         sections = {
             "server": {"mode": "cuda", "device": str(self.device),
@@ -471,6 +517,10 @@ class RedissonTorch:
         }
         if self._persist is not None:
             sections["persistence"] = self._persist.stats()
+        if self._replicas is not None:
+            sections["replication"] = {
+                "role": "primary",
+                "connected_replicas": len(self._replicas.replicas)}
         if section is not None:
             key = section.lower()
             if key not in sections:
@@ -494,13 +544,23 @@ class RedissonTorch:
         raise _not_ported("get_topology_manager",
                           "parallel/ via NCCL (parallel/topology.py)")
 
+    # -- services -----------------------------------------------------------
+
     def get_remote_service(self, name: str = "remote_service"):
-        raise _not_ported("get_remote_service",
-                          "reactive/ and services/ (services/remote.py)")
+        """RPC service registry/proxy factory (RRemoteService analogue).
+        One cached instance per name; shut down with the client."""
+        from redisson_tpu_torch.services.remote import RRemoteService
+
+        rs = self._remote_services.get(name)
+        if rs is None:
+            rs = self._remote_services[name] = RRemoteService(self, name)
+        return rs
 
     def get_cache_manager(self, configs=None):
-        raise _not_ported("get_cache_manager",
-                          "reactive/ and services/ (services/cache_manager.py)")
+        """Spring-cache-manager analogue over RMap/RMapCache."""
+        from redisson_tpu_torch.services.cache_manager import CacheManager
+
+        return CacheManager(self, configs)
 
     # -- keyspace -----------------------------------------------------------
 
@@ -548,8 +608,11 @@ class RedissonTorch:
     def shutdown(self) -> None:
         """Stop in the JAX client's order: the fault manager (its watchdog
         reads executor internals; in-flight rebuilds finish while the
-        executor still takes their replay), the snapshotter, the eviction
-        sweeps and the lock watchdog (both submit ops), then the executor
+        executor still takes their replay), the replica fleet (its prober
+        polls this executor; each replica shuts its own client down, the
+        promoted one with the persistence a failover attached), the
+        snapshotter, the remote services' workers, the eviction sweeps and
+        the lock watchdog (both submit ops), then the executor
         (drains queued and in-flight runs, which still journal), the
         journal (final fsync), the device completer, the parked blocking
         pops (their waiters get an error), and last the pub/sub delivery
@@ -559,8 +622,14 @@ class RedissonTorch:
         if self._fault is not None:
             self._fault.stop()
             self._fault = None
+        if self._replicas is not None:
+            self._replicas.close()
+            self._replicas = None
         if self._persist is not None:
             self._persist.stop_background()
+        for rs in self._remote_services.values():
+            rs.shutdown(wait=False)
+        self._remote_services.clear()
         self._eviction.shutdown()
         self._watchdog.shutdown()
         if self.serve is not None:

@@ -4,9 +4,9 @@ single-device sketch engine on a CUDA card.
 `Config.use_cuda()` is the builder, like `Config.use_tpu()`: it creates (or
 returns) the `CudaConfig` section, applies any keyword overrides, and
 returns that section. `use_persist(dir)`, `use_faults()`, `use_serve()`,
-`use_trace()` and `use_memstat()` do the same for the durability, fault,
-serving, trace and memory sections (the JAX package's fields and
-defaults). `to_dict` / `from_dict` / `to_json` / `from_json` round-trip a
+`use_trace()`, `use_memstat()` and `use_replicas()` do the same for the
+durability, fault, serving, trace, memory and read-replica sections (the
+JAX package's fields and defaults). `to_dict` / `from_dict` / `to_json` / `from_json` round-trip a
 Config through plain data.
 """
 
@@ -171,6 +171,36 @@ class MemConfig:
     doctor_watermark_ratio: float = 0.9  # MEMORY DOCTOR near-watermark rule
 
 
+@dataclass
+class ReplicaConfig:
+    """Read-replica fleet (`replica/`): N serving replicas, each a full
+    engine stack tailing the primary's journal, fronted by a ReplicaRouter
+    that sends read-only op kinds to a replica whose applied watermark
+    satisfies the read's staleness bound — the engine-owned analogue of
+    `readMode=SLAVE` in `MasterSlaveConnectionManager.java` (mirrors
+    `redisson_tpu.config.ReplicaConfig`). Requires `Config.persist` with a
+    dir (replicas tail that journal). Replicas run on the primary's device."""
+
+    num_replicas: int = 2
+    # Bounded-staleness defaults; per-read `max_lag=`/`max_lag_s=` override.
+    # A replica is eligible when primary_seq - applied_seq <= max_lag_seqs
+    # AND (max_lag_s == 0 or time since it was last caught up <= max_lag_s).
+    max_lag_seqs: int = 1024
+    max_lag_s: float = 0.0
+    # Pin a tenant's reads at/above the highest journal seq acked to it.
+    read_your_writes: bool = True
+    # Follower tail cadence / apply batch (JournalFollower knobs).
+    poll_interval_s: float = 0.01
+    apply_window: int = 1024
+    # Failover: promote the highest-watermark replica when the primary
+    # dies (DeviceLostFault through the fault manager, or health_failures
+    # consecutive failed probes at health_interval_s cadence).
+    auto_failover: bool = True
+    health_interval_s: float = 0.25
+    health_failures: int = 3
+    promote_timeout_s: float = 30.0
+
+
 def _apply(section, overrides: dict):
     names = {f.name for f in fields(section)}
     for key, value in overrides.items():
@@ -192,6 +222,7 @@ class Config:
     serve: Optional[ServeConfig] = None
     trace: Optional[TraceConfig] = None
     memory: Optional[MemConfig] = None
+    replicas: Optional[ReplicaConfig] = None
 
     def use_cuda(self, **overrides) -> CudaConfig:
         self.cuda = _apply(self.cuda or CudaConfig(), overrides)
@@ -229,6 +260,15 @@ class Config:
         self.memory = _apply(self.memory or MemConfig(), overrides)
         return self.memory
 
+    def use_replicas(self, num_replicas: int = 0, **overrides) -> ReplicaConfig:
+        """The read-replica section: fleet size, staleness bounds,
+        failover (JAX's `use_replicas(num_replicas)`; keyword overrides as
+        the other builders take them)."""
+        self.replicas = self.replicas or ReplicaConfig()
+        if num_replicas:
+            self.replicas.num_replicas = num_replicas
+        return _apply(self.replicas, overrides)
+
     # -- (de)serialization --------------------------------------------------
 
     def to_dict(self) -> Dict[str, Any]:
@@ -265,4 +305,5 @@ class Config:
 #: Config attribute -> section type (the dict round trip's schema)
 SECTION_TYPES = {"cuda": CudaConfig, "persist": PersistConfig,
                  "faults": FaultConfig, "serve": ServeConfig,
-                 "trace": TraceConfig, "memory": MemConfig}
+                 "trace": TraceConfig, "memory": MemConfig,
+                 "replicas": ReplicaConfig}

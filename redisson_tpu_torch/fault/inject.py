@@ -19,10 +19,13 @@ JAX package's, so its plans run here unchanged):
                   is waited for and the result materialized
   journal_fsync   persist/journal.py — before the durability fsync
   snapshot_io     persist/snapshotter.py — the snapshot write
-  mesh_collective, replica_tail, health_probe, wire_conn, geo_link —
-                  seams of tiers the port has not reached yet (the mesh,
-                  the journal follower and replicas, the wire front end,
-                  geo replication); plans may name them, nothing fires them
+  replica_tail    persist/follower.py — each pass of the follower's tail
+                  loop (a fault there freezes the replica's watermark)
+  health_probe    replica/manager.py — the primary's health probe (a fault
+                  there is a failed probe)
+  mesh_collective, wire_conn, geo_link — seams of tiers the port has not
+                  reached yet (the mesh, the wire front end, geo
+                  replication); plans may name them, nothing fires them
 
 Cost when disabled: `fire()` reads one module global and returns — no
 lock, no allocation — so the instrumentation stays under the <1%

@@ -7,12 +7,14 @@ all three), and tears it down first in shutdown (the watchdog and rebuild
 threads must stop before the executor they poll does). With a serving
 layer, the watchdog's deadlines come from its cost model and both the
 watchdog and the rebuild drive its breaker board; without one, deadlines
-are the floor and there is no board.
+are the floor and there is no board. Other observers of retired device
+faults (the replica tier's DeviceLost failover trigger) register with
+`add_fault_listener`.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 from redisson_tpu_torch.fault import inject, taxonomy
 from redisson_tpu_torch.fault.inject import FaultInjector, FaultPlan
@@ -27,6 +29,7 @@ class FaultManager:
         self.injector: Optional[FaultInjector] = None
         self.watchdog: Optional[RunWatchdog] = None
         self.rebuild: Optional[RebuildCoordinator] = None
+        self._extra_listeners: List[Callable] = []
         self._started = False
 
     def start(self) -> None:
@@ -61,9 +64,26 @@ class FaultManager:
 
         register_fault(client.metrics, self)
 
+    def add_fault_listener(self, fn) -> None:
+        """Register `fn(kind, targets, exc)` to observe retired device
+        faults alongside the rebuild coordinator (the ReplicaManager's
+        DeviceLost failover trigger)."""
+        self._extra_listeners.append(fn)
+
+    def remove_fault_listener(self, fn) -> None:
+        if fn in self._extra_listeners:
+            self._extra_listeners.remove(fn)
+
     def _on_fault(self, kind, targets, exc) -> None:
         if self.rebuild is not None:
             self.rebuild.on_fault(kind, targets, exc)
+        for fn in list(self._extra_listeners):
+            try:
+                fn(kind, targets, exc)
+            except Exception:
+                # Fan-out is best-effort: one observer's crash must not
+                # starve the rest or the retire path.
+                pass
 
     def stop(self) -> None:
         if not self._started:

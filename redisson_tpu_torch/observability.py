@@ -14,9 +14,10 @@ hooks, and the nodes/health API (counterpart of
     synchronize), plus connect/disconnect listener fan-out (the
     ConnectionEventsHub role).
 
-The gauges of the wire, replica, geo and follower tiers
-(`register_wire` / `register_replica` / `register_geo` /
-`register_follower`) arrive with those tiers.
+`register_follower` and `register_replica` expose the journal follower's
+lag and the read-replica fleet (the client registers the fleet's gauges
+when `Config.replicas` is set); the gauges of the wire and geo tiers
+(`register_wire` / `register_geo`) arrive with those tiers.
 """
 
 from __future__ import annotations
@@ -583,3 +584,35 @@ def register_memstat(registry: MetricsRegistry, ledger,
         registry.gauge("memstat.shed_total", lambda: pressure.shed_total)
         registry.gauge("memstat.high_watermark_bytes",
                        lambda: pressure.config.high_watermark_bytes)
+
+
+def register_follower(registry: MetricsRegistry, follower) -> None:
+    """Bounded-lag gauge for a warm standby (persist/follower.py)."""
+    registry.gauge("persist.follower_lag", follower.lag)
+    registry.gauge("persist.follower_applied_seq", lambda: follower.applied_seq)
+
+
+def register_replica(registry: MetricsRegistry, manager) -> None:
+    """Read-replica fleet gauges (replica/manager.py): worst-case lag and
+    lowest watermark across the fleet, PSYNC-parity resync counters
+    (sync_full / sync_partial_ok), promotions, and the router's read
+    routing split."""
+    registry.gauge("replica.count", lambda: len(manager.replicas))
+    registry.gauge("replica.max_lag", manager.max_lag)
+    registry.gauge("replica.min_watermark", manager.min_watermark)
+    registry.gauge("replica.full_resyncs", manager.full_resyncs)
+    registry.gauge("replica.partial_resyncs", manager.partial_resyncs)
+    registry.gauge("replica.promotions", lambda: manager.promotions)
+    # Failover generation: which journal stream is live (0 = the original
+    # primary's, N = the Nth promotee's epoch journal) and how many
+    # demoted primaries the fleet still tracks for teardown.
+    registry.gauge("replica.epoch", lambda: manager._epoch)
+    registry.gauge("replica.retired_primaries",
+                   lambda: len(manager._retired))
+    registry.gauge("replica.reads",
+                   lambda: manager.router.replica_reads if manager.router else 0)
+    registry.gauge("replica.primary_fallbacks",
+                   lambda: manager.router.primary_fallbacks if manager.router else 0)
+    registry.gauge("replica.moved_retries",
+                   lambda: (manager.router.replica_moved_retries
+                            if manager.router else 0))

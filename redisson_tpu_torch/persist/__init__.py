@@ -10,9 +10,13 @@
   * recover.py     — newest snapshot + journal-suffix replay through the
                      normal executor/backend op path.
 
-`PersistenceManager` (manager.py) wires the pieces to one client. The JAX
-package's journal follower (`persist/follower.py`, warm standby) is not
-ported yet: it belongs with the replica tier.
+  * follower.py    — warm standby: a second engine that bootstraps from
+                     the newest snapshot and tails the journal (file mode
+                     across processes, queue mode in process), with
+                     promote / retarget and PSYNC-style resync counters;
+                     the replica tier builds on it.
+
+`PersistenceManager` (manager.py) wires the pieces to one client.
 """
 
 from redisson_tpu_torch.persist.codec import decode_payload, encode_payload
@@ -27,9 +31,11 @@ from redisson_tpu_torch.persist.journal import (
 from redisson_tpu_torch.persist.manager import PersistenceManager
 from redisson_tpu_torch.persist.recover import recover
 from redisson_tpu_torch.persist.snapshotter import Snapshotter, find_snapshots
+from redisson_tpu_torch.persist.follower import JournalFollower
 
 __all__ = [
     "Journal",
+    "JournalFollower",
     "JournalGap",
     "JournalRecord",
     "JournalTail",

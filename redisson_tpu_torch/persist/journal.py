@@ -43,7 +43,7 @@ import os
 import struct
 import threading
 import time
-from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple
 from zlib import crc32
 
 from redisson_tpu_torch.commands import OP_TABLE
@@ -213,7 +213,7 @@ class Journal:
 
     def __init__(self, path: str, fsync: str = "everysec",
                  fsync_interval_s: float = 1.0, group_commit_runs: int = 2,
-                 segment_max_bytes: int = 64 << 20):
+                 segment_max_bytes: int = 64 << 20, start_seq: int = 0):
         if fsync not in ("always", "everysec", "off"):
             raise ValueError(f"unknown fsync policy {fsync!r}")
         self.path = os.path.abspath(path)
@@ -221,11 +221,19 @@ class Journal:
         self._interval_s = max(0.01, float(fsync_interval_s))
         self._group = max(1, int(group_commit_runs))
         self._segment_max = max(1 << 16, int(segment_max_bytes))
+        # First seq in an EMPTY dir is start_seq + 1: a promoted replica's
+        # fresh journal continues the old primary's global numbering, so
+        # surviving replicas can partial-resync against it (PSYNC replid
+        # continuity). Ignored when the dir already has segments.
+        self._start_seq = max(0, int(start_seq))
         os.makedirs(self.path, exist_ok=True)
         self._io = make_rlock("journal.Journal._io")
         self._dirty = False
         self._unsynced_runs = 0
         self._closed = False
+        self._fenced = False
+        # In-process tails (persist/follower.py queue mode); see add_listener.
+        self._listeners: List[Callable[[List[JournalRecord]], None]] = []
         # counters (stats() snapshots them; writes happen under _io)
         self._records_appended = 0
         self._runs_appended = 0
@@ -247,8 +255,8 @@ class Journal:
     def _open_segments(self) -> int:
         self._segments = _list_segments(self.path)
         if not self._segments:
-            self._create_segment(1)
-            return 0
+            self._create_segment(self._start_seq + 1)
+            return self._start_seq
         # Validate the committed prefix; truncate at the first tear and
         # drop every segment past it (unreachable history).
         prev: Optional[int] = None
@@ -283,8 +291,8 @@ class Journal:
             _fsync_dir(self.path)
         if not self._segments:
             # every segment was torn at the header: start over
-            self._create_segment(1)
-            return 0
+            self._create_segment(self._start_seq + 1)
+            return self._start_seq
         last_seq = prev if prev is not None else 0
         self._f = open(self._segments[-1][1], "ab")
         return last_seq
@@ -325,6 +333,7 @@ class Journal:
         if not ops:
             return 0
         frames = bytearray()
+        records: List[JournalRecord] = []
         # single-appender discipline: only the executor dispatcher calls append_run, so pre-encoding frames with an unlocked _last_seq read is race-free — the commit under _io below re-publishes it
         seq = self._last_seq
         for op in ops:
@@ -344,9 +353,21 @@ class Journal:
             body = bytes(body)
             frames += _FRAME.pack(len(body), crc32(body))
             frames += body
+            if self._listeners:
+                # A listener gets the record as a tail of the file reads it:
+                # decoded from the bytes just framed. The live payload may
+                # hold a tensor or array the caller reuses or the engine
+                # writes in place after this returns; the copy cannot change.
+                records.append(JournalRecord(seq, op.target, op_kind,
+                                             decode_payload(payload)))
         with self._io:
             if self._closed:
                 raise RuntimeError("journal is closed")
+            if self._fenced:
+                # Failover fence: the executor fails the op (nothing has
+                # committed yet), so no write is ever acked into a stream
+                # the surviving fleet has stopped tailing.
+                raise RuntimeError("journal is fenced (failover in progress)")
             self._f.write(frames)
             self._last_seq = seq
             self._records_appended += len(ops)
@@ -363,7 +384,38 @@ class Journal:
                 self.sync()
             else:
                 self._wake.set()  # arm the linger backstop
+        for fn in self._listeners:
+            fn(records)
         return len(ops)
+
+    def add_listener(self, fn: Callable[[List[JournalRecord]], None]) -> None:
+        """In-process tail: `fn(records)` fires on the appending thread
+        after the write lands in the journal buffer. Each record's payload
+        is decoded from its framed bytes (what a file tail would read), so
+        no later write to the caller's buffers reaches it."""
+        self._listeners.append(fn)
+
+    def remove_listener(self, fn) -> None:
+        try:
+            self._listeners.remove(fn)
+        except ValueError:
+            pass
+
+    def fence(self) -> None:
+        """Failover fence: flush what's already appended, then refuse every
+        further append_run (the executor fails those ops before they commit,
+        so nothing is acked into a stream the surviving fleet has stopped
+        tailing). After fence() returns, `last_seq` is final — the promotion
+        watermark can be read without racing in-flight writes. Irreversible:
+        a fenced journal only closes."""
+        with self._io:
+            self._fenced = True
+            if not self._closed:
+                self._f.flush()
+
+    @property
+    def fenced(self) -> bool:
+        return self._fenced
 
     @property
     def last_seq(self) -> int:
@@ -526,6 +578,7 @@ class Journal:
                 "unsynced_runs": self._unsynced_runs,
                 "segments": len(self._segments),
                 "recovered_tail_bytes": self._recovered_tail_bytes,
+                "fenced": self._fenced,
             }
 
     def close(self) -> None:

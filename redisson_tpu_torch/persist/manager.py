@@ -13,6 +13,11 @@ user traffic):
      commit point) — journaling resumes at the recovered seq;
   4. start the background snapshotter.
 
+start() also works on a live client created without persistence: the
+replica tier's failover attaches a journal (`start_seq` = the promotion
+watermark, so the fresh journal continues the old primary's numbering) to
+the promoted replica's client after it has served traffic.
+
 Shutdown is split to match the client's teardown ordering: the snapshotter
 stops before the executor drains (stop_background), the journal closes
 after it (close) — drained ops still journal, and the final close fsyncs.
@@ -29,9 +34,13 @@ from redisson_tpu_torch.persist.snapshotter import Snapshotter, find_snapshots
 
 
 class PersistenceManager:
-    def __init__(self, client, cfg):
+    def __init__(self, client, cfg, start_seq: int = 0):
         self._client = client
         self.cfg = cfg
+        # Seq numbering floor for a FRESH journal dir (promoted-replica
+        # failover continues the old primary's global numbering so the
+        # surviving fleet can partial-resync); 0 for normal startups.
+        self._start_seq = start_seq
         self.journal: Optional[Journal] = None
         self.snapshotter: Optional[Snapshotter] = None
         self.last_recovery: Optional[Dict[str, Any]] = None
@@ -43,7 +52,8 @@ class PersistenceManager:
         group = cfg.group_commit_runs or getattr(client.config, "inflight_runs", 2)
         self.journal = Journal(
             cfg.dir, fsync=cfg.fsync, fsync_interval_s=cfg.fsync_interval_s,
-            group_commit_runs=group, segment_max_bytes=cfg.segment_max_bytes)
+            group_commit_runs=group, segment_max_bytes=cfg.segment_max_bytes,
+            start_seq=self._start_seq)
         had_state = self.journal.last_seq > 0 or bool(find_snapshots(cfg.dir))
         if cfg.auto_recover and had_state:
             self.last_recovery = recover(client, cfg.dir)

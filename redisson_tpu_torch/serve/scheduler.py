@@ -21,8 +21,10 @@ that a retry absorbed. Gate failures (RejectedError / CircuitOpenError /
 DeadlineExceeded) come back as *failed futures*, not raises — submission
 stays non-blocking and uniform for async callers.
 
-The replica tier's read-your-writes ack sink (`enable_ack_tracking`)
-arrives with that tier. Module-level imports avoid
+The replica tier's read-your-writes pins come from here: with an ack sink
+installed (`enable_ack_tracking`, the ReplicaRouter) every acknowledged
+write reports the journal's last seq; unset, the ack path pays one `None`
+check. Module-level imports avoid
 `redisson_tpu_torch.executor` (it imports serve.errors; the lock factory
 and BatchCollector are pulled lazily).
 """
@@ -38,6 +40,7 @@ import time
 from concurrent.futures import Future
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+from redisson_tpu_torch.commands import OP_TABLE
 from redisson_tpu_torch.serve.admission import AdmissionController
 from redisson_tpu_torch.serve.breaker import BreakerBoard
 from redisson_tpu_torch.serve.errors import (CircuitOpenError, DeadlineExceeded,
@@ -166,6 +169,33 @@ class ServingLayer:
         # by the client via attach_memstat. None = no watermark shedding.
         self._pressure = None
         self._memstat = None
+        # Read-your-writes ack sink (replica/router.py), installed by
+        # enable_ack_tracking. None = one check on the ack path.
+        self._ack_sink = None
+
+    def enable_ack_tracking(self, sink) -> None:
+        """Replica read-your-writes: `sink.record_ack(tenant, seq)` fires
+        on every successfully acked write with the journal's last committed
+        seq — >= the op's own seq, since the write-ahead append preceded
+        the ack, so the pin is conservative (never low)."""
+        self._ack_sink = sink
+
+    def _record_ack(self, kind: str, tenant: str) -> None:
+        sink = self._ack_sink
+        if sink is None:
+            return
+        desc = OP_TABLE.get(kind)
+        if desc is None or not desc.write:
+            return
+        journal = getattr(self._executor, "journal", None)
+        if journal is None:
+            return
+        try:
+            sink.record_ack(tenant, journal.last_seq)
+        except Exception:
+            # Ack bookkeeping must never fail a completed write back to
+            # its caller.
+            pass
 
     def attach_memstat(self, ledger, pressure=None) -> None:
         """Wire the byte ledger (snapshot 'memory' block) and, when a
@@ -291,6 +321,9 @@ class ServingLayer:
 
         def _one_done(f: Future, kind: str) -> None:
             self._account_completion(f, kind)
+            if (self._ack_sink is not None and not f.cancelled()
+                    and f.exception() is None):
+                self._record_ack(kind, tenant)
             with rlock:
                 remaining[0] -= 1
                 last = remaining[0] == 0
@@ -383,6 +416,7 @@ class ServingLayer:
         exc = inner.exception()
         if exc is None:
             breaker.on_success(now)
+            self._record_ack(kind, tenant)
             # done-callback context: inner is already resolved
             self._finish_ok(outer, inner.result())
             return

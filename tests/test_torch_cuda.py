@@ -7,7 +7,10 @@ client on the CPU; persistence, the snapshot cut, add_device replay and a
 real out-of-memory error on the card; the served, traced path against the
 CPU, the (hi, lo) PFADD under segment, the memory gate shedding a SETBIT
 at the high watermark before it allocates, xxhash64 and bitpos on the card against the CPU and
-numpy. They skip where no card is visible. Run them on a
+numpy; a journal follower and a two-replica fleet on the card (replay
+through seg_insert and the segment-OR, replica reads through merge_stack
+and popcount, state equal to the primary's, a failover losing no
+acknowledged write). They skip where no card is visible. Run them on a
 machine with one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -739,3 +742,112 @@ def test_bitpos_on_card_matches_numpy(dev, case):
     for value in (0, 1):
         hit = np.flatnonzero(cells == value)
         assert bitset.bitpos(t, value) == (int(hit[0]) if hit.size else -1)
+
+
+def _fleet_writes(c, rng, tag: str):
+    """HLL, Bloom and BitSet writes of one round; returns the HLL batches."""
+    batches = [rng.integers(0, 2**64, 40_000, dtype=np.uint64) for _ in range(8)]
+    for i, b in enumerate(batches):
+        c.get_hyper_log_log(f"{tag}{i}").add_ints(b)
+    bf = c.get_bloom_filter("bf")
+    bf.try_init(1_000_000, 0.01)
+    bf.add_ints(rng.integers(0, 2**64, 200_000, dtype=np.uint64))
+    c.get_bit_set("day").set_bits(rng.integers(0, 1 << 24, 100_000))
+    return batches
+
+
+def _state(c):
+    torch.cuda.synchronize()
+    bank, rows = c.to_numpy_state()
+    return {n: bank[r].copy() for n, r in rows.items()}, c.to_numpy_objects()
+
+
+def _same_state(a, b):
+    (ah, ao), (bh, bo) = a, b
+    assert ah.keys() == bh.keys() and ao.keys() == bo.keys()
+    for n in ah:
+        np.testing.assert_array_equal(ah[n], bh[n])
+    for n in ao:
+        np.testing.assert_array_equal(ao[n][1], bo[n][1])
+
+
+def test_follower_replays_through_the_kernels_on_card(dev, tmp_path):
+    from redisson_tpu_torch.persist.follower import JournalFollower
+
+    cfg = Config()
+    cfg.use_cuda(ingest="segment")
+    cfg.use_persist(str(tmp_path / "lead"), fsync="always")
+    c = RedissonTorch.create(cfg)
+    try:
+        _fleet_writes(c, np.random.default_rng(41), "h")
+        want = _state(c)
+        last = c.persist.journal.last_seq
+    finally:
+        c.shutdown()
+    ik.reset_launches()
+    fcfg = Config()
+    fcfg.use_cuda(ingest="segment")
+    follower = JournalFollower(str(tmp_path / "lead"), config=fcfg,
+                               poll_interval_s=0.005)
+    try:
+        promoted = follower.promote(catch_up=True, timeout_s=120)
+        torch.cuda.synchronize()
+        assert ik.launches["seg_insert"] and ik.launches["bits_insert_segmented"]
+        assert follower.applied_seq == last and follower.lag() == 0
+        assert promoted.device.type == "cuda"
+        _same_state(_state(promoted), want)
+    finally:
+        follower.close()
+
+
+def test_replica_fleet_on_card(dev, tmp_path):
+    cfg = Config()
+    cfg.use_cuda(ingest="segment")
+    cfg.use_persist(str(tmp_path / "primary"), fsync="always")
+    cfg.use_replicas(2, auto_failover=False, health_interval_s=0.0,
+                     poll_interval_s=0.005)
+    c = RedissonTorch.create(cfg)
+    try:
+        rng = np.random.default_rng(42)
+        batches = _fleet_writes(c, rng, "h")
+        assert c.wait_for_replicas(2, timeout_s=120) == 2
+        want = _state(c)
+        for rep in c.replicas.replicas:
+            assert rep.client.device.type == "cuda"
+            _same_state(_state(rep.client), want)
+        ok.reset_launches()
+        names = [f"h{i}" for i in range(8)]
+        ex = c._executor
+        union = c.get_hyper_log_log(names[0]).count_with(*names[1:])
+        assert union == ex.execute_sync(names[0], "hll_count_with",
+                                        {"names": names[1:]})
+        bits = c.get_bit_set("day").cardinality()
+        torch.cuda.synchronize()
+        assert c._dispatch.replica_reads >= 2
+        assert ok.launches["merge_stack"] and ok.launches["popcount_partials"]
+        assert bits == int(np.count_nonzero(want[1]["day"][1]))
+        # failover: fence, promote, retarget, every acknowledged write kept
+        old = c.persist.journal
+        promoted = c.replicas.failover("card drill")
+        assert old.fenced and promoted.device.type == "cuda"
+        assert promoted.persist.journal.last_seq == old.last_seq
+        more = [rng.integers(0, 2**64, 40_000, dtype=np.uint64) for _ in range(2)]
+        for i, b in enumerate(more):
+            c.get_hyper_log_log(f"h{i}").add_ints(b)
+        assert c.wait_for_replicas(1, timeout_s=120) == 1
+        now = _state(promoted)
+        _same_state(_state(c.replicas.replicas[0].client), now)
+        ref = RedissonTorch.create(Config().use_cuda(ingest="sort"))
+        try:
+            for i, b in enumerate(batches):
+                ref.get_hyper_log_log(f"h{i}").add_ints(b)
+            for i, b in enumerate(more):
+                ref.get_hyper_log_log(f"h{i}").add_ints(b)
+            rbank, rrows = ref.to_numpy_state()
+        finally:
+            ref.shutdown()
+        for n in names:
+            np.testing.assert_array_equal(now[0][n], rbank[rrows[n]])
+    finally:
+        c.shutdown()
+

@@ -18,8 +18,10 @@ from redisson_tpu_torch.config import Config
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: modules of redisson_tpu_torch the walk must find (52 with the structures
 #: tier and RBatch, 67 with persist/, fault/, checkpoint and serve/errors, 84
-#: with observability, trace/, memstat/ and the rest of serve/)
-NMODS = 84
+#: with observability, trace/, memstat/ and the rest of serve/, 96 with the
+#: replica tier, the follower, cluster/errors, reactive/, services/ and
+#: version)
+NMODS = 96
 
 _GATE = textwrap.dedent("""
     import importlib, pkgutil, runpy, sys
@@ -63,6 +65,14 @@ _GATE = textwrap.dedent("""
               *(f"redisson_tpu_torch.serve.{m}" for m in
                 ("admission", "breaker", "policy", "scheduler", "windows"))}
     print("SLICE9", sorted(slice9 - set(mods)))
+    slice10 = {"redisson_tpu_torch.version", "redisson_tpu_torch.reactive",
+               "redisson_tpu_torch.persist.follower",
+               "redisson_tpu_torch.cluster", "redisson_tpu_torch.cluster.errors",
+               *(f"redisson_tpu_torch.replica.{m}" for m in
+                 ("manager", "replica", "router")),
+               *(f"redisson_tpu_torch.services.{m}" for m in
+                 ("remote", "cache_manager"))}
+    print("SLICE10", sorted(slice10 - set(mods)))
     print("MODULES", len(mods), "SMOKE_RC", rc, "LEAKED", leaked)
 """)
 
@@ -79,6 +89,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert "SLICE6 []" in out.stdout  # and the structures tier's
     assert "SLICE8 []" in out.stdout  # and the durability and fault modules
     assert "SLICE9 []" in out.stdout  # and the serving / tracing / memory tier
+    assert "SLICE10 []" in out.stdout  # and the replica tier and the facades
     assert rc == "2"  # chip_smoke refuses to run without a card
     assert leaked == "[]"
     assert '"ok"' not in out.stdout

@@ -12,7 +12,12 @@ device="cpu"))` with `use_persist(dir)`:
 4. kill-and-recover, snapshots, everysec, recovery stats, the config
    section, the checkpoint `.old` fallback;
 5. the snapshot cut: taken while SETBIT/CLEAR and Bloom adds mutate cell
-   tensors in place, it equals the state at its journal watermark.
+   tensors in place, it equals the state at its journal watermark;
+9. the journal follower (warm standby): tailing and promoting mid-stream,
+   queue mode, promotion of a crash image, resync under rotation and
+   compaction, the PSYNC counters, the incremental watermark scanner; a
+   queue-mode record the leader's caller can no longer change; the
+   default config's device.
 
 Cross-package, seeded op mixes (HLL add_ints and byte keys, Bloom, SETBIT
 and CLEAR, delete, structure ops) through the JAX package's client
@@ -24,7 +29,8 @@ and CLEAR, delete, structure ops) through the JAX package's client
 8. a JAX-written persist directory (snapshot + suffix, crash image)
    recovers in the port to exactly what JAX's own recovery gives
    (registers, cells, the structures keyspace; PFCOUNT within rel 1e-5),
-   and the reverse.
+   and the reverse; a port follower tailing a live JAX leader's directory
+   ends bit-identical to the leader.
 """
 
 import hashlib
@@ -32,6 +38,7 @@ import os
 import pickle
 import random
 import shutil
+import time
 
 import numpy as np
 import pytest
@@ -46,6 +53,7 @@ from redisson_tpu_torch.client import RedissonTorch
 from redisson_tpu_torch.config import Config, PersistConfig
 from redisson_tpu_torch.persist import codec
 from redisson_tpu_torch.persist import snapshotter as snap_mod
+from redisson_tpu_torch.persist.follower import JournalFollower, _WatermarkScanner
 from redisson_tpu_torch.persist.journal import (
     Journal,
     JournalGap,
@@ -55,21 +63,9 @@ from redisson_tpu_torch.persist.journal import (
     last_seq_in_dir,
 )
 
-#: tests of tests/test_persist.py with no counterpart here, and why
-EXCLUDED = {
-    "test_follower_tails_and_promotes_mid_stream":
-        "persist/follower.py (JournalFollower) belongs to the replica tier",
-    "test_follower_queue_mode_attach": "JournalFollower (replica tier)",
-    "test_follower_rejects_persisting_config": "JournalFollower (replica tier)",
-    "test_promote_under_mid_window_crash_equals_committed_prefix":
-        "JournalFollower.promote (replica tier)",
-    "test_follower_resync_under_rotation_and_compaction":
-        "JournalFollower (replica tier)",
-    "test_follower_partial_vs_full_resync_counters":
-        "JournalFollower (replica tier)",
-    "test_watermark_scanner_incremental_lag":
-        "follower._WatermarkScanner (replica tier)",
-}
+#: tests of tests/test_persist.py with no counterpart here, and why (none:
+#: the journal follower is ported)
+EXCLUDED = {}
 
 
 def make_client(path=None, fsync="always", ingest="auto", **persist_kw):
@@ -787,3 +783,325 @@ def test_persist_dir_recovers_in_either_package(tmp_path, writer):
     for n, want in jcounts.items():
         assert abs(tcounts[n] - want) <= 1e-5 * want
     assert "gone" not in tstate and "h2" not in tstate
+
+
+def test_port_follower_tails_a_jax_leader_bit_identically(tmp_path):
+    """A port JournalFollower bootstraps from a live JAX leader's snapshot,
+    tails its journal while it writes, and promotes to exactly the
+    leader's registers, cells and structures keyspace."""
+    lead = str(tmp_path / "lead")
+    jc = make_jax_client(lead)
+    follower = None
+    try:
+        _op_mix(jc, 21)
+        jc.snapshot_now()
+        follower = _follower(lead, poll_interval_s=0.005)
+        follower.start()
+        _tail_mix(jc, 21)
+        _op_mix(jc, 22)
+        jc.persist.journal.sync()
+        promoted = follower.promote(catch_up=True, timeout_s=30)
+        st = follower.stats()
+        assert st["applied_seq"] == jc.persist.journal.last_seq
+        assert st["apply_errors"] == 0 and st["full_resyncs"] == 1
+        assert sketch_state(promoted) == sketch_state(jc)
+        assert structures_canon(promoted) == structures_canon(jc)
+        for n in ("h0", "h1"):
+            want = jc.get_hyper_log_log(n).count()
+            assert abs(promoted.get_hyper_log_log(n).count() - want) <= 1e-5 * want
+    finally:
+        if follower is not None:
+            follower.close()
+        jc.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# 9. follower / warm standby
+# ---------------------------------------------------------------------------
+
+def cpu_config():
+    return Config().use_cuda(device="cpu")
+
+
+def _follower(path, **kw):
+    return JournalFollower(str(path), config=Config(cuda=cpu_config()), **kw)
+
+
+def test_follower_tails_and_promotes_mid_stream(tmp_path):
+    lead = tmp_path / "lead"
+    c = make_client(lead, fsync="always")
+    follower = None
+    try:
+        for i in range(4):
+            c.get_map("m").put(f"f{i}", i)
+        follower = _follower(lead, poll_interval_s=0.01)
+        follower.start()
+        # keep writing while the follower is live, then promote mid-stream:
+        # the drain inside promote() must pick up whatever it hadn't applied
+        for i in range(4, 12):
+            c.get_map("m").put(f"f{i}", i)
+        c.get_bit_set("bits").set(9, True)
+        c.persist.journal.sync()
+        leader_digest = digest(c)
+        promoted = follower.promote(catch_up=True, timeout_s=30)
+        assert follower.lag() == 0
+        assert digest(promoted) == leader_digest
+        assert promoted.get_map("m").get("f11") == 11
+        st = follower.stats()
+        assert st["applied_seq"] == c.persist.journal.last_seq
+        assert st["apply_errors"] == 0
+    finally:
+        if follower is not None:
+            follower.close()
+        c.shutdown()
+
+
+def test_follower_queue_mode_attach(tmp_path):
+    lead = tmp_path / "lead"
+    c = make_client(lead, fsync="off")  # queue mode needs no disk flushes
+    follower = None
+    try:
+        follower = _follower(lead, poll_interval_s=0.01)
+        follower.attach(c.persist.journal)
+        follower.start()
+        for i in range(6):
+            c.get_bucket(f"b{i}").set(i * 3)
+        promoted = follower.promote(catch_up=True, timeout_s=30)
+        for i in range(6):
+            assert promoted.get_bucket(f"b{i}").get() == i * 3
+        assert follower.stats()["mode"] == "queue"
+    finally:
+        if follower is not None:
+            follower.close()
+        c.shutdown()
+
+
+def test_follower_rejects_persisting_config(tmp_path):
+    cfg = Config()
+    cfg.use_cuda(device="cpu")
+    cfg.use_persist(str(tmp_path / "f"))
+    with pytest.raises(ValueError):
+        JournalFollower(str(tmp_path / "lead"), config=cfg)
+
+
+def test_promote_under_mid_window_crash_equals_committed_prefix(tmp_path):
+    """Satellite of the truncate-anywhere property, pointed at PROMOTION:
+    the primary dies between journal append and backend apply (simulated
+    by truncating its journal at an arbitrary byte — write-ahead order
+    makes truncation exactly that interleaving), a follower bootstraps
+    from the crash image and promotes; the promoted engine must equal the
+    serial execution of the surviving committed prefix, bit-identical."""
+    ops = _write_ops(n_mix=3)
+    lead_dir = tmp_path / "leader"
+    c = make_client(lead_dir, fsync="always")
+    try:
+        for op in ops:
+            op(c)
+        c.persist.journal.sync()
+    finally:
+        c.shutdown()
+
+    golden = make_client()
+    digests = {0: digest(golden)}
+    try:
+        for k, op in enumerate(ops, start=1):
+            op(golden)
+            digests[k] = digest(golden)
+    finally:
+        golden.shutdown()
+
+    _, seg = _list_segments(str(lead_dir))[0]
+    size = os.path.getsize(seg)
+    rng = random.Random(0xFA110)
+    for t in sorted(rng.sample(range(1, size - 1), 4)) + [size]:
+        crash_dir = tmp_path / f"crash-{t}"
+        shutil.copytree(lead_dir, crash_dir)
+        _, cseg = _list_segments(str(crash_dir))[0]
+        with open(cseg, "r+b") as f:
+            f.truncate(t)
+        k = len(list(iter_records(str(crash_dir))))
+        follower = _follower(crash_dir, poll_interval_s=0.01)
+        try:
+            promoted = follower.promote(catch_up=True, timeout_s=30)
+            assert follower.applied_seq == k
+            assert follower.stats()["apply_errors"] == 0
+            assert digest(promoted) == digests[k], (
+                f"truncate@{t}: promoted state != serial prefix of {k} ops")
+        finally:
+            follower.close()
+        shutil.rmtree(crash_dir)
+
+
+def test_follower_resync_under_rotation_and_compaction(tmp_path):
+    """A replica tailing while the leader rotates AND compacts
+    (`snapshot_now` truncates covered segments) must either partial-resync
+    or cleanly full-resync — never apply a torn suffix — and converge to
+    the leader's exact state."""
+    lead = tmp_path / "lead"
+    c = make_client(lead, fsync="always", segment_max_bytes=1 << 16)
+    follower = None
+    try:
+        for i in range(20):
+            c.get_map("m").put(f"f{i}", i)
+        follower = _follower(lead, poll_interval_s=0.005)
+        follower.start()
+        # Interleave traffic with rotation + snapshot-compaction; the big
+        # payloads force several segment rollovers under the follower.
+        for round_ in range(4):
+            for i in range(8):
+                c.get_bucket(f"r{round_}-{i}").set("x" * 4000)
+            c.persist.journal.rotate()
+            c.snapshot_now()  # compacts: remove_segments_below(watermark)
+        for i in range(5):
+            c.get_map("m").put(f"tail{i}", i)
+        c.persist.journal.sync()
+        leader_digest = digest(c)
+        leader_seq = c.persist.journal.last_seq
+        promoted = follower.promote(catch_up=True, timeout_s=30)
+        st = follower.stats()
+        assert st["applied_seq"] == leader_seq
+        assert st["apply_errors"] == 0  # a torn suffix would error here
+        assert st["full_resyncs"] >= 1  # initial bootstrap counts as full
+        assert digest(promoted) == leader_digest
+    finally:
+        if follower is not None:
+            follower.close()
+        c.shutdown()
+
+
+def test_follower_partial_vs_full_resync_counters(tmp_path):
+    """PSYNC parity: a resync with the suffix still on disk is partial
+    (state kept, tail re-opened at the cursor); one whose suffix was
+    compacted away is full (snapshot re-bootstrap). Initial bootstrap
+    counts as full, mirroring redis sync_full."""
+    lead = tmp_path / "lead"
+    c = make_client(lead, fsync="always")
+    follower = None
+    try:
+        for i in range(10):
+            c.get_map("m").put(f"f{i}", i)
+        c.persist.journal.sync()
+        follower = _follower(lead, poll_interval_s=0.005)
+        follower.start()
+        deadline = time.monotonic() + 30
+        while follower.lag() > 0 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert follower._full_resyncs == 1 and follower._partial_resyncs == 0
+        # Retarget to the SAME dir: suffix available at the cursor -> partial.
+        follower.retarget(str(lead))
+        assert follower._partial_resyncs == 1 and follower._full_resyncs == 1
+        # Compact history past the cursor while appending more, then force
+        # a resync: the suffix is gone -> full snapshot bootstrap.
+        follower.close(shutdown_client=False)
+        for i in range(10, 16):
+            c.get_map("m").put(f"f{i}", i)
+        c.persist.journal.rotate()  # seal seqs 1..16 so compaction can drop them
+        c.snapshot_now()  # remove_segments_below: history past the cursor gone
+        c.get_map("m").put("post", 99)
+        c.persist.journal.sync()
+        follower.retarget(str(lead))
+        assert follower._full_resyncs == 2 and follower._partial_resyncs == 1
+        promoted = follower.promote(catch_up=True, timeout_s=30)
+        assert promoted.get_map("m").get("post") == 99
+        assert digest(promoted) == digest(c)
+    finally:
+        if follower is not None:
+            follower.close()
+        c.shutdown()
+
+
+def test_watermark_scanner_incremental_lag(tmp_path):
+    """Satellite: file-mode lag() must not rescan the whole journal per
+    call. The incremental scanner tracks appends, rotation, and
+    compaction, agreeing with last_seq_in_dir at every step while only
+    re-anchoring on actual segment events."""
+    j = Journal(str(tmp_path), fsync="always")
+    scanner = _WatermarkScanner(str(tmp_path))
+    assert scanner.last_seq() == 0
+    for i in range(5):
+        j.append_run("set", [_Op(f"k{i}", "set", {"value": b"x"})])
+        assert scanner.last_seq() == i + 1 == last_seq_in_dir(str(tmp_path))
+    anchors = scanner.rescans
+    j.rotate()
+    j.append_run("set", [_Op("k5", "set", {"value": b"y"})])
+    assert scanner.last_seq() == 6 == last_seq_in_dir(str(tmp_path))
+    # Rotation follows the base==last+1 chain without a re-anchor.
+    assert scanner.rescans == anchors
+    j.remove_segments_below(5)  # drops the first segment (our history)
+    j.append_run("set", [_Op("k6", "set", {"value": b"z"})])
+    assert scanner.last_seq() == 7 == last_seq_in_dir(str(tmp_path))
+    # Steady state: repeated calls with no appends never re-anchor.
+    anchors = scanner.rescans
+    for _ in range(10):
+        assert scanner.last_seq() == 7
+    assert scanner.rescans == anchors
+    j.close()
+
+
+def test_queue_mode_records_outlive_the_callers_buffers(tmp_path):
+    """Queue mode hands the follower each record as its framed bytes
+    decode: a host buffer the caller refills, and a key tensor it zeroes,
+    right after their PFADDs are acknowledged, reach the follower as they
+    were when appended. Records wait in the queue (the follower is not
+    started) until promote() applies them."""
+    lead = tmp_path / "lead"
+    c = make_client(lead, fsync="off", ingest="segment")
+    follower = None
+    try:
+        follower = _follower(lead, poll_interval_s=0.01)
+        follower.attach(c.persist.journal)
+        rng = np.random.default_rng(5)
+        buf = rng.integers(0, 2**63, 3000, dtype=np.uint64)
+        c.get_hyper_log_log("host").add_ints(buf)  # borrowed, then released
+        buf[:] = rng.integers(0, 2**63, 3000, dtype=np.uint64)
+        c.get_hyper_log_log("host2").add_ints(buf)
+        buf[:] = 0
+        keys = torch.from_numpy(rng.integers(0, 2**63, 3000, dtype=np.int64))
+        c.get_hyper_log_log("dev").add_device(keys)
+        keys.zero_()
+        c.get_bit_set("bits").set_bits(np.arange(0, 4000, 7))
+        assert len(follower._queue) == 4
+        want = digest(c)
+        promoted = follower.promote(catch_up=True, timeout_s=30)
+        assert follower.stats()["apply_errors"] == 0
+        assert digest(promoted) == want
+    finally:
+        if follower is not None:
+            follower.close()
+        c.shutdown()
+
+
+def test_follower_default_config_asks_for_the_card(tmp_path, monkeypatch):
+    """JournalFollower(path) with no config runs on cuda:0 (the JAX
+    follower's default is local mode on the CPU): without a card it raises
+    instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        JournalFollower(str(tmp_path / "lead"))
+
+
+
+def test_follower_record_filter_projects_records_and_counts_position(tmp_path):
+    """`record_filter` drops or rewrites records after the seq cursor
+    advances: dropped records count as applied (lag measures journal
+    position), and only what passes reaches the follower's engine."""
+    lead = tmp_path / "lead"
+    c = make_client(lead, fsync="always")
+    follower = None
+    try:
+        for i in range(6):
+            c.get_bucket(f"keep{i}").set(i)
+            c.get_bucket(f"drop{i}").set(i)
+        follower = _follower(lead, poll_interval_s=0.005,
+                             record_filter=lambda r: None
+                             if r.target.startswith("drop") else r)
+        promoted = follower.promote(catch_up=True, timeout_s=30)
+        assert follower.applied_seq == c.persist.journal.last_seq == 12
+        assert follower.lag() == 0
+        st = follower.stats()
+        assert st["records_applied"] == 6 and st["apply_errors"] == 0
+        assert sorted(promoted.keys()) == [f"keep{i}" for i in range(6)]
+    finally:
+        if follower is not None:
+            follower.close()
+        c.shutdown()

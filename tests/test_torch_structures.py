@@ -200,12 +200,19 @@ def test_keys_facade_matches_jax():
                                     "get_cache_manager"])
 def test_getters_of_queued_tiers_raise(client, getter):
     """The tiers still queued raise naming their ROADMAP item; the nodes
-    groups arrived with observability.py and ping the client's device."""
+    groups arrived with observability.py and ping the client's device; the
+    remote service and the cache manager arrived with services/."""
     if getter in ("get_cluster_nodes_group", "get_nodes_group"):
         from redisson_tpu_torch.observability import NodesGroup
 
         group = getattr(client, getter)()
         assert isinstance(group, NodesGroup) and group.ping_all()
+        return
+    if getter in ("get_remote_service", "get_cache_manager"):
+        from redisson_tpu_torch.services import CacheManager, RRemoteService
+
+        want = RRemoteService if getter == "get_remote_service" else CacheManager
+        assert isinstance(getattr(client, getter)(), want)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         getattr(client, getter)()
