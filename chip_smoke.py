@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--seed N] [--profile]
     python3 chip_smoke.py --phase serve       # the build and one phase (see phase_table)
     python3 chip_smoke.py --phase replica     # the build and phase 19 alone
+    python3 chip_smoke.py --phase cluster     # the build and phase 20 alone
     python3 chip_smoke.py --merge-pair TREE   # the client's merge call only, of TREE's package
     python3 chip_smoke.py --child-writer DIR  # phase 15's writer (the phase starts it)
 
@@ -58,7 +59,7 @@ Phases, each of which fails the run on error:
   8. the BitSet path: 7 daily bitmaps of 2^27 bits, 8M SETBITs each
      (old-value vectors checked), BITCOUNT, BITOP OR / AND / XOR across the
      week, NOT, length and size, all equal to numpy's;
-  9. Bloom and BitSet rates, warm (median, min and max of 5 passes);
+  9. Bloom and BitSet rates, warm (median, min and max of 3 passes);
  10. the delta / tape / hostfold ingest at full width: the HLL path of 3
      under ingest="delta", "tape" and "hostfold" (banks and PFADD flags
      equal to "sort"); the Bloom path's 10M adds under "delta" (cells equal
@@ -88,14 +89,14 @@ Phases, each of which fails the run on error:
      plain-Python model: a 1M-entry RMap (put_all in 10,000-entry chunks,
      get_all of 100,000 keys), a 1M-member RScoredSortedSet (rank,
      value_range, value_range_by_score), an RBlockingQueue between 4
-     producers and 4 consumers of 25,000 items each, 8 threads x 2,000
-     RLock-guarded RAtomicLong increments, a 100,000-entry RMapCache with a
+     producers and 4 consumers of 10,000 items each, 8 threads x 500
+     RLock-guarded RAtomicLong increments, a 40,000-entry RMapCache with a
      1 s TTL swept empty by mc_evict_expired, 10,000 RTopic messages to 2
      listeners, and a mixed RBatch (10,000 map puts, 8 PFADDs, a Bloom add)
      equal to the same ops unbatched; host-tier ops/s of each;
  15. durability and faults (persist/, fault/): PFADD of 1024 x 40,000
      keys with the write-ahead journal under fsync="always" and
-     "everysec" against none (median, min and max of 3 warm passes;
+     "everysec" against none (median, min and max of 2 warm passes;
      fsyncs, journal bytes per key and new segments per pass); the bank,
      BASELINE config 2's Bloom filter and 2 daily bitmaps of phase 8 (cut
      from 7: savez_compressed of each 128 MiB cell array costs host
@@ -180,10 +181,38 @@ Phases, each of which fails the run on error:
      wait polls a state (timeout 120 s); catch-up seconds, replay keys/s,
      lag, reads per replica, failover seconds and the snapshot's bytes are
      printed, never checked.
+ 20. the cluster tier and the RESP front-end (cluster/, wire/; run after
+     19): Redis Cluster's layout of 16384 CRC16 slots in contiguous ranges
+     over four masters (ClusterConfig's default), every shard on cuda:0,
+     each journaling under its own directory (fsync "off"): (1) every
+     shard's device cuda:0, CLUSTER SLOTS covering 0-16383 once; (2) the
+     HLL path's 1024 x 40,000 keys and 64 {t} sketches as one RBatch through
+     the facade (the router splits it per owner; all four shards own some):
+     registers bit-identical and PFCOUNT equal to a single `sort` client's;
+     (3) a cross-shard PFMERGE over 1000 sketches (the host max-fold) and a
+     countWith over the 64 {t} sketches on their shard (merge_stack), equal
+     to the single client's; (4) BASELINE config 2's filter (10M adds) and
+     two 2^27-bit {day} bitmaps (8M SETBITs each) on shard 3: BITCOUNT and
+     BITOP OR equal numpy, the cells a single client's; (5) shard 0's range
+     (about 256 sketches) migrated to shard 1 while two writers PFADD into
+     those sketches (held at a barrier, not timed), then add_shard() and
+     256 slots of shard 2 moved into it: every acknowledged PFADD present
+     (a reference fed exactly those batches), no future lost; a fresh
+     5-shard facade on the directory recovers the slot table and the
+     registers; (6) on that facade, one RESP server per shard: 8 raw
+     sockets (the port's resp_encode / RespParser) read CLUSTER SLOTS and
+     pipeline PFADD of 1024 sketches x 4,000 12-byte keys (cut from 40,000:
+     RESP carries keys as bulk strings) to the owning servers, registers
+     equal an in-process client fed the same bytes; -MOVED from a wrong
+     shard, -ASK on a slot parked in a cutover window while another shard
+     imports it; PFCOUNT of the {t} keys, BITCOUNT and BITOP over the wire
+     equal the in-process answers; wire.commands equal to the commands
+     sent. Seconds, keys/s, migration seconds and stats, redirects, wire
+     bytes and commands/s are printed, never checked.
 
 Each path (3, 7, 8, 10, 11, 13, 15's recovery with the checks after it,
-16 and each step of 19) resets the launch counters just before it and
-reads them just after. The last lines are the card's name and power limit, a
+16 and each step of 19 and 20) resets the launch counters just before it
+and reads them just after. The last lines are the card's name and power limit, a
 JSON object with one entry per kernel, and `{"ok": true, "device": {...}}`.
 Exits non-zero, with no result, when no card is visible or the package is
 missing.
@@ -215,7 +244,7 @@ BIG_KEYS = 1 << 23
 MERGE_N = 1000
 STRIDE = KEYS * 3 // 4  # neighbouring sketches share a quarter of their keys
 EXACT_UNION = (MERGE_N - 1) * STRIDE + KEYS
-TIMING_REPS = 5
+TIMING_REPS = 3
 # The Bloom path: BASELINE config 2 (benchmarks/suite.py: try_init(2^28 //
 # 10, 0.01)), 10M inserts in 2M-key batches, contains of the first 1M,
 # an FPR probe of 2^30 fresh keys.
@@ -254,20 +283,22 @@ MERGE_GRIDS = ((128, 8), (128, 4), (128, 16), (64, 8), (256, 8))
 # The structures tier at sizes users run (host-side engine, no device work):
 # a 1M-entry map written in 10,000-entry put_all chunks and read with one
 # 100,000-key get_all; a 1M-member leaderboard; a blocking queue between 4
-# producers and 4 consumers of 25,000 items each; 8 threads x 2,000 locked
-# increments; a 100,000-entry map cache with a 1 s TTL swept empty; 10,000
+# producers and 4 consumers of 10,000 items each; 8 threads x 500 locked
+# increments; a 40,000-entry map cache with a 1 s TTL swept empty; 10,000
 # topic messages to 2 listeners; one mixed RBatch of 10,000 map puts, 8
-# PFADDs and a Bloom add.
+# PFADDs and a Bloom add. The queue, lock and cache passes are per-op host
+# paths, cut below user sizes to keep the whole run inside its limit: a
+# smaller count reads the same per-op rate.
 ST_MAP = 1_000_000
 ST_MAP_CHUNK = 10_000
 ST_MAP_GET = 100_000
 ST_ZSET = 1_000_000
-ST_ZSET_PROBES = 3
+ST_ZSET_PROBES = 1
 ST_QUEUE_THREADS = 4
-ST_QUEUE_ITEMS = 25_000
+ST_QUEUE_ITEMS = 10_000
 ST_LOCK_THREADS = 8
-ST_LOCK_ITERS = 2_000
-ST_CACHE = 100_000
+ST_LOCK_ITERS = 500
+ST_CACHE = 40_000
 ST_CACHE_TTL_S = 1.0
 ST_TOPIC = 10_000
 ST_BATCH_PUTS = 10_000
@@ -277,7 +308,7 @@ ST_BATCH_HLLS = 8
 # config 2's Bloom filter and DUR_DAYS of phase 8's daily bitmaps (cut from
 # 7: savez_compressed of each 128 MiB cell array costs host seconds).
 DUR_DAYS = 2
-DUR_REPS = 3  # timed journaled-ingest passes per fsync policy, after a warm one
+DUR_REPS = 2  # timed journaled-ingest passes per fsync policy, after a warm one
 DUR_DIR = "build/phase15"  # git-ignored, inside the checkout; removed after
 CHILD_SKETCHES = 16  # the child writer's batches cycle over these sketches
 CHILD_BATCH_KEYS = 20_000
@@ -336,6 +367,20 @@ RP_FREEZE_KEYS = 1000
 RP_POST_BATCHES = 16  # PFADDs of 40,000 keys through the router after the failover
 RP_RX_SKETCHES = 8
 RP_CACHE_TTL_S = 0.5
+# Phase 20: the cluster tier and the RESP front-end (Redis Cluster's layout:
+# 16384 CRC16 slots in contiguous ranges over four masters, all on cuda:0).
+CL_DIR = "build/phase20"  # git-ignored, inside the checkout; removed after
+CL_SHARDS = 4  # ClusterConfig's default (redis.io's tutorial: at least 3)
+CL_TAG_SKETCHES = 64  # {t} sketches on one shard, for countWith
+CL_WRITE_KEYS = 10_000  # keys per writer PFADD during the migration
+CL_WRITE_MIN = 8  # batches each writer sends at least
+CL_WRITE_MAX = 400  # and at most (it stops once the migration is done)
+CL_NEW_RANGE = 256  # slots moved into the added shard
+CL_WIRE_KEYS = 4_000  # byte keys per sketch over the wire (cut from KEYS)
+CL_WIRE_KEY_BYTES = 12
+CL_WIRE_SOCKETS = 8
+CL_WIRE_PIPELINE = 64  # commands in flight per socket (the cap is 128)
+CL_WAIT_S = 120.0
 # Per-sketch estimates: the RMS error must stay below 2%, and at most this
 # share of sketches may exceed 2%. A single sketch is not held to 2%: the
 # standard error at p = 14 is 0.81%, so 2% is a 2.5-sigma draw, and among
@@ -3947,6 +3992,570 @@ def replica_path(seed: int, card: str) -> dict:
     return out
 
 
+# -- phase 20: the cluster tier and the RESP front-end ------------------------
+
+
+def cl_metric(card: str, what: str, value) -> None:
+    """One phase-20 number on its own line, beside the card it ran on."""
+    log(f"[{card}] phase 20 {what}: {value}")
+
+
+def cl_config(shards: int, wire: bool = False):
+    """The deployment: Redis Cluster's contiguous CRC16 ranges over `shards`
+    masters, each journaling under CL_DIR/shard-NN (fsync "off", the
+    default). The cuda section names only the ingest, so each shard's
+    device is the default, the card (`cuda:shard % cards`, cuda:0 here)."""
+    from redisson_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.use_cuda(ingest="segment")
+    cfg.use_cluster(num_shards=shards, dir=CL_DIR)
+    if wire:
+        cfg.use_wire(port=0)
+    return cfg
+
+
+def cl_name(prefix: str, table, shard: int) -> str:
+    """The first `<prefix><i>` whose slot `shard` owns."""
+    from redisson_tpu_torch.ops.crc16 import key_slot
+
+    i = 0
+    while table[key_slot(f"{prefix}{i}")] != shard:
+        i += 1
+    return f"{prefix}{i}"
+
+
+def owner_rows(c) -> dict:
+    """name -> registers of every HLL, read from the shard that owns its
+    slot (a migrated sketch's old row stays behind on the source)."""
+    from redisson_tpu_torch.ops.crc16 import key_slot
+
+    table = c.cluster.router.slot_table()
+    out = {}
+    for sid, shard in c.cluster.shards.items():
+        bank, rows = shard.client.to_numpy_state()
+        for name, row in rows.items():
+            if table[key_slot(name)] == sid:
+                out[name] = bank[row]
+    return out
+
+
+def same_rows(got: dict, want: tuple, names, what: str) -> None:
+    bank, rows = want
+    bad = [n for n in names if n not in got or not np.array_equal(got[n], bank[rows[n]])]
+    if bad:
+        raise AssertionError(f"{what}: registers of {len(bad)} sketches differ "
+                             f"from the reference, e.g. {bad[:3]}")
+
+
+def cl_data(seed: int):
+    """The HLL data set: SKETCHES sketches of KEYS int keys (phase 3's) and
+    CL_TAG_SKETCHES `{t}` sketches that share one slot."""
+    names = [f"hll:{i}" for i in range(SKETCHES)]
+    batches = [keys_for(i * STRIDE, KEYS, seed) for i in range(SKETCHES)]
+    tags = [f"{{t}}:{j}" for j in range(CL_TAG_SKETCHES)]
+    tag_batches = [keys_for((1 << 45) + j * KEYS, KEYS, seed)
+                   for j in range(CL_TAG_SKETCHES)]
+    return names, batches, tags, tag_batches
+
+
+def cl_placement(c, card: str) -> dict:
+    """Step 1: four shards on cuda:0; CLUSTER SLOTS covers 0-16383 once."""
+    import torch
+
+    shards = c.cluster.shards
+    if len(shards) != CL_SHARDS:
+        raise AssertionError(f"{len(shards)} shards, not {CL_SHARDS}")
+    for sid, shard in shards.items():
+        if shard.client.device != torch.device("cuda", 0):
+            raise AssertionError(f"shard {sid} runs on {shard.client.device}")
+    covered = np.zeros(16384, np.int64)
+    ranges = c.cluster_slots()
+    for start, end, _sid, _replicas in ranges:
+        covered[start:end + 1] += 1
+    if not (covered == 1).all():
+        raise AssertionError("CLUSTER SLOTS does not cover 0-16383 exactly once")
+    cl_metric(card, "CLUSTER SLOTS", json.dumps([r[:3] for r in ranges]))
+    return {"ranges": len(ranges)}
+
+
+def cl_hll(c, ref, data, card: str) -> dict:
+    """Step 2: the HLL path's 1024 x 40,000 keys (and 64 {t} sketches) as
+    one RBatch through the facade, split per owner by the router; the
+    registers bit-identical and PFCOUNT equal to a single `sort` client's."""
+    from redisson_tpu_torch.ops.crc16 import key_slot
+
+    names, batches, tags, tag_batches = data
+    table = c.cluster.router.slot_table()
+    owners = np.bincount([table[key_slot(n)] for n in names], minlength=CL_SHARDS)
+    if (owners == 0).any():
+        raise AssertionError(f"a shard owns none of the sketches: {owners.tolist()}")
+    reset_all_launches()
+    t0 = time.perf_counter()
+    b = c.create_batch()
+    for n, keys in zip(names + tags, batches + tag_batches):
+        b.get_hyper_log_log(n).add_ints_async(keys)
+    added = b.execute()
+    seconds = time.perf_counter() - t0
+    launches = all_launches()
+    nkeys = (SKETCHES + CL_TAG_SKETCHES) * KEYS
+    futs = [ref.get_hyper_log_log(n).add_ints_async(k)
+            for n, k in zip(names + tags, batches + tag_batches)]
+    [f.result() for f in futs]
+    want = ref.to_numpy_state()
+    if not all(added):
+        raise AssertionError("a first PFADD into an empty sketch reported no change")
+    same_rows(owner_rows(c), want, names + tags, "cluster PFADD")
+    counts = [c.get_hyper_log_log(n).count() for n in names]
+    ref_counts = [ref.get_hyper_log_log(n).count() for n in names]
+    if counts != ref_counts:
+        raise AssertionError("a cluster PFCOUNT differs from the single client's")
+    for sid, shard in c.cluster.shards.items():
+        if not on_card(shard.client):
+            raise AssertionError(f"a state tensor of shard {sid} is not on the card")
+    if not launches["seg_insert"]:
+        raise AssertionError(f"the cluster PFADDs never launched seg_insert: {launches}")
+    cl_metric(card, "sketches per shard", owners.tolist())
+    cl_metric(card, f"RBatch PFADD seconds ({SKETCHES + CL_TAG_SKETCHES} x {KEYS} keys, "
+              f"split over {CL_SHARDS} shards)", seconds)
+    cl_metric(card, "RBatch PFADD keys/s through the facade", nkeys / seconds)
+    log(f"  hll: {SKETCHES + CL_TAG_SKETCHES} sketches' registers bit-identical to "
+        f"a single sort client's; {SKETCHES} PFCOUNTs equal")
+    return {"launches": launches, "seconds": seconds, "keys_per_s": nkeys / seconds}
+
+
+def cl_merges(c, ref, data, card: str) -> dict:
+    """Step 3: a cross-shard PFMERGE over 1000 sketches (the host max-fold)
+    and a countWith over the 64 {t} sketches on their one shard
+    (merge_stack), each equal to the single client's."""
+    names, _, tags, _ = data
+    reset_all_launches()
+    merges0 = c.cluster.router.cross_shard_merges
+    t0 = time.perf_counter()
+    c.get_hyper_log_log("union:cl").merge_with(*names[:MERGE_N])
+    merge_s = time.perf_counter() - t0
+    merged = c.get_hyper_log_log("union:cl").count()
+    t0 = time.perf_counter()
+    tag_count = c.get_hyper_log_log(tags[0]).count_with(*tags[1:])
+    tag_s = time.perf_counter() - t0
+    launches = all_launches()
+    ref.get_hyper_log_log("union:cl").merge_with(*names[:MERGE_N])
+    if merged != ref.get_hyper_log_log("union:cl").count():
+        raise AssertionError("the cross-shard PFMERGE's count differs")
+    regs = c._dispatch.execute_sync("union:cl", "hll_export", None)[0]
+    if not np.array_equal(regs, ref._executor.execute_sync("union:cl", "hll_export",
+                                                           None)[0]):
+        raise AssertionError("the cross-shard PFMERGE's registers differ")
+    if tag_count != ref.get_hyper_log_log(tags[0]).count_with(*tags[1:]):
+        raise AssertionError("the {t} countWith differs")
+    if c.cluster.router.cross_shard_merges != merges0 + 1:
+        raise AssertionError("the PFMERGE did not take the cross-shard fold")
+    if not launches["merge_stack"]:
+        raise AssertionError(f"the {{t}} countWith never launched merge_stack: {launches}")
+    cl_metric(card, f"cross-shard PFMERGE of {MERGE_N} seconds (host fold)", merge_s)
+    cl_metric(card, f"countWith of {CL_TAG_SKETCHES} {{t}} sketches seconds", tag_s)
+    log(f"  merges: PFMERGE over {MERGE_N} across 4 shards = {merged}, registers "
+        f"equal; countWith over {CL_TAG_SKETCHES} {{t}} = {tag_count}; both equal")
+    return {"launches": launches, "merge_s": merge_s}
+
+
+def cl_bits(c, seed: int, card: str) -> dict:
+    """Step 4: BASELINE config 2's filter (10M adds) and two 2^27-bit {day}
+    bitmaps (8M SETBITs each) on shard 3; BITCOUNT and BITOP OR against
+    numpy, the filter's cells against a single client's."""
+    from redisson_tpu_torch.client import RedissonTorch
+
+    table = c.cluster.router.slot_table()
+    bloom = cl_name("bloom:", table, 3)
+    tag = cl_name("d", table, 3)
+    days = [f"{{{tag}}}:{d}" for d in range(2)]
+    ids = day_ids(seed)[:2]
+    reset_all_launches()
+    t0 = time.perf_counter()
+    bloom_fill(c, bloom, seed)
+    for name, i in zip(days, ids):
+        c.get_bit_set(name).set_bits(i)
+    counts = [c.get_bit_set(n).cardinality() for n in days]
+    union = c.get_bit_set(f"{{{tag}}}:or")
+    union.or_(*days)
+    union_count = union.cardinality()
+    seconds = time.perf_counter() - t0
+    launches = all_launches()
+    want = [np.zeros(DAY_BITS, np.uint8) for _ in range(2)]
+    for w, i in zip(want, ids):
+        w[i] = 1
+    if counts != [int(w.sum()) for w in want]:
+        raise AssertionError(f"BITCOUNT {counts} differs from numpy")
+    or_want = want[0] | want[1]
+    got_or = c._dispatch.execute_sync(union.name, "bits_export", None)[1]
+    if union_count != int(or_want.sum()) or not np.array_equal(got_or, or_want):
+        raise AssertionError("BITOP OR differs from numpy")
+    ref = RedissonTorch.create(card_config("scatter"))
+    try:
+        bloom_fill(ref, bloom, seed)
+        ref_cells = export_cells(ref, bloom)
+    finally:
+        ref.shutdown()
+    if not np.array_equal(c._dispatch.execute_sync(bloom, "bits_export", None)[1],
+                          ref_cells):
+        raise AssertionError("the shard's Bloom cells differ from a single client's")
+    if not on_card(c.cluster.shards[3].client):
+        raise AssertionError("a state tensor of shard 3 is not on the card")
+    for k in ("bits_insert_segmented", "popcount_partials", "bitop_cells"):
+        if not launches[k]:
+            raise AssertionError(f"the bits step never launched {k}: {launches}")
+    cl_metric(card, f"bits step seconds ({BLOOM_KEYS} Bloom adds, 2 x {DAY_SETS} SETBITs, "
+              "BITCOUNT, BITOP)", seconds)
+    log(f"  bits: {bloom!r} on shard 3 equal to a single client's cells; BITCOUNT "
+        f"{counts} and BITOP OR {union_count} equal numpy")
+    return {"launches": launches, "seconds": seconds}
+
+
+def cl_migrate(c, ref, data, seed: int, card: str) -> dict:
+    """Step 5: shard 0's whole range (about 256 sketches) moves to shard 1
+    while two writer threads PFADD into those sketches; then add_shard()
+    and CL_NEW_RANGE slots of shard 2 move into it. Every acknowledged
+    PFADD present (a reference fed exactly the acknowledged batches), no
+    future lost."""
+    import threading
+
+    from redisson_tpu_torch.ops.crc16 import key_slot
+
+    names = data[0]
+    mgr = c.cluster
+    table = mgr.router.slot_table()
+    src_slots = [s for s in range(16384) if table[s] == 0]
+    hot = [n for n in names if table[key_slot(n)] == 0]
+    acked, errors, done = [], [], threading.Event()
+    start = threading.Barrier(3)
+
+    def writer(w: int) -> None:
+        start.wait(CL_WAIT_S)
+        for i in range(CL_WRITE_MAX):
+            if done.is_set() and i >= CL_WRITE_MIN:
+                return
+            name = hot[(w * 7 + i) % len(hot)]
+            keys = keys_for((1 << 50) + (w * CL_WRITE_MAX + i) * CL_WRITE_KEYS,
+                            CL_WRITE_KEYS, seed)
+            try:
+                c.get_hyper_log_log(name).add_ints(keys)
+                acked.append((name, keys))
+            except Exception as exc:  # noqa: BLE001 — a lost future fails below
+                errors.append(repr(exc))
+
+    reset_all_launches()
+    threads = [threading.Thread(target=writer, args=(w,), daemon=True) for w in range(2)]
+    for t in threads:
+        t.start()
+    start.wait(CL_WAIT_S)
+    t0 = time.perf_counter()
+    try:
+        stats = mgr.migrate_slots(src_slots, 1, timeout_s=CL_WAIT_S)
+    finally:
+        done.set()
+    migrate_s = time.perf_counter() - t0
+    for t in threads:
+        t.join(CL_WAIT_S)
+    if any(t.is_alive() for t in threads) or errors:
+        raise AssertionError(f"a writer's PFADD failed or hung: {errors[:3]}")
+    if stats["apply_errors"]:
+        raise AssertionError(f"migration apply errors: {stats}")
+    post = mgr.router.slot_table()
+    if any(post[s] != 1 for s in src_slots):
+        raise AssertionError("a migrated slot is not owned by shard 1")
+    new_id = mgr.add_shard()
+    moved = [s for s in range(16384) if post[s] == 2][:CL_NEW_RANGE]
+    t0 = time.perf_counter()
+    stats2 = mgr.migrate_slots(moved, new_id, timeout_s=CL_WAIT_S)
+    add_s = time.perf_counter() - t0
+    launches = all_launches()
+    if stats2["apply_errors"] or any(mgr.router.slot_table()[s] != new_id for s in moved):
+        raise AssertionError(f"the migration into the added shard failed: {stats2}")
+    futs = [ref.get_hyper_log_log(n).add_ints_async(k) for n, k in acked]
+    [f.result() for f in futs]
+    want = ref.to_numpy_state()
+    same_rows(owner_rows(c), want, names, "after the migrations")
+    info = c.cluster_info()
+    cl_metric(card, "migration of shard 0's range seconds", migrate_s)
+    cl_metric(card, "migration stats", json.dumps(stats))
+    cl_metric(card, f"PFADDs acknowledged during it (2 writers, {CL_WRITE_KEYS} keys)",
+              len(acked))
+    cl_metric(card, "redirects so far (router)", info["redirects"])
+    cl_metric(card, f"add_shard + migration of {len(moved)} slots seconds", add_s)
+    log(f"  migration: {len(src_slots)} slots ({len(hot)} sketches) shard 0 -> 1 under "
+        f"2 writers, {len(acked)} acknowledged PFADDs all present, none lost; shard "
+        f"{new_id} added, {len(moved)} slots moved in; registers equal the reference")
+    return {"launches": launches, "migrate_s": migrate_s, "add_s": add_s,
+            "acked": len(acked), "stats": stats, "redirects": info["redirects"]}
+
+
+def cl_recover(c, card: str):
+    """Step 5, last: a fresh facade (now 5 shards) on the same directory
+    recovers the same slot table and registers; it starts the RESP servers
+    the wire step uses."""
+    from redisson_tpu_torch.client import RedissonTorch
+
+    table = c.cluster.router.slot_table()
+    rows = owner_rows(c)
+    c.shutdown()
+    t0 = time.perf_counter()
+    fresh = RedissonTorch.create(cl_config(CL_SHARDS + 1, wire=True))
+    seconds = time.perf_counter() - t0
+    try:
+        if fresh.cluster.router.slot_table() != table:
+            raise AssertionError("the recovered slot table differs")
+        got = owner_rows(fresh)
+        if set(got) != set(rows) or any(not np.array_equal(got[n], rows[n]) for n in rows):
+            raise AssertionError("the recovered registers differ")
+    except BaseException:
+        fresh.shutdown()
+        raise
+    cl_metric(card, "recovery of the 5-shard facade seconds (replay included)", seconds)
+    log(f"  recovery: a fresh facade on {CL_DIR} has the same slot table and all "
+        f"{len(rows)} sketches' registers")
+    return fresh, seconds
+
+
+def cl_socket(addr: str):
+    import socket
+
+    host, _, port = addr.rpartition(":")
+    s = socket.create_connection((host, int(port)), timeout=CL_WAIT_S)
+    s.settimeout(CL_WAIT_S)
+    return s
+
+
+def cl_exchange(sock, cmds) -> list:
+    """Send `cmds` on a socket with the port's codec, CL_WIRE_PIPELINE at a
+    time (below a connection's inflight cap, so none is shed), and read
+    every reply."""
+    from redisson_tpu_torch.wire import proto
+
+    out = []
+    parser = proto.RespParser()
+    try:
+        for lo in range(0, len(cmds), CL_WIRE_PIPELINE):
+            part = cmds[lo:lo + CL_WIRE_PIPELINE]
+            sock.sendall(proto.resp_encode_pipeline(part))
+            want = len(out) + len(part)
+            while len(out) < want:
+                data = sock.recv(1 << 20)
+                if not data:
+                    raise AssertionError("a wire server closed the connection")
+                out.extend(parser.feed(data))
+    finally:
+        parser.close()
+    return out
+
+
+def cl_one(addr: str, cmd):
+    """One command on a fresh connection -> its reply."""
+    s = cl_socket(addr)
+    try:
+        return cl_exchange(s, [cmd])[0]
+    finally:
+        s.close()
+
+
+def cl_wire_pfadds(socks, plan) -> list:
+    """Each socket sends its planned PFADDs from a thread of its own;
+    -> every reply."""
+    import threading
+
+    replies, errors = [None] * len(socks), []
+
+    def run(i):
+        try:
+            replies[i] = cl_exchange(socks[i][1], plan[i])
+        except Exception as exc:  # noqa: BLE001 — reported below
+            errors.append(repr(exc))
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True)
+               for i in range(len(socks))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(CL_WAIT_S)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"a wire socket failed or hung: {errors[:3]}")
+    return [r for rs in replies for r in rs]
+
+
+def cl_wire(c, seed: int, card: str) -> dict:
+    """Step 6: one RESP server per shard. 8 raw sockets read CLUSTER SLOTS,
+    pipeline PFADD of 1024 sketches x 4,000 byte keys to the owning servers
+    (registers equal an in-process client fed the same bytes), see -MOVED
+    on a wrong shard and -ASK on an importing slot, and PFCOUNT of {t}
+    keys, BITCOUNT and BITOP equal the in-process answers; the wire.*
+    gauges read the commands sent."""
+    from redisson_tpu_torch.client import RedissonTorch
+    from redisson_tpu_torch.ops.crc16 import key_slot
+    from redisson_tpu_torch.wire import proto
+
+    addrs = c.wire.addrs
+    table = c.cluster.router.slot_table()
+    slots = cl_one(addrs[min(addrs)], (b"CLUSTER", b"SLOTS"))
+    sent = 1
+    owner_addr = {(e[0], e[1]): f"{e[2][0].decode()}:{e[2][1]}" for e in slots}
+    if sum(e - s + 1 for s, e in owner_addr) != 16384:
+        raise AssertionError("CLUSTER SLOTS over the wire does not cover every slot")
+
+    def addr_of(key: str) -> str:
+        slot = key_slot(key)
+        return next(a for (s, e), a in owner_addr.items() if s <= slot <= e)
+
+    rng = np.random.default_rng(seed + 20)
+    names = [f"w:{i}" for i in range(SKETCHES)]
+    values = {n: [row.tobytes() for row in
+                  rng.integers(0, 256, (CL_WIRE_KEYS, CL_WIRE_KEY_BYTES), np.uint8)]
+              for n in names}
+    # the 8 sockets, spread over the servers that own slots; each server's
+    # PFADDs split over its sockets
+    owners = sorted({a for a in owner_addr.values()})
+    socks = [(owners[i % len(owners)], cl_socket(owners[i % len(owners)]))
+             for i in range(CL_WIRE_SOCKETS)]
+    plan = [[] for _ in socks]
+    turn = {a: 0 for a in owners}
+    for n in names:
+        a = addr_of(n)
+        mine = [i for i, (sa, _) in enumerate(socks) if sa == a]
+        plan[mine[turn[a] % len(mine)]].append((b"PFADD", n.encode(), *values[n]))
+        turn[a] += 1
+    ref = None
+    try:
+        reset_all_launches()
+        t0 = time.perf_counter()
+        replies = cl_wire_pfadds(socks, plan)
+        wire_s = time.perf_counter() - t0
+        sent += SKETCHES
+        if replies != [1] * SKETCHES:
+            raise AssertionError("a wire PFADD into an empty sketch did not answer 1")
+        ref = RedissonTorch.create(card_config("sort"))
+        for n in names:
+            ref.get_hyper_log_log(n).add_all(values[n])
+        same_rows(owner_rows(c), ref.to_numpy_state(), names, "wire PFADD")
+        # -MOVED: a key sent to a server that does not own its slot
+        home = addr_of("w:0")
+        moved = cl_one(next(a for a in addrs.values() if a != home),
+                       (b"PFADD", b"w:0", b"x"))
+        want_moved = f"MOVED {key_slot('w:0')} {home}"
+        if not isinstance(moved, proto.RespError) or str(moved) != want_moved:
+            raise AssertionError(f"{moved!r} is not {want_moved!r}")
+        # -ASK: the owner parks the slot in a cutover window while another
+        # shard carries its importing mark
+        ask_key = cl_name("ask:", table, 1)
+        slot = key_slot(ask_key)
+        c.cluster.shards[2].begin_migrate([slot], 2)
+        c.cluster.router.begin_cutover([slot])
+        try:
+            ask = cl_one(addrs[1], (b"PFADD", ask_key.encode(), b"x"))
+        finally:
+            c.cluster.router.abort_cutover()
+            c.cluster.shards[2].abort_migrate([slot])
+        want_ask = f"ASK {slot} {addrs[2]}"
+        if not isinstance(ask, proto.RespError) or str(ask) != want_ask:
+            raise AssertionError(f"{ask!r} is not {want_ask!r}")
+        sent += 2
+        # PFCOUNT of the {t} keys, BITCOUNT and BITOP on their owners
+        tags = [f"{{t}}:{j}" for j in range(CL_TAG_SKETCHES)]
+        day_tag = cl_name("d", table, 3)
+        days = [f"{{{day_tag}}}:{d}" for d in range(2)]
+        dest = f"{{{day_tag}}}:wire-or"
+        pfcount = cl_one(addr_of(tags[0]), (b"PFCOUNT", *[t.encode() for t in tags]))
+        s = cl_socket(addr_of(days[0]))
+        try:
+            bit = cl_exchange(s, [(b"BITCOUNT", days[0].encode()),
+                                  (b"BITOP", b"OR", dest.encode(),
+                                   *[d.encode() for d in days]),
+                                  (b"BITCOUNT", dest.encode())])
+        finally:
+            s.close()
+        sent += 4
+        in_proc = (c.get_hyper_log_log(tags[0]).count_with(*tags[1:]),
+                   c.get_bit_set(days[0]).cardinality(),
+                   c.get_bit_set(dest).size() // 8,
+                   c.get_bit_set(f"{{{day_tag}}}:or").cardinality())
+        launches = all_launches()
+        if (pfcount, *bit) != in_proc:
+            raise AssertionError(f"wire answers {(pfcount, *bit)} differ from the "
+                                 f"in-process {in_proc}")
+    finally:
+        for _, s in socks:
+            s.close()
+        if ref is not None:
+            ref.shutdown()
+    snap = c.wire.snapshot()
+    gauges = c.metrics.snapshot()["gauges"]
+    if gauges["wire.commands"] != sent:
+        raise AssertionError(f"wire.commands {gauges['wire.commands']} but {sent} sent")
+    if gauges["wire.redirects"] < 2:
+        raise AssertionError("wire.redirects did not count the -MOVED and -ASK")
+    for k in ("seg_insert", "merge_stack", "popcount_partials", "bitop_cells"):
+        if not launches[k]:
+            raise AssertionError(f"the wire step never launched {k}: {launches}")
+    nkeys = SKETCHES * CL_WIRE_KEYS
+    cl_metric(card, f"wire PFADD seconds ({SKETCHES} x {CL_WIRE_KEYS} "
+              f"{CL_WIRE_KEY_BYTES}-byte keys, {CL_WIRE_SOCKETS} sockets)", wire_s)
+    cl_metric(card, "wire PFADD keys/s", nkeys / wire_s)
+    cl_metric(card, "wire PFADD commands/s", SKETCHES / wire_s)
+    cl_metric(card, "wire bytes in / out", f"{snap['bytes_in']} / {snap['bytes_out']}")
+    cl_metric(card, "wire gauges", json.dumps({k: v for k, v in gauges.items()
+                                                if k.startswith("wire.")}))
+    log(f"  wire: {SKETCHES} PFADDs over {CL_WIRE_SOCKETS} sockets equal the "
+        f"in-process registers; -MOVED and -ASK rendered; PFCOUNT {pfcount}, BITCOUNT "
+        f"{bit[0]}, BITOP {bit[1]} bytes equal; wire.commands = {sent} sent")
+    return {"launches": launches, "seconds": wire_s, "keys_per_s": nkeys / wire_s,
+            "bytes_in": snap["bytes_in"], "bytes_out": snap["bytes_out"]}
+
+
+def cluster_path(seed: int, card: str) -> dict:
+    """Phase 20: the cluster tier and the RESP front-end on cuda:0, each
+    step resetting the launch counters just before it."""
+    import shutil
+
+    from redisson_tpu_torch.client import RedissonTorch
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(CL_DIR, ignore_errors=True)
+    log(f"phase 20 on {card}:")
+    data = cl_data(seed)
+    steps, out = {}, {}
+    c = RedissonTorch.create(cl_config(CL_SHARDS))
+    ref = RedissonTorch.create(card_config("sort"))
+    fresh = None
+    try:
+        for name, fn in (("placement", lambda: cl_placement(c, card)),
+                         ("hll", lambda: cl_hll(c, ref, data, card)),
+                         ("merges", lambda: cl_merges(c, ref, data, card)),
+                         ("bits", lambda: cl_bits(c, seed, card)),
+                         ("migration", lambda: cl_migrate(c, ref, data, seed, card))):
+            t = time.perf_counter()
+            out[name] = fn()
+            steps[name] = round(time.perf_counter() - t, 3)
+        ref.shutdown()
+        ref = None
+        t = time.perf_counter()
+        fresh, out["recovery_s"] = cl_recover(c, card)
+        steps["recovery"] = round(time.perf_counter() - t, 3)
+        t = time.perf_counter()
+        out["wire"] = cl_wire(fresh, seed, card)
+        steps["wire"] = round(time.perf_counter() - t, 3)
+    finally:
+        if ref is not None:
+            ref.shutdown()
+        (fresh or c).shutdown()
+        shutil.rmtree(CL_DIR, ignore_errors=True)
+    launches = {}
+    for step in ("hll", "merges", "bits", "migration", "wire"):
+        launches = add_launches(launches, out[step]["launches"])
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - t_phase
+    cl_metric(card, "seconds by step", json.dumps(steps))
+    cl_metric(card, "wall seconds", out["wall_s"])
+    cl_metric(card, "kernel launches", json.dumps(launches))
+    return out
+
+
 def merge_pair(tree: str, seed: int) -> int:
     """The client's merge call (`engine._merged_rows`: a numpy row list of
     257 and 1001 bank rows, as the backend passes it) and merge_stack over a
@@ -4017,6 +4626,7 @@ def phase_table(seed: int, card: str, deferred: list, out: dict) -> dict:
         "durability": lambda: durability_path(seed, card),
         "serve": lambda: serve_path(seed, card, out["hll path"][1]),
         "replica": lambda: replica_path(seed, card),
+        "cluster": lambda: cluster_path(seed, card),
     }
 
 
@@ -4062,6 +4672,8 @@ def run_phase(name: str, seed: int, card: str, phases: dict, out: dict) -> int:
         log(f"phase serve launches: {json.dumps(launches)}")
     if name == "replica":
         log(f"phase replica launches: {json.dumps(out[name]['launches'])}")
+    if name == "cluster":
+        log(f"phase cluster launches: {json.dumps(out[name]['launches'])}")
     if "batch path" in out:
         out["batch path"][1].shutdown()
     no_jax_loaded()
@@ -4159,8 +4771,11 @@ def main() -> int:
     dur_l = out["durability"]["recovery"]["launches"]
     # Phase 19: the follower's replay, the fleet's replica reads, the facades.
     rep_l = out["replica"]["launches"]
+    # Phase 20: the cluster's PFADDs, merges, bits, migrations and the wire.
+    cl_l = out["cluster"]["launches"]
     launches = add_launches(add_launches(out["hll path"][0], out["batch path"][0]),
-                            add_launches(add_launches(dur_l, serve_l), rep_l))
+                            add_launches(add_launches(dur_l, serve_l),
+                                         add_launches(rep_l, cl_l)))
     bloom_l, bitset_l = out["bloom path"][0], out["bitset path"]
     delta_l = [out[p] for p in ("delta hll path", "delta bloom path",
                                 "delta bitset path", "mixed tape window")] + [dur_l]
@@ -4179,17 +4794,19 @@ def main() -> int:
              replaces="redisson_tpu/ingest/kernels.py:145",
              launches=(bloom_l["bits_insert_segmented"] + dur_l["bits_insert_segmented"]
                        + serve_l["bits_insert_segmented"]
-                       + rep_l["bits_insert_segmented"]),
+                       + rep_l["bits_insert_segmented"]
+                       + cl_l["bits_insert_segmented"]),
              **bseg),
         dict(name="popcount_partials", route="cuda", source=src + "popcount.cu",
              replaces="redisson_tpu/ops/pallas_kernels.py:172",
              launches=(bloom_l["popcount_partials"] + bitset_l["popcount_partials"]
                        + dur_l["popcount_partials"] + serve_l["popcount_partials"]
-                       + rep_l["popcount_partials"]),
+                       + rep_l["popcount_partials"] + cl_l["popcount_partials"]),
              **pop),
         dict(name="bitop_cells", route="cuda", source=src + "bitop.cu",
              replaces="redisson_tpu/ops/pallas_kernels.py:223",
-             launches=bitset_l["bitop_cells"] + dur_l["bitop_cells"], **bop),
+             launches=(bitset_l["bitop_cells"] + dur_l["bitop_cells"]
+                       + cl_l["bitop_cells"]), **bop),
         dict(name="delta_merge", route="cuda", source=src + "delta_merge.cu",
              replaces="redisson_tpu/ops/pallas_kernels.py:116",
              launches=sum(d["delta_merge"] for d in delta_l), **dmerge),

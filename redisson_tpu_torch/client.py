@@ -27,9 +27,17 @@ engine, and the object getters bind to the ReplicaRouter, which sends
 reads to a replica inside the staleness bound and writes to the primary.
 `get_remote_service()` and `get_cache_manager()` are the services tier
 (`services/`); `reactive.create_reactive()` is the asyncio client.
+`get_topology_manager()` is the failure-detection poller over the client's
+nodes.
 
-`get_topology_manager` belongs to a tier the port has not reached yet and
-raises NotImplementedError naming the ROADMAP item.
+`Config.use_cluster()` makes this client a cluster FACADE: it builds N shard
+clients (each a full engine stack behind a slot-ownership guard; on one card
+all on `cuda:0`) and binds every object getter to the ClusterRouter
+(`client.cluster` is the ClusterManager: `migrate_slots`, `add_shard`,
+`rebalance`, `cluster_info`; `cluster_keyslot` / `cluster_slots` /
+`cluster_info` here). `Config.use_wire()` starts the RESP front-end last,
+after the whole stack: one server, or one per shard behind a cluster facade
+(`client.wire`).
 """
 
 from __future__ import annotations
@@ -83,12 +91,6 @@ from redisson_tpu_torch.routing import RoutingBackend
 from redisson_tpu_torch.store import SketchStore
 
 
-def _not_ported(getter: str, item: str):
-    return NotImplementedError(
-        f"{getter} belongs to a tier redisson_tpu_torch has not ported yet "
-        f"(ROADMAP Queue 1: {item})")
-
-
 class RedissonTorch:
     """The RedissonClient analogue on one CUDA device."""
 
@@ -97,16 +99,38 @@ class RedissonTorch:
             config = Config(cuda=config)
         self.config = config or Config()
         ccfg = self.config.cuda or CudaConfig()
-        self.device = device_mod.resolve(ccfg.device)
         self._codec = get_codec(self.config.codec)
         self.id = new_client_id()
         self._widths = tuple(ccfg.key_width_buckets)
+        # The ClusterManager on a cluster facade, None everywhere else
+        # (shard members included); the RESP front-end when Config.wire.
+        self.cluster = None
+        self.wire = None
+        self._is_shutdown = False
+        clcfg = self.config.cluster
+        if clcfg is not None and clcfg.shard_id == -1:
+            # Slot-sharded namespace: this client is the FACADE. It builds
+            # N shard clients (each re-enters __init__ with shard_id >= 0)
+            # and dispatches through the ClusterRouter; the `cuda` section
+            # configures the shards, not this client.
+            self._init_cluster_mode()
+            self._start_wire()
+            return
+        self.device = device_mod.resolve(ccfg.device)
         self._store = SketchStore(self.device)
         self.sketch = TorchBackend(
             self._store, hll_impl=ccfg.hll_impl, seed=ccfg.hash_seed,
             ingest=ccfg.ingest, hll_hash=ccfg.hll_hash,
             read_cache_entries=ccfg.read_cache_entries)
         self._routing = RoutingBackend(self.sketch)
+        if clcfg is not None and clcfg.shard_id >= 0:
+            # Shard member of a cluster: slot ownership is enforced at the
+            # dispatch waist, installed before the executor and before
+            # persist recovery, so replayed journal records cross the same
+            # accept / reject line live traffic did.
+            from redisson_tpu_torch.cluster.shard import SlotOwnershipBackend
+
+            self._routing = SlotOwnershipBackend(self._routing, clcfg.shard_id)
         self.metrics = MetricsRegistry()
         # The byte ledger is always on and wired before any traffic (a
         # persist recovery replays through the same seams).
@@ -145,7 +169,6 @@ class RedissonTorch:
         self._pubsub = self._routing.pubsub
         self._watchdog = LockWatchdog(self._executor)
         self._eviction = EvictionScheduler(self._executor)
-        self._is_shutdown = False
         self._persist = None
         self._fault = None
         self._replicas = None
@@ -207,6 +230,63 @@ class RedissonTorch:
             # created from here on routes reads through the fleet.
             self._dispatch = self._replicas.router
             register_replica(self.metrics, self._replicas)
+        # The RESP front-end last, so the first socket read finds the whole
+        # stack (serve admission, persist, replicas) standing.
+        self._start_wire()
+
+    def _init_cluster_mode(self) -> None:
+        """The facade's own state: the ClusterManager (shard clients,
+        router, migrations, topology) and the router as the dispatch every
+        object getter binds to, like the JAX facade. Per-shard subsystems
+        (memstat, trace, serve, persist, faults, replicas) live on the shard
+        clients; pub/sub and lock coordination are per-shard hubs, so the
+        facade has none."""
+        from redisson_tpu_torch.cluster import ClusterManager
+
+        self.cluster = ClusterManager(self.config)
+        self._dispatch = self._routing = self.cluster.router
+        self._executor = None
+        shard0 = self.cluster.shards[min(self.cluster.shards)]
+        self.device = shard0.client.device
+        self._store = None
+        self.sketch = None
+        self.metrics = MetricsRegistry()
+        self.metrics.gauge("cluster.queue_depth",
+                           self.cluster.router.queue_depth)
+        self.memstat = None
+        self._pressure = None
+        self._memreport = None
+        self.serve = None
+        self.trace = None
+        self._pubsub = None
+        self._watchdog = None
+        self._eviction = EvictionScheduler(self.cluster.router)
+        self._remote_services = {}
+        self._persist = None
+        self._fault = None
+        self._replicas = None
+
+    def _start_wire(self) -> None:
+        """Start the RESP front-end when `Config.wire` is set: one
+        WireServer, or one per shard behind a shared -MOVED / -ASK address
+        table on a cluster facade. A failure unwinds the whole client."""
+        wcfg = self.config.wire
+        if wcfg is None:
+            return
+        from redisson_tpu_torch.observability import register_wire
+        from redisson_tpu_torch.wire import ClusterWireFrontend, WireServer
+
+        if self.cluster is not None:
+            self.wire = ClusterWireFrontend(self, wcfg)
+        else:
+            self.wire = WireServer(self, wcfg)
+        try:
+            self.wire.start()
+        except Exception:
+            self.wire = None
+            self.shutdown()
+            raise
+        register_wire(self.metrics, self.wire)
 
     def _build_executor(self, max_batch_keys: int) -> None:
         """The executor waist and, when `Config.serve` is set, the serving
@@ -508,19 +588,23 @@ class RedissonTorch:
 
     def info(self, section: Optional[str] = None):
         """INFO: dict of section dicts (server, memory, persistence,
-        replication);
-        `section` filters to one block, like INFO MEMORY."""
+        replication, cluster); `section` filters to one block, like INFO
+        MEMORY. A cluster facade has no memory section of its own (each
+        shard keeps its ledger)."""
         sections = {
-            "server": {"mode": "cuda", "device": str(self.device),
-                       "client_id": str(self.id)},
-            "memory": self._memreport.info_memory(),
+            "server": {"mode": "cluster" if self.cluster is not None else "cuda",
+                       "device": str(self.device), "client_id": str(self.id)},
         }
+        if self._memreport is not None:
+            sections["memory"] = self._memreport.info_memory()
         if self._persist is not None:
             sections["persistence"] = self._persist.stats()
         if self._replicas is not None:
             sections["replication"] = {
                 "role": "primary",
                 "connected_replicas": len(self._replicas.replicas)}
+        if self.cluster is not None:
+            sections["cluster"] = self.cluster.cluster_info()
         if section is not None:
             key = section.lower()
             if key not in sections:
@@ -528,7 +612,28 @@ class RedissonTorch:
             return {key: sections[key]}
         return sections
 
-    # -- tiers still queued -------------------------------------------------
+    # -- CLUSTER command facade (cluster/; CLUSTER INFO / SLOTS / KEYSLOT) ---
+
+    def _require_cluster(self, command: str):
+        if self.cluster is None:
+            raise RuntimeError(f"{command} requires Config.use_cluster()")
+        return self.cluster
+
+    def cluster_keyslot(self, key: str) -> int:
+        """CLUSTER KEYSLOT analogue (hashtag-aware CRC16 slot)."""
+        return self._require_cluster("CLUSTER KEYSLOT").cluster_keyslot(key)
+
+    def cluster_slots(self):
+        """CLUSTER SLOTS analogue: (start, end_inclusive, shard_id,
+        replica_entries) ranges; each replica entry is {id, watermark, lag}
+        for the owning shard's fleet, like redis lists replicas per range."""
+        return self._require_cluster("CLUSTER SLOTS").cluster_slots()
+
+    def cluster_info(self):
+        """CLUSTER INFO analogue (cluster_state, slots_assigned, ...)."""
+        return self._require_cluster("CLUSTER INFO").cluster_info()
+
+    # -- nodes and topology --------------------------------------------------
 
     def get_cluster_nodes_group(self):
         """Cluster-scoped health surface; on one device, the same group as
@@ -541,8 +646,14 @@ class RedissonTorch:
 
     def get_topology_manager(self, scan_interval_s: float = 1.0,
                              failed_attempts: int = 3):
-        raise _not_ported("get_topology_manager",
-                          "parallel/ via NCCL (parallel/topology.py)")
+        """Failure-detection poller pre-registered with this client's nodes
+        (sentinel / cluster monitor analogue). Caller starts / stops it."""
+        from redisson_tpu_torch.parallel.topology import TopologyManager
+
+        tm = TopologyManager(scan_interval_s, failed_attempts)
+        for node in self.get_nodes_group().nodes():
+            tm.add_node(node.ident, node.ping)
+        return tm
 
     # -- services -----------------------------------------------------------
 
@@ -618,6 +729,23 @@ class RedissonTorch:
         pops (their waiters get an error), and last the pub/sub delivery
         thread."""
         if self._is_shutdown:
+            return
+        if self.wire is not None:
+            # Wire first, in every mode: stop accepting sockets and drain
+            # the event loop before the stack underneath starts refusing
+            # its submissions.
+            try:
+                self.wire.stop()
+            finally:
+                self.wire = None
+        if self.cluster is not None:
+            # Cluster facade: the shard clients own every background
+            # resource; the manager closes the router (its redirect worker)
+            # then shuts each shard down through this same path.
+            self._eviction.shutdown()
+            self.cluster.shutdown()
+            self.cluster = None
+            self._is_shutdown = True
             return
         if self._fault is not None:
             self._fault.stop()

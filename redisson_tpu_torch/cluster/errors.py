@@ -10,8 +10,7 @@ redirect loop in `CommandAsyncService`). A shard guard raises
 resubmits; the replica router re-serves a replica read its guard bounced
 from the primary.
 
-`render_redirect` (the wire frame of a redirect) comes with the RESP codec
-and the wire tier.
+`render_redirect` gives a redirect's wire frame, for the RESP front-end.
 """
 
 from __future__ import annotations
@@ -47,3 +46,15 @@ class ClusterCrossSlotError(Exception):
     """A multi-key op references keys on different shards — the
     `-CROSSSLOT` analogue. Hashtags (`{tag}`) co-locate keys on purpose;
     PFMERGE and MGET/MSET are fanned out by the router instead."""
+
+
+def render_redirect(exc: SlotMovedError, addr: str) -> bytes:
+    """Render a redirect error as its real wire frame: ``-ASK <slot>
+    <host:port>`` for the cutover window, ``-MOVED`` otherwise. `addr` is
+    the wire address of the destination shard (the guard only knows shard
+    ids; the wire tier owns the id -> host:port map)."""
+    from redisson_tpu_torch.wire import proto  # late: wire imports this module
+
+    if isinstance(exc, SlotAskError):
+        return proto.ask(exc.slot, addr)
+    return proto.moved(exc.slot, addr)

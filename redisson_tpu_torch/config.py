@@ -4,9 +4,10 @@ single-device sketch engine on a CUDA card.
 `Config.use_cuda()` is the builder, like `Config.use_tpu()`: it creates (or
 returns) the `CudaConfig` section, applies any keyword overrides, and
 returns that section. `use_persist(dir)`, `use_faults()`, `use_serve()`,
-`use_trace()`, `use_memstat()` and `use_replicas()` do the same for the
-durability, fault, serving, trace, memory and read-replica sections (the
-JAX package's fields and defaults). `to_dict` / `from_dict` / `to_json` / `from_json` round-trip a
+`use_trace()`, `use_memstat()`, `use_replicas()`, `use_cluster()` and
+`use_wire()` do the same for the durability, fault, serving, trace, memory,
+read-replica, cluster and RESP wire sections (the JAX package's fields and
+defaults). `to_dict` / `from_dict` / `to_json` / `from_json` round-trip a
 Config through plain data.
 """
 
@@ -201,6 +202,70 @@ class ReplicaConfig:
     promote_timeout_s: float = 30.0
 
 
+@dataclass
+class ClusterConfig:
+    """Slot-sharded namespace (`cluster/`): N full engine stacks each owning
+    contiguous ranges of the 16384 CRC16 slots, fronted by a ClusterRouter
+    that splits batches per owner and handles MOVED/ASK redirects — the
+    engine-owned analogue of ClusterServersConfig /
+    `ClusterConnectionManager.java` (mirrors `redisson_tpu.config.
+    ClusterConfig`). Each shard runs the Config's `cuda` section: the card
+    by default (shards round-robin over the visible cards, all on `cuda:0`
+    with one), the CPU only with `device="cpu"`. Live slot migration
+    (`client.cluster.migrate_slots`) requires `dir` so each shard journals."""
+
+    num_shards: int = 4
+    # Root persist directory; each shard journals under <dir>/shard-NN.
+    # "" = no per-shard persistence (migration unavailable).
+    dir: str = ""
+    fsync: str = "off"
+    # Per-shard admission control: front every shard with a ServingLayer
+    # built from Config.serve (which must then be present).
+    shard_serve: bool = False
+    # MOVED redirect retry depth before an op's future fails.
+    redirect_retries: int = 5
+    # Shard-level HA: each shard gets its own replica fleet tailing the
+    # shard journal (requires `dir`); tuning knobs inherit from
+    # Config.replicas when that section is set on the facade config.
+    replicas_per_shard: int = 0
+    # Quarantine-then-migrate on topology node_down events (parallel/
+    # topology.py watcher): drain the lost shard's slots onto survivors.
+    auto_heal: bool = True
+    # Shard data plane: "stacks" (N full engine stacks). "mesh" (N logical
+    # shards over one engine whose bank is sharded across devices) waits
+    # for ROADMAP Queue 1 item 7 and raises NotImplementedError.
+    data_plane: str = "stacks"
+    # INTERNAL: >= 0 marks a config built by the ClusterManager for one
+    # shard member (installs the slot-ownership guard); users leave it -1.
+    shard_id: int = -1
+
+
+@dataclass
+class WireConfig:
+    """RESP2/RESP3 network front-end (`wire/`): a TCP server real redis
+    clients (redis-cli, redis-py, Redisson) connect to; pipelined commands
+    from all connections coalesce into `execute_many` windows. In cluster
+    mode one server fronts every shard (base `port` + i, or all-ephemeral
+    when port=0) and keyed commands answer real -MOVED/-ASK redirects
+    during live slot migration (mirrors `redisson_tpu.config.WireConfig`)."""
+
+    host: str = "127.0.0.1"
+    # 0 = bind an ephemeral port (read it back from client.wire.port).
+    port: int = 0
+    # Require AUTH/HELLO AUTH before any other command (None = open).
+    password: Optional[str] = None
+    # Accept-time shed bound: further connections get -BUSY + close
+    # (0 = unlimited).
+    max_connections: int = 1024
+    # Per-connection pipelined command cap: commands past this many
+    # unanswered get -BUSY in their reply position (RejectedError shape).
+    max_inflight_per_conn: int = 128
+    # Listen backlog handed to the OS.
+    backlog: int = 128
+    # retry-after hint rendered into wire -BUSY sheds.
+    shed_retry_after_s: float = 0.05
+
+
 def _apply(section, overrides: dict):
     names = {f.name for f in fields(section)}
     for key, value in overrides.items():
@@ -223,6 +288,10 @@ class Config:
     trace: Optional[TraceConfig] = None
     memory: Optional[MemConfig] = None
     replicas: Optional[ReplicaConfig] = None
+    # Slot-sharded cluster tier (None = one engine owns all slots).
+    cluster: Optional[ClusterConfig] = None
+    # RESP wire front-end (None = facade-only access, no TCP listener).
+    wire: Optional[WireConfig] = None
 
     def use_cuda(self, **overrides) -> CudaConfig:
         self.cuda = _apply(self.cuda or CudaConfig(), overrides)
@@ -269,6 +338,37 @@ class Config:
             self.replicas.num_replicas = num_replicas
         return _apply(self.replicas, overrides)
 
+    def use_cluster(self, num_shards: int = 0, dir: str = "",
+                    replicas_per_shard: int = 0, data_plane: str = "",
+                    **overrides) -> ClusterConfig:
+        """The cluster section: shard count, the shards' persist root,
+        per-shard replica fleets (JAX's `use_cluster`; keyword overrides as
+        the other builders take them)."""
+        self.cluster = self.cluster or ClusterConfig()
+        if num_shards:
+            self.cluster.num_shards = num_shards
+        if dir:
+            self.cluster.dir = dir
+        if replicas_per_shard:
+            self.cluster.replicas_per_shard = replicas_per_shard
+        if data_plane:
+            if data_plane not in ("stacks", "mesh"):
+                raise ValueError(
+                    f"cluster.data_plane must be 'stacks' or 'mesh', "
+                    f"got {data_plane!r}")
+            self.cluster.data_plane = data_plane
+        return _apply(self.cluster, overrides)
+
+    def use_wire(self, host: str = "", port: int = -1,
+                 **overrides) -> WireConfig:
+        """The RESP wire section: listen address (port 0 = ephemeral)."""
+        self.wire = self.wire or WireConfig()
+        if host:
+            self.wire.host = host
+        if port >= 0:
+            self.wire.port = port
+        return _apply(self.wire, overrides)
+
     # -- (de)serialization --------------------------------------------------
 
     def to_dict(self) -> Dict[str, Any]:
@@ -306,4 +406,5 @@ class Config:
 SECTION_TYPES = {"cuda": CudaConfig, "persist": PersistConfig,
                  "faults": FaultConfig, "serve": ServeConfig,
                  "trace": TraceConfig, "memory": MemConfig,
-                 "replicas": ReplicaConfig}
+                 "replicas": ReplicaConfig, "cluster": ClusterConfig,
+                 "wire": WireConfig}

@@ -1,16 +1,19 @@
-"""ctypes binding of the host fold library (`csrc/host_fold.cpp`).
+"""ctypes binding of the host library (`csrc/host_fold.cpp` and
+`csrc/resp.cpp`).
 
 The host half of the delta / tape ingest and of the Bloom host mirror:
 murmur3 folds of u64 keys or byte rows into HLL registers or a packed
 big-endian Bloom bitmap, Bloom probes against such a bitmap, and a
-population count. The port's counterpart of the fold functions of
+population count. And the RESP2 wire codec of the RESP front-end (`wire/`):
+`resp_encode` / `resp_encode_pipeline` and the incremental `RespParser`.
+The port's counterpart of the fold and RESP functions of
 `redisson_tpu.native`, with its own copy of the C++ source.
 
 The library is compiled with `g++` at first use into the package's
-git-ignored `build/` directory, named by a digest of the source (like the
+git-ignored `build/` directory, named by a digest of the sources (like the
 CUDA libraries, `ops/_build.py`). There is no Python fallback: `available()`
-says whether the library built and loaded, and every fold raises when it
-did not.
+says whether the library built and loaded, and every fold and the codec
+raise when it did not.
 """
 
 from __future__ import annotations
@@ -20,13 +23,15 @@ import hashlib
 import os
 import subprocess
 import threading
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
 from redisson_tpu_torch.ops import _build
 
 SOURCE = _build.CSRC / "host_fold.cpp"
+#: every source compiled into the one library (the fold half, the codec)
+SOURCES = (SOURCE, _build.CSRC / "resp.cpp")
 GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-fvisibility=hidden")
 HLL_M = 16384
 
@@ -51,11 +56,27 @@ _SIGNATURES = {
     "hf_bloom_contains_rows": [_U8, _I64, _I32, _I64, _SEED, _K,
                                ctypes.c_uint64, _U8, _U8],
     "hf_popcount": [_U8, _I64],
+    "hf_resp_encode_pipeline": [_U8, ctypes.POINTER(_I64), _I32, _I64,
+                                ctypes.POINTER(_I64)],
+    "hf_free": [ctypes.c_void_p],
+    "hf_resp_parser_new": [],
+    "hf_resp_parser_free": [ctypes.c_void_p],
+    "hf_resp_parser_feed": [ctypes.c_void_p, _U8, _I64],
+    "hf_resp_parser_pending": [ctypes.c_void_p],
+    "hf_resp_parser_take": [ctypes.c_void_p, _U8, _I64],
+}
+_RESTYPES = {
+    "hf_popcount": ctypes.c_uint64,
+    "hf_resp_encode_pipeline": ctypes.c_void_p,
+    "hf_resp_parser_new": ctypes.c_void_p,
+    "hf_resp_parser_feed": _I64,
+    "hf_resp_parser_pending": _I64,
+    "hf_resp_parser_take": _I64,
 }
 
 
 def target() -> "os.PathLike":
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in SOURCES)).hexdigest()[:16]
     return _build.BUILD_DIR / f"libhost_fold-{digest}.so"
 
 
@@ -68,8 +89,8 @@ def build() -> None:
         return
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    out = subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp), str(SOURCE),
-                          "-lpthread"],
+    out = subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp),
+                          *(str(p) for p in SOURCES), "-lpthread"],
                          capture_output=True, text=True, timeout=300)
     BUILD_LOG = out.stdout + out.stderr
     if out.returncode != 0:
@@ -92,8 +113,7 @@ def _load() -> Optional[ctypes.CDLL]:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = None
-            lib.hf_popcount.restype = ctypes.c_uint64
+                fn.restype = _RESTYPES.get(name)
             _lib = lib
     return _lib
 
@@ -234,3 +254,123 @@ def popcount(bits: np.ndarray) -> int:
     bits = np.ascontiguousarray(bits, np.uint8)
     return int(_lib_or_raise().hf_popcount(_p(bits, ctypes.c_uint8),
                                            bits.shape[0]))
+
+
+# ---------------------------------------------------------------------------
+# RESP2 codec
+# ---------------------------------------------------------------------------
+
+def _as_arg(a) -> bytes:
+    if isinstance(a, bytes):
+        return a
+    if isinstance(a, str):
+        return a.encode()
+    if isinstance(a, (int, float)):
+        return repr(a).encode() if isinstance(a, float) else str(a).encode()
+    return bytes(a)
+
+
+def _u8(arr: np.ndarray):
+    if arr.size == 0:
+        # NULL is fine: every native loop guards on its length first.
+        return ctypes.cast(0, _U8)
+    return _p(arr, ctypes.c_uint8)
+
+
+def resp_encode(*args) -> bytes:
+    """Encode one command (a RESP array of bulk strings)."""
+    return resp_encode_pipeline([args])
+
+
+def resp_encode_pipeline(commands: Sequence[Sequence]) -> bytes:
+    """Encode many commands into one wire buffer (a pipeline)."""
+    lib = _lib_or_raise()
+    flat: List[bytes] = []
+    counts = np.empty(len(commands), np.int32)
+    for i, cmd in enumerate(commands):
+        enc = [_as_arg(a) for a in cmd]
+        counts[i] = len(enc)
+        flat.extend(enc)
+    offsets = np.zeros(len(flat) + 1, np.int64)
+    if flat:
+        np.cumsum(np.fromiter((len(a) for a in flat), np.int64, len(flat)),
+                  out=offsets[1:])
+    data = np.frombuffer(b"".join(flat), np.uint8)
+    out_len = ctypes.c_int64()
+    ptr = lib.hf_resp_encode_pipeline(
+        _u8(data), offsets.ctypes.data_as(ctypes.POINTER(_I64)),
+        _p(counts, ctypes.c_int32), len(commands), ctypes.byref(out_len))
+    try:
+        return ctypes.string_at(ptr, out_len.value)
+    finally:
+        lib.hf_free(ptr)
+
+
+class RespError(Exception):
+    """A Redis `-ERR ...` reply."""
+
+
+class RespParser:
+    """Incremental RESP2 parser. feed(data) -> list of completed frames.
+
+    Frames decode as: bytes (bulk / simple strings), int, None (null bulk /
+    null array), list (arrays, recursively), RespError instances for error
+    frames (returned, not raised: the caller decides). A protocol violation
+    (a bad header, RESP3 types included, or nesting deeper than 64)
+    surfaces one error frame and drops the rest of the stream."""
+
+    def __init__(self):
+        self._lib = _lib_or_raise()
+        self._h = self._lib.hf_resp_parser_new()
+
+    def close(self):
+        if self._h is not None:
+            self._lib.hf_resp_parser_free(self._h)
+            self._h = None
+
+    def __del__(self):  # pragma: no cover
+        try:
+            self.close()
+        except Exception:
+            pass
+
+    def feed(self, data: bytes) -> List:
+        if self._h is None:
+            raise ValueError("RespParser is closed")
+        buf = np.frombuffer(data, np.uint8)
+        n = self._lib.hf_resp_parser_feed(self._h, _u8(buf), len(data))
+        if n == 0:
+            return []
+        pend = self._lib.hf_resp_parser_pending(self._h)
+        out = np.empty(pend, np.uint8)
+        got = self._lib.hf_resp_parser_take(self._h, _u8(out), pend)
+        if got != pend:
+            raise RuntimeError(f"RESP parser handed back {got} of {pend} bytes")
+        return self._unflatten(out.tobytes(), n)
+
+    @staticmethod
+    def _unflatten(stream: bytes, count: int) -> List:
+        pos = 0
+
+        def one():
+            nonlocal pos
+            t = stream[pos:pos + 1]
+            payload = int.from_bytes(stream[pos + 1:pos + 9], "little", signed=True)
+            pos += 9
+            if t == b":":
+                return payload
+            if t in (b"+", b"$", b"-"):
+                if t == b"$" and payload < 0:
+                    return None
+                body = stream[pos:pos + payload]
+                pos += payload
+                if t == b"-":
+                    return RespError(body.decode("utf-8", "replace"))
+                return body
+            if t == b"*":
+                if payload < 0:
+                    return None
+                return [one() for _ in range(payload)]
+            raise ValueError(f"bad flat type {t!r}")
+
+        return [one() for _ in range(count)]

@@ -16,8 +16,9 @@ hooks, and the nodes/health API (counterpart of
 
 `register_follower` and `register_replica` expose the journal follower's
 lag and the read-replica fleet (the client registers the fleet's gauges
-when `Config.replicas` is set); the gauges of the wire and geo tiers
-(`register_wire` / `register_geo`) arrive with those tiers.
+when `Config.replicas` is set); `register_wire` the RESP front-end's
+wire.* gauges (the client registers them when `Config.wire` is set); the
+geo tier's (`register_geo`) arrive with that tier.
 """
 
 from __future__ import annotations
@@ -560,6 +561,34 @@ def register_trace(registry: MetricsRegistry, manager) -> None:
                    lambda: manager.monitor.active())
     registry.gauge("trace.monitor_dropped", lambda: manager.monitor.dropped())
     registry.gauge("trace.retries", lambda: manager.retries)
+
+
+def register_wire(registry: MetricsRegistry, wire) -> None:
+    """Expose the RESP wire front-end (wire/) as wire.* gauges: connection
+    population, in-flight pipeline pressure, byte throughput, shed volume
+    and the connection-scheduler's window coalescing depth. `wire` is a
+    wire.server.WireServer or (cluster facade) ClusterWireFrontend — both
+    expose the same counters; the frontend sums across shard servers."""
+    def _snap(key, default=0):
+        return lambda: wire.snapshot().get(key, default)
+
+    registry.gauge("wire.connections", wire.connections)
+    registry.gauge("wire.connections_total", _snap("total_connections"))
+    registry.gauge("wire.inflight", wire.inflight)
+    registry.gauge("wire.bytes_in", _snap("bytes_in"))
+    registry.gauge("wire.bytes_out", _snap("bytes_out"))
+    registry.gauge("wire.commands", _snap("commands_total"))
+    registry.gauge("wire.engine_commands", _snap("engine_commands"))
+    registry.gauge("wire.sheds", _snap("sheds_total"))
+    registry.gauge("wire.redirects", _snap("redirects_rendered"))
+    registry.gauge("wire.windows", _snap("windows_flushed"))
+    registry.gauge("wire.pipeline_depth", _snap("last_window_depth"))
+    registry.gauge("wire.pipeline_depth_avg", _snap("avg_window_depth", 0.0))
+    registry.gauge("wire.dropped_conns", _snap("dropped_conns"))
+    # loop-stall witness feed: zeros unless REDISSON_TPU_LOOP_WITNESS=1
+    # armed the witness for this server's loop
+    registry.gauge("wire.loop_lag_p99_us", _snap("loop_lag_p99_us"))
+    registry.gauge("wire.loop_stalls", _snap("loop_stalls"))
 
 
 def register_memstat(registry: MetricsRegistry, ledger,

@@ -37,6 +37,7 @@ from zlib import crc32
 
 from redisson_tpu_torch import checkpoint
 from redisson_tpu_torch.executor import make_lock
+from redisson_tpu_torch.ops.crc16 import key_slot
 from redisson_tpu_torch.persist.journal import (
     _FRAME,
     _HEADER,
@@ -47,6 +48,35 @@ from redisson_tpu_torch.persist.journal import (
     _list_segments,
 )
 from redisson_tpu_torch.persist.snapshotter import STRUCTURES_FILE, find_snapshots
+
+
+def slots_record_filter(slots):
+    """record_filter projecting a journal stream onto a slot subset —
+    `filter(record) -> Optional[record]` for JournalFollower(record_filter=)
+    and the cluster tier's SlotMigrator catch-up. Keyed records pass when
+    their key's slot is in `slots`, their payload untouched whatever its
+    layout (JAX's packed uint32 [n, 2] `add_ints` keys and the port's int64
+    `device_packed` keys of `RHyperLogLog.add_device` alike); the unkeyed
+    multi-key writes (mset / msetnx) are rewritten to the surviving pairs;
+    every other unkeyed record (flushall, script cache, cluster bookkeeping)
+    is dropped — keyspace-wide ops are fanned to every shard by the router
+    directly, so a slot-scoped replica must not double-apply them."""
+    slots = frozenset(int(s) for s in slots)
+
+    def _filter(rec: JournalRecord) -> Optional[JournalRecord]:
+        if rec.target:
+            return rec if key_slot(rec.target) in slots else None
+        if rec.kind in ("mset", "msetnx") and isinstance(rec.payload, dict):
+            pairs = {k: v for k, v in rec.payload.get("pairs", {}).items()
+                     if key_slot(k) in slots}
+            if not pairs:
+                return None
+            payload = dict(rec.payload)
+            payload["pairs"] = pairs
+            return rec._replace(payload=payload)
+        return None
+
+    return _filter
 
 
 class _WatermarkScanner:

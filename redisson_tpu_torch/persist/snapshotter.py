@@ -34,7 +34,7 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 from redisson_tpu_torch import checkpoint
-from redisson_tpu_torch.executor import make_lock
+from redisson_tpu_torch.executor import Op, make_lock
 from redisson_tpu_torch.fault import inject as fault_inject
 from redisson_tpu_torch.fault.taxonomy import classify
 
@@ -125,8 +125,31 @@ class Snapshotter:
         blob = structures.dump_state() if structures is not None else None
         seq = self._journal.last_seq
         self._journal.rotate()
+        self._reseed_ownership()
         self.last_cut_s = time.perf_counter() - t0
         return seq, cut, blob
+
+    def _reseed_ownership(self) -> None:
+        """A cluster shard keeps its slot ownership ONLY in journal records
+        (the guard's migrate_adopt / begin / flip stream, cluster/shard.py):
+        the rotation above would orphan it from the new segment, so the
+        guard's current owned and migrating sets become the segment's first
+        records. Runs on the dispatcher inside the cut barrier (the only
+        thread that mutates them), so the sets are exact at the watermark."""
+        owned_fn = getattr(self._client._routing, "owned_slots", None)
+        if owned_fn is None:  # not a cluster shard
+            return
+        owned = owned_fn()
+        if owned is None:  # open ownership: replay's default, nothing to pin
+            return
+        reseed = [Op(target="", kind="migrate_adopt",
+                     payload={"slots": sorted(owned)})]
+        migrating = self._client._routing.migrating_slots()
+        if migrating:
+            reseed.append(Op(target="", kind="migrate_begin",
+                             payload={"slots": sorted(migrating)}))
+        for op in reseed:
+            self._journal.append_run(op.kind, [op])
 
     @staticmethod
     def _host_objects(cut: Dict[str, Any]) -> Dict[str, tuple]:

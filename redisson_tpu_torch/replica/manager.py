@@ -56,14 +56,18 @@ def replica_engine_config(primary_config):
     (replay through a differently-configured engine silently diverges),
     while the subsystems a replica must not run are stripped — persist (a
     follower journaling the leader's ops would double-journal), replicas
-    (no recursive fleets) and faults (injection/watchdog belong to the
-    primary). JAX's copy also drops the facade cluster section, the redis
-    durability tier and its `flush_interval_s`; the port's Config has none
-    of the three yet."""
+    (no recursive fleets), faults (injection/watchdog belong to the
+    primary) and a facade's cluster topology. A shard member's cluster section
+    (shard_id >= 0) is KEPT: its replicas need the slot-ownership guard to
+    replay the journaled migrate_* records, so the slot table survives a
+    promotion. JAX's copy also drops the redis durability tier and its
+    `flush_interval_s`; the port's Config has neither yet."""
     cfg = copy.deepcopy(primary_config)
     cfg.persist = None
     cfg.replicas = None
     cfg.faults = None
+    if cfg.cluster is None or cfg.cluster.shard_id < 0:
+        cfg.cluster = None
     return cfg
 
 

@@ -149,11 +149,16 @@ class ExtendedOps:
     def _op_mc_evict_expired(self, key: str, op: Op) -> None:
         """The EvictionScheduler's sweep: delete up to `limit` expired
         entries, return the count (`EvictionScheduler.java:47-115` batches
-        of <=300 via Lua)."""
+        of <=300 via Lua). Only a cache is swept: a sweep scheduled for a
+        cache name that now holds another kind (the scheduler outlives
+        FLUSHALL and DEL) leaves that key alone, as the reference's
+        eviction script does (its ZRANGEBYSCORE fails on the wrong type).
+        The JAX engine drops such a key when its value is falsy, a drained
+        semaphore for one (ROADMAP Queue 3)."""
         from redisson_tpu_torch.structures.engine import T, now_ms
 
         kv = self._entry(key)
-        if kv is None:
+        if kv is None or kv.otype not in (T.MAPCACHE, T.SETCACHE):
             op.future.set_result(0)
             return
         limit = op.payload.get("limit", 300)

@@ -10,7 +10,9 @@ at the high watermark before it allocates, xxhash64 and bitpos on the card again
 numpy; a journal follower and a two-replica fleet on the card (replay
 through seg_insert and the segment-OR, replica reads through merge_stack
 and popcount, state equal to the primary's, a failover losing no
-acknowledged write). They skip where no card is visible. Run them on a
+acknowledged write); a 4-shard cluster facade on cuda:0 against a CPU
+cluster, and PFADDs over its RESP servers against an in-process client on
+the card. They skip where no card is visible. Run them on a
 machine with one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -28,6 +30,7 @@ from redisson_tpu_torch.config import Config
 from redisson_tpu_torch.ingest import kernels as ik
 from redisson_tpu_torch.ops import kernels as ok
 from redisson_tpu_torch.ops import window_kernel as wk
+from redisson_tpu_torch.ops.crc16 import key_slot
 
 pytestmark = pytest.mark.cuda
 
@@ -851,3 +854,105 @@ def test_replica_fleet_on_card(dev, tmp_path):
     finally:
         c.shutdown()
 
+
+
+def _cluster_rows(c):
+    """name -> registers of every HLL, read from the shard that owns it."""
+    table = c.cluster.router.slot_table()
+    out = {}
+    for sid, shard in c.cluster.shards.items():
+        bank, rows = shard.client.to_numpy_state()
+        for name, row in rows.items():
+            if table[key_slot(name)] == sid:
+                out[name] = bank[row]
+    return out
+
+
+def test_cluster_facade_on_card_matches_cpu(dev):
+    """`use_cluster()` with no compute section puts every shard on cuda:0;
+    PFADDs routed per owner and a cross-shard PFMERGE land the same
+    registers as a CPU cluster's, through seg_insert and merge_stack."""
+    card = Config()
+    card.use_cluster(num_shards=4)
+    cpu = Config()
+    cpu.use_cuda(device="cpu", ingest="sort")
+    cpu.use_cluster(num_shards=4)
+    rng = np.random.default_rng(43)
+    batches = {n: rng.integers(0, 2**64, 40_000, dtype=np.uint64)
+               for n in [f"hll:{i}" for i in range(32)] + ["{t}0", "{t}1"]}
+    states, counts = [], []
+    ik.reset_launches()
+    ok.reset_launches()
+    for cfg in (card, cpu):
+        c = RedissonTorch.create(cfg)
+        try:
+            futs = [c.get_hyper_log_log(n).add_ints_async(b)
+                    for n, b in batches.items()]
+            [f.result() for f in futs]
+            if cfg is card:
+                for shard in c.cluster.shards.values():
+                    assert shard.client.device == dev
+                    assert shard.client.sketch.bank.device == dev
+            names = list(batches)
+            counts.append((c.get_hyper_log_log(names[0]).merge_with_and_count(
+                *names[1:8]),
+                c.get_hyper_log_log("{t}0").count_with("{t}1")))
+            states.append(_cluster_rows(c))
+        finally:
+            c.shutdown()
+    assert ik.launches["seg_insert"] and ok.launches["merge_stack"]
+    assert set(states[0]) == set(states[1])
+    for n in states[1]:
+        np.testing.assert_array_equal(states[0][n], states[1][n], err_msg=n)
+    assert abs(counts[0][0] - counts[1][0]) <= 1e-5 * counts[1][0]
+    assert abs(counts[0][1] - counts[1][1]) <= 1e-5 * counts[1][1]
+
+
+def test_wire_pfadd_on_card_matches_in_process(dev, tmp_path):
+    """One RESP server per shard on the card: PFADDs pipelined to the owning
+    servers (the port's own codec) land the registers an in-process client
+    on the card gets from the same bytes; a wrong shard answers -MOVED."""
+    import socket
+
+    from redisson_tpu_torch.wire import proto
+
+    cfg = Config()
+    cfg.use_cluster(num_shards=4, dir=str(tmp_path / "cl"))
+    cfg.use_wire()
+    c = RedissonTorch.create(cfg)
+    ref = RedissonTorch.create(Config().use_cuda(ingest="sort"))
+    try:
+        table = c.cluster.router.slot_table()
+        rng = np.random.default_rng(44)
+        keys = {f"w:{i}": [rng.bytes(12) for _ in range(400)] for i in range(64)}
+        by_shard = {}
+        for name, vals in keys.items():
+            by_shard.setdefault(table[key_slot(name)], []).append(
+                (b"PFADD", name.encode(), *vals))
+            ref.get_hyper_log_log(name).add_all(vals)
+        for sid, cmds in by_shard.items():
+            host, _, port = c.wire.addr_of(sid).rpartition(":")
+            with socket.create_connection((host, int(port)), timeout=30) as s:
+                s.sendall(proto.resp_encode_pipeline(cmds))
+                parser, got = proto.RespParser(), []
+                while len(got) < len(cmds):
+                    got.extend(parser.feed(s.recv(1 << 16)))
+                parser.close()
+                assert got == [1] * len(cmds)
+        wrong = next(s for s in range(4) if s != table[key_slot("w:0")])
+        host, _, port = c.wire.addr_of(wrong).rpartition(":")
+        with socket.create_connection((host, int(port)), timeout=30) as s:
+            s.sendall(proto.resp_encode(b"PFADD", b"w:0", b"x"))
+            parser = proto.RespParser()
+            frames = []
+            while not frames:
+                frames = parser.feed(s.recv(1 << 16))
+            parser.close()
+            assert str(frames[0]).startswith(f"MOVED {key_slot('w:0')} ")
+        bank, rows = ref.to_numpy_state()
+        got = _cluster_rows(c)
+        for name in keys:
+            np.testing.assert_array_equal(got[name], bank[rows[name]], err_msg=name)
+    finally:
+        ref.shutdown()
+        c.shutdown()

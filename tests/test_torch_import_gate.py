@@ -20,8 +20,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: tier and RBatch, 67 with persist/, fault/, checkpoint and serve/errors, 84
 #: with observability, trace/, memstat/ and the rest of serve/, 96 with the
 #: replica tier, the follower, cluster/errors, reactive/, services/ and
-#: version)
-NMODS = 96
+#: version, 108 with the cluster tier, parallel/topology, loopwitness and
+#: wire/)
+NMODS = 108
 
 _GATE = textwrap.dedent("""
     import importlib, pkgutil, runpy, sys
@@ -73,6 +74,13 @@ _GATE = textwrap.dedent("""
                *(f"redisson_tpu_torch.services.{m}" for m in
                  ("remote", "cache_manager"))}
     print("SLICE10", sorted(slice10 - set(mods)))
+    slice11 = {"redisson_tpu_torch.loopwitness", "redisson_tpu_torch.parallel",
+               "redisson_tpu_torch.parallel.topology", "redisson_tpu_torch.wire",
+               *(f"redisson_tpu_torch.cluster.{m}" for m in
+                 ("split", "shard", "router", "migrator", "manager")),
+               *(f"redisson_tpu_torch.wire.{m}" for m in
+                 ("proto", "commands", "server"))}
+    print("SLICE11", sorted(slice11 - set(mods)))
     print("MODULES", len(mods), "SMOKE_RC", rc, "LEAKED", leaked)
 """)
 
@@ -90,6 +98,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert "SLICE8 []" in out.stdout  # and the durability and fault modules
     assert "SLICE9 []" in out.stdout  # and the serving / tracing / memory tier
     assert "SLICE10 []" in out.stdout  # and the replica tier and the facades
+    assert "SLICE11 []" in out.stdout  # and the cluster tier and the wire
     assert rc == "2"  # chip_smoke refuses to run without a card
     assert leaked == "[]"
     assert '"ok"' not in out.stdout

@@ -404,10 +404,13 @@ def test_read_kinds_equal_jax():
     assert READ_KINDS == JREAD_KINDS
 
 
-def test_engine_config_strips_the_sections_jax_strips(tmp_path):
+@pytest.mark.parametrize("shard_id", [None, -1, 0, 3])
+def test_engine_config_strips_the_sections_jax_strips(tmp_path, shard_id):
     """Of the sections both packages have, `replica_engine_config` clears
-    the same ones (persist, replicas, faults) and keeps the same ones
-    (serve, trace, memory, codec, the pipeline depth)."""
+    the same ones (persist, replicas, faults, and the cluster section of a
+    facade) and keeps the same ones (serve, trace, memory, the wire, codec,
+    the pipeline depth, and the cluster section of a shard member, whose
+    replicas replay its journaled slot ownership)."""
     def build(cfg):
         cfg.use_serve()
         cfg.use_trace()
@@ -415,6 +418,9 @@ def test_engine_config_strips_the_sections_jax_strips(tmp_path):
         cfg.use_persist(str(tmp_path / "p"))
         cfg.use_faults()
         cfg.use_replicas(2)
+        cfg.use_wire()
+        if shard_id is not None:
+            cfg.use_cluster(num_shards=4).shard_id = shard_id
         cfg.codec = "pickle"
         cfg.inflight_runs = 3
         return cfg
@@ -424,11 +430,15 @@ def test_engine_config_strips_the_sections_jax_strips(tmp_path):
     tcfg = build(cpu_config())
     jout, tout = jengine_config(jcfg), replica_engine_config(tcfg)
     shared = ("persist", "replicas", "faults", "serve", "trace", "memory",
-              "codec", "inflight_runs")
+              "cluster", "wire", "codec", "inflight_runs")
     for name in shared:
         assert (getattr(jout, name) is None) == (getattr(tout, name) is None), name
     for name in ("persist", "replicas", "faults"):
         assert getattr(tout, name) is None
+    if shard_id is not None and shard_id >= 0:
+        assert tout.cluster.shard_id == jout.cluster.shard_id == shard_id
+    else:
+        assert tout.cluster is None
     assert tout.codec == jout.codec == "pickle"
     assert tout.inflight_runs == jout.inflight_runs == 3
     # the card section survives (replay runs the primary's ingest, on its

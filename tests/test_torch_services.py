@@ -237,8 +237,11 @@ def test_remote_services_stop_with_the_client():
 
 
 def test_topology_manager_alone_still_raises(client):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        client.get_topology_manager()
+    """It raised until the cluster tier ported parallel/topology.py; now it
+    polls the client's device like the JAX client's (the name is kept)."""
+    tm = client.get_topology_manager(scan_interval_s=60.0, failed_attempts=1)
+    assert tm.live_nodes() == [str(client.device)]
+    assert tm.scan_once() is False and tm.scans == 1
     assert isinstance(client.get_cache_manager(), CacheManager)
     assert isinstance(client.get_remote_service(), RRemoteService)
     assert CacheConfig.from_dict({"ttl_s": 2}).ttl_s == 2

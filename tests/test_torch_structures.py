@@ -201,7 +201,16 @@ def test_keys_facade_matches_jax():
 def test_getters_of_queued_tiers_raise(client, getter):
     """The tiers still queued raise naming their ROADMAP item; the nodes
     groups arrived with observability.py and ping the client's device; the
-    remote service and the cache manager arrived with services/."""
+    remote service and the cache manager arrived with services/; the
+    topology manager with the cluster tier (it polls the client's device).
+    No getter of the client raises any more."""
+    if getter == "get_topology_manager":
+        from redisson_tpu_torch.parallel.topology import TopologyManager
+
+        tm = client.get_topology_manager()
+        assert isinstance(tm, TopologyManager)
+        assert tm.live_nodes() == [str(client.device)] and not tm.scan_once()
+        return
     if getter in ("get_cluster_nodes_group", "get_nodes_group"):
         from redisson_tpu_torch.observability import NodesGroup
 

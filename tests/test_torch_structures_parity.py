@@ -455,3 +455,40 @@ def test_random_ops_agree(clients, kind, seed):
             continue
         _same(jr[1], tr[1], repr(where))
     _same(_state(jc), _state(tc), kind)
+
+
+# ---------------------------------------------------------------------------
+# The mc_evict_expired sweep against a key of another kind. The eviction
+# scheduler keeps a timer per cache name across FLUSHALL, so a sweep
+# scheduled by the "mapcache" kind above can land on the semaphore of the
+# same name later in this module: the JAX engine then drops a semaphore
+# drained to 0 permits (its `_drop_if_empty` sees a falsy value), which made
+# `test_random_ops_agree[semaphore-3]` disagree once at step 80
+# (`try_set_permits` on p1: False in one client, True in the other). The
+# port sweeps caches only; the JAX behaviour is pinned below and recorded in
+# ROADMAP Queue 3.
+# ---------------------------------------------------------------------------
+
+
+def _semaphore_survives_sweep(client) -> bool:
+    """Drain a semaphore under a cache's name, run the cache sweep on that
+    name, and say whether the semaphore survived."""
+    client.get_map_cache("swept").put("a", 1, 1000)
+    client.flushall()
+    sem = client.get_semaphore("swept")
+    assert sem.try_set_permits(0) is True
+    client._executor.execute_sync("swept", "mc_evict_expired", {"limit": 300})
+    return sem.try_set_permits(3) is False  # still set: it survived
+
+
+def test_cache_sweep_leaves_a_drained_semaphore_alone(clients):
+    _, tc = clients
+    assert _semaphore_survives_sweep(tc) is True
+
+
+def test_jax_cache_sweep_drops_a_drained_semaphore(clients):
+    """Pins the JAX engine's behaviour (ROADMAP Queue 3): its sweep deletes
+    the semaphore. If this starts failing, the JAX package was repaired and
+    the Queue 3 record can go."""
+    jc, _ = clients
+    assert _semaphore_survives_sweep(jc) is False
