@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phase serve       # the build and one phase (see phase_table)
     python3 chip_smoke.py --phase replica     # the build and phase 19 alone
     python3 chip_smoke.py --phase cluster     # the build and phase 20 alone
+    python3 chip_smoke.py --phase geo         # the build, a sort reference and phase 21
     python3 chip_smoke.py --merge-pair TREE   # the client's merge call only, of TREE's package
     python3 chip_smoke.py --child-writer DIR  # phase 15's writer (the phase starts it)
 
@@ -209,10 +210,33 @@ Phases, each of which fails the run on error:
      equal the in-process answers; wire.commands equal to the commands
      sent. Seconds, keys/s, migration seconds and stats, redirects, wire
      bytes and commands/s are printed, never checked.
+ 21. geo replication (geo/; run after 20): Redis Enterprise's
+     Active-Active database as its documentation describes it, two
+     participating clusters with conflict-free merge and add-wins
+     deletes: sites A and B on cuda:0 (the default config: the card,
+     ingest "auto"), each journaling under its own directory with the
+     default fsync, GeoConfig defaults, meshed with connect_sites. (1) The
+     HLL path's 1024 x 40,000 keys, each sketch's keys split between the
+     sites, the first 64 sketches written in full at both: after converge
+     both banks equal the `sort` reference of phase 3 (the union); (2)
+     config 2's filter initialized alike at both, 5M adds at each: cells
+     equal each other and a single `scatter` client's; (3) one 2^27-bit
+     bitmap, 4M SETBITs at each: cells equal, BITCOUNT equal to numpy's at
+     both; (4) partitioned, B (its journal pumped past A's) PFADDs to 8 of
+     the 16 sketches A deletes: after the heal the 8 hold B's state at both
+     sites and the other 8 are gone at both; then a SETBIT-to-0 of 1,000
+     bits at A (pumped past B) replicates as a replace; (5) B isolated by
+     geo_link faults while both write 64 sketches: bit-identical after the
+     heal; (6) B shut down, A writing, B reopened on its directory: its
+     version vector equals the one its sidecar saved, and the sites
+     converge bit-identical over every key. geo_planes > 0 and
+     geo_classic == 0 at both sites, delta_merge launched. Converge seconds
+     per step, remote-apply keys/s, link against raw journal bytes and the
+     phase's launches are printed, never checked.
 
 Each path (3, 7, 8, 10, 11, 13, 15's recovery with the checks after it,
-16 and each step of 19 and 20) resets the launch counters just before it
-and reads them just after. The last lines are the card's name and power limit, a
+16, each step of 19 and 20, and 21) resets the launch counters just before
+it and reads them just after. The last lines are the card's name and power limit, a
 JSON object with one entry per kernel, and `{"ok": true, "device": {...}}`.
 Exits non-zero, with no result, when no card is visible or the package is
 missing.
@@ -381,6 +405,19 @@ CL_WIRE_KEY_BYTES = 12
 CL_WIRE_SOCKETS = 8
 CL_WIRE_PIPELINE = 64  # commands in flight per socket (the cap is 128)
 CL_WAIT_S = 120.0
+
+# Phase 21: Redis Enterprise's Active-Active (CRDT) database, two
+# participating clusters on one card: sites A and B, each journaling under
+# its own directory (default fsync), GeoConfig defaults.
+GEO_DIR = "build/phase21"  # git-ignored, inside the checkout; removed after
+GEO_BOTH = 64  # sketches written in full at both sites (the rest split 50/50)
+GEO_LWW_DEL = 16  # sketches A deletes while partitioned
+GEO_LWW_NEWER = 8  # of them, the ones B writes to with newer stamps
+GEO_LWW_KEYS = 1_000  # keys of each of B's newer PFADDs
+GEO_CLEAR = 1_000  # bits a SETBIT-to-0 clears (replicated as a replace)
+GEO_PART_SKETCHES = 64  # sketches both sites write while B is isolated
+GEO_KILL_KEYS = 10_000  # keys per sketch A writes while B is down
+GEO_WAIT_S = 120.0
 # Per-sketch estimates: the RMS error must stay below 2%, and at most this
 # share of sketches may exceed 2%. A single sketch is not held to 2%: the
 # standard error at p = 14 is 0.81%, so 2% is a 2.5-sigma draw, and among
@@ -4556,6 +4593,350 @@ def cluster_path(seed: int, card: str) -> dict:
     return out
 
 
+# -- phase 21: geo-replication (two active sites) ------------------------------
+
+
+def geo_metric(card: str, what: str, value) -> None:
+    """One phase-21 number on its own line, beside the card it ran on."""
+    log(f"[{card}] phase 21 {what}: {value}")
+
+
+def geo_site(sid: str):
+    """A site with the default config (the card, ingest "auto"), persist
+    under GEO_DIR/<sid> with the default fsync, GeoConfig defaults."""
+    from redisson_tpu_torch.client import RedissonTorch
+    from redisson_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.use_persist(os.path.join(GEO_DIR, sid))
+    cfg.use_geo(sid)
+    return RedissonTorch.create(cfg)
+
+
+def geo_converge(sites, what: str, card: str, steps: dict) -> float:
+    """converge() polled up to GEO_WAIT_S from the last acknowledged write
+    (the links ship while the writes run); its seconds are printed, never
+    checked."""
+    from redisson_tpu_torch.geo import converge
+
+    t = time.perf_counter()
+    if not converge(sites, GEO_WAIT_S):
+        raise AssertionError(f"phase 21: the sites never converged after {what}")
+    seconds = time.perf_counter() - t
+    steps[what] = round(seconds, 3)
+    geo_metric(card, f"converge seconds after {what} (from the last acknowledged "
+               "write)", seconds)
+    return seconds
+
+
+def geo_rate(card: str, what: str, keys: int, t0: float) -> float:
+    """Remote-apply keys/s of a step: the keys folded into the planes each
+    site received, over the step's wall time (the writes, the shipping
+    beside them and the converge)."""
+    seconds = time.perf_counter() - t0
+    geo_metric(card, f"{what}: step seconds {seconds:.4f}, remote-apply keys/s",
+               keys / seconds)
+    return keys / seconds
+
+
+def geo_digest(client, names) -> dict:
+    """name -> (type, cells bytes) or None, through the exports the links
+    ship (host numpy cells): hll_export, else bits_export."""
+    from redisson_tpu_torch.store import WrongTypeError
+
+    ex, out = client._executor, {}
+    for n in names:
+        try:
+            got = ex.execute_sync(n, "hll_export", None)
+            otype = "hll"
+        except WrongTypeError:
+            got = None
+        if got is None:
+            got = ex.execute_sync(n, "bits_export", None)
+            otype = None if got is None else str(got[0])
+            got = None if got is None else got[1:]
+        out[n] = None if got is None else (otype, np.asarray(got[0], np.uint8).tobytes())
+    return out
+
+
+def geo_same(sites, names, what: str) -> dict:
+    da, db = (geo_digest(c, names) for c in sites)
+    bad = [n for n in names if da[n] != db[n]]
+    if bad:
+        raise AssertionError(f"phase 21 {what}: the sites differ on {len(bad)} keys, "
+                             f"e.g. {bad[:3]}")
+    return da
+
+
+def geo_partition(*targets):
+    """Drop every geo_link tick toward the named sites."""
+    from redisson_tpu_torch.fault import inject
+    from redisson_tpu_torch.fault.inject import FaultInjector, FaultPlan, FaultRule
+
+    inject.install(FaultInjector(FaultPlan(rules=[
+        FaultRule(seam="geo_link", target=t, nth=1, times=1 << 30) for t in targets])))
+
+
+def geo_pump(lead, behind, key: str) -> None:
+    """SETBITs at `lead` until its journal is 32 records past `behind`'s, so
+    its next stamps are the newer ones."""
+    i = 0
+    while lead.geo.journal_last_seq() <= behind.geo.journal_last_seq() + 32:
+        lead.get_bit_set(key).set_bits([i])
+        i += 1
+
+
+def geo_hll(sites, ref, seed: int, card: str, steps: dict) -> dict:
+    """Step 1: the HLL path's 1024 x 40,000 keys, each sketch's keys split
+    between the sites (the first GEO_BOTH written in full at both); after
+    converge both banks equal each other and the single-site sort
+    reference fed the union."""
+    a, b = sites
+    names = [f"hll:{i}" for i in range(SKETCHES)]
+    half = KEYS // 2
+    t0 = time.perf_counter()
+    futs = []
+    for i, n in enumerate(names):
+        keys = keys_for(i * STRIDE, KEYS, seed)
+        if i < GEO_BOTH:
+            futs += [a.get_hyper_log_log(n).add_ints_async(keys),
+                     b.get_hyper_log_log(n).add_ints_async(keys)]
+        else:
+            futs += [a.get_hyper_log_log(n).add_ints_async(keys[:half]),
+                     b.get_hyper_log_log(n).add_ints_async(keys[half:])]
+    [f.result() for f in futs]
+    geo_converge(sites, "hll", card, steps)
+    remote = SKETCHES * half + GEO_BOTH * half  # keys each site received folded
+    geo_rate(card, "hll", remote, t0)
+    _res, ref_bank, ref_rows = ref
+    for c, sid in zip(sites, "AB"):
+        bank, rows = c.to_numpy_state()
+        bad = [n for n in names if not np.array_equal(bank[rows[n]], ref_bank[ref_rows[n]])]
+        if bad:
+            raise AssertionError(f"phase 21 hll: site {sid}'s registers of {len(bad)} "
+                                 f"sketches differ from the sort reference, e.g. {bad[:3]}")
+    log(f"  hll: both sites' {SKETCHES} sketches bit-identical to the sort reference")
+    return {"names": names, "remote_keys": remote}
+
+
+def geo_bloom(sites, seed: int, card: str, steps: dict) -> dict:
+    """Step 2: BASELINE config 2's filter initialized alike at both sites,
+    10M adds split 5M / 5M; the cells equal each other and a single-site
+    scatter client's."""
+    from redisson_tpu_torch.client import RedissonTorch
+
+    a, b = sites
+    t0 = time.perf_counter()
+    for c in sites:
+        if not c.get_bloom_filter("bloom").try_init(BLOOM_N, BLOOM_P):
+            raise AssertionError("try_init of a fresh filter returned False")
+    step = BLOOM_KEYS // 10
+    for lo in range(0, BLOOM_KEYS, step):
+        (a if lo < BLOOM_KEYS // 2 else b).get_bloom_filter("bloom").add_ints(
+            bloom_keys(lo, step, seed))
+    geo_converge(sites, "bloom", card, steps)
+    geo_rate(card, "bloom", BLOOM_KEYS // 2, t0)
+    ref = RedissonTorch.create(card_config("scatter"))
+    try:
+        bloom_fill(ref, "bloom", seed)
+        want = export_cells(ref, "bloom")
+    finally:
+        ref.shutdown()
+    cells = geo_same(sites, ["bloom"], "bloom")["bloom"][1]
+    if cells != want.tobytes():
+        raise AssertionError("phase 21 bloom: the sites' cells differ from scatter's")
+    log(f"  bloom: m = {BLOOM_M}, k = {BLOOM_K}: both sites' cells equal the "
+        "single-site scatter client's")
+    return {}
+
+
+def geo_bits(sites, seed: int, card: str, steps: dict) -> dict:
+    """Step 3: one 2^27-bit bitmap, 8M SETBITs split between the sites; the
+    cells equal, BITCOUNT equal at both sites and to numpy's."""
+    a, b = sites
+    idx = rp_day(seed)
+    half = DAY_SETS // 2
+    t0 = time.perf_counter()
+    a.get_bit_set("geo:day").set_bits(idx[:half])
+    b.get_bit_set("geo:day").set_bits(idx[half:])
+    geo_converge(sites, "bitset", card, steps)
+    geo_rate(card, "bitset", half, t0)
+    geo_same(sites, ["geo:day"], "bitset")
+    want = int(np.unique(idx).size)
+    counts = [c.get_bit_set("geo:day").cardinality() for c in sites]
+    if counts != [want, want]:
+        raise AssertionError(f"phase 21 bitset: BITCOUNT {counts}, numpy {want}")
+    log(f"  bitset: cells identical; BITCOUNT {want} at both sites and in numpy")
+    return {"idx": idx}
+
+
+def geo_lww(sites, seed: int, card: str, steps: dict, idx) -> dict:
+    """Step 4: with the sites partitioned, B (its stamps pumped past A's)
+    PFADDs to GEO_LWW_NEWER of the GEO_LWW_DEL sketches A deletes; after the
+    heal those are resurrected at both sites (B's state) and the rest are
+    gone at both. Then a SETBIT-to-0 at A (its stamps pumped past B's)
+    replicates as a full-state replace."""
+    from redisson_tpu_torch.client import RedissonTorch
+    from redisson_tpu_torch.fault import inject
+
+    a, b = sites
+    doomed = [f"hll:{i}" for i in range(GEO_LWW_DEL)]
+    newer = doomed[:GEO_LWW_NEWER]
+    geo_partition("A", "B")
+    try:
+        geo_pump(b, a, "geo:pump:b")
+        new_keys = [keys_for((1 << 44) + j * GEO_LWW_KEYS, GEO_LWW_KEYS, seed)
+                    for j in range(GEO_LWW_NEWER)]
+        for n, keys in zip(newer, new_keys):
+            b.get_hyper_log_log(n).add_ints(keys)
+        a.get_keys().delete(*doomed)
+    finally:
+        inject.uninstall()
+    geo_converge(sites, "lww", card, steps)
+    digest = geo_same(sites, doomed, "lww")
+    gone = [n for n in doomed[GEO_LWW_NEWER:] if digest[n] is not None]
+    if gone:
+        raise AssertionError(f"phase 21 lww: deleted sketches survive: {gone}")
+    ref = RedissonTorch.create(card_config("sort"))
+    try:
+        for i, (n, keys) in enumerate(zip(newer, new_keys)):
+            ref.get_hyper_log_log(n).add_ints(keys_for(i * STRIDE, KEYS, seed))
+            ref.get_hyper_log_log(n).add_ints(keys)
+        want = geo_digest(ref, newer)
+    finally:
+        ref.shutdown()
+    bad = [n for n in newer if digest[n] != want[n]]
+    if bad:
+        raise AssertionError(f"phase 21 lww: resurrected sketches differ from B's "
+                             f"writes: {bad}")
+    res = [c.geo.applier.resurrections for c in sites]
+    sup = [c.geo.applier.suppressed for c in sites]
+    if not sum(res) or not sum(sup):
+        raise AssertionError(f"phase 21 lww: no suppression or resurrection: {sup}, {res}")
+    # SETBIT-to-0 at A, newer than every write B made to the bitmap.
+    geo_pump(a, b, "geo:pump:a")
+    cleared = np.unique(idx)[:GEO_CLEAR]
+    a.get_bit_set("geo:day").clear_bits(cleared)
+    geo_converge(sites, "bitset clear", card, steps)
+    geo_same(sites, ["geo:day"], "bitset clear")
+    want_count = int(np.unique(idx).size) - GEO_CLEAR
+    counts = [c.get_bit_set("geo:day").cardinality() for c in sites]
+    if counts != [want_count, want_count]:
+        raise AssertionError(f"phase 21 bitset clear: BITCOUNT {counts}, want {want_count}")
+    geo_metric(card, "lww: suppressed, resurrections (A, B)", json.dumps([sup, res]))
+    log(f"  lww: {GEO_LWW_NEWER} sketches resurrected at both sites as B wrote them, "
+        f"{GEO_LWW_DEL - GEO_LWW_NEWER} gone at both; a SETBIT-to-0 of {GEO_CLEAR} bits "
+        "replicated as a replace")
+    return {}
+
+
+def geo_partition_heal(sites, seed: int, card: str, steps: dict) -> dict:
+    """Step 5: B isolated by geo_link faults while both sites write; after the
+    heal the sites converge bit-identical."""
+    from redisson_tpu_torch.fault import inject
+
+    a, b = sites
+    names = [f"geo:p:{j}" for j in range(GEO_PART_SKETCHES)]
+    half = KEYS // 2
+    geo_partition("A", "B")
+    try:
+        for j, n in enumerate(names):
+            keys = keys_for((1 << 46) + j * KEYS, KEYS, seed)
+            a.get_hyper_log_log(n).add_ints(keys[:half])
+            b.get_hyper_log_log(n).add_ints(keys[half:])
+        time.sleep(0.1)  # ticks run into the partition
+    finally:
+        inject.uninstall()
+    parts = a.geo.links["B"].stats["partitions"] + b.geo.links["A"].stats["partitions"]
+    geo_converge(sites, "partition heal", card, steps)
+    geo_same(sites, names, "partition heal")
+    if not parts:
+        raise AssertionError("phase 21 partition: no link tick was dropped")
+    geo_metric(card, "partition: link ticks dropped", parts)
+    log(f"  partition: {parts} ticks dropped; {len(names)} sketches bit-identical "
+        "after the heal")
+    return {"names": names}
+
+
+def geo_rejoin(sites, names, seed: int, card: str, steps: dict):
+    """Step 6: B shut down and reopened on its directory while A writes: the
+    reopened site's version vector is the one its sidecar saved, and the
+    sites converge bit-identical again."""
+    from redisson_tpu_torch.geo import connect_sites
+
+    a, b = sites
+    vv = dict(b.geo.applier.vv)
+    b.shutdown()
+    for i in range(GEO_BOTH):
+        a.get_hyper_log_log(f"hll:{i}").add_ints(
+            keys_for((1 << 47) + i * GEO_KILL_KEYS, GEO_KILL_KEYS, seed))
+    t = time.perf_counter()
+    b2 = geo_site("B")
+    steps["reopen"] = round(time.perf_counter() - t, 3)
+    sites[1] = b2
+    got = dict(b2.geo.applier.vv)
+    if got != vv:
+        raise AssertionError(f"phase 21 rejoin: version vector {got}, saved {vv}")
+    connect_sites(sites)
+    geo_converge(sites, "rejoin", card, steps)
+    geo_same(sites, names, "rejoin")
+    geo_metric(card, "rejoin: reopen seconds (journal replay)", steps["reopen"])
+    log(f"  rejoin: B's version vector {got} restored; {len(names)} keys bit-identical")
+    return b2
+
+
+def geo_path(seed: int, card: str, ref) -> dict:
+    """Phase 21: two geo sites on cuda:0 converging through delta_merge; the
+    launch counters are reset at its start and read at its end."""
+    import shutil
+
+    from redisson_tpu_torch.geo import connect_sites
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(GEO_DIR, ignore_errors=True)
+    log(f"phase 21 on {card}:")
+    reset_all_launches()
+    sites = [geo_site("A"), geo_site("B")]
+    steps, out = {}, {}
+    try:
+        connect_sites(sites)
+        out["hll"] = geo_hll(sites, ref, seed, card, steps)
+        geo_bloom(sites, seed, card, steps)
+        idx = geo_bits(sites, seed, card, steps)["idx"]
+        geo_lww(sites, seed, card, steps, idx)
+        part = geo_partition_heal(sites, seed, card, steps)
+        link = sum(l.stats["link_bytes"] for c in sites for l in c.geo.links.values())
+        raw = sum(l.stats["raw_bytes"] for c in sites for l in c.geo.links.values())
+        names = (out["hll"]["names"] + part["names"]
+                 + ["bloom", "geo:day", "geo:pump:a", "geo:pump:b"])
+        geo_rejoin(sites, names, seed, card, steps)
+        counters = [{k: c.sketch.counters[k] for k in ("geo_planes", "geo_classic")}
+                    for c in sites]
+        card_state = all(on_card(c) for c in sites)
+    finally:
+        for c in sites:
+            c.shutdown()
+        shutil.rmtree(GEO_DIR, ignore_errors=True)
+    launches = all_launches()
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - t_phase
+    geo_metric(card, "geo_planes / geo_classic (A, B)", json.dumps(counters))
+    geo_metric(card, "link bytes against raw journal bytes (both directions, before "
+               "the rejoin)", f"{link} / {raw} = {link / max(raw, 1):.5f}")
+    geo_metric(card, "seconds by step", json.dumps(steps))
+    geo_metric(card, "wall seconds", out["wall_s"])
+    geo_metric(card, "kernel launches", json.dumps(launches))
+    geo_metric(card, "delta_merge launches", launches["delta_merge"])
+    if not all(c["geo_planes"] > 0 and c["geo_classic"] == 0 for c in counters):
+        raise AssertionError(f"phase 21: remote planes missed delta_merge: {counters}")
+    if not launches["delta_merge"]:
+        raise AssertionError(f"phase 21 never launched delta_merge: {launches}")
+    if not card_state:
+        raise AssertionError("phase 21: a site's state tensor is not on the card")
+    out["link_bytes"], out["raw_bytes"] = link, raw
+    return out
+
+
 def merge_pair(tree: str, seed: int) -> int:
     """The client's merge call (`engine._merged_rows`: a numpy row list of
     257 and 1001 bank rows, as the backend passes it) and merge_stack over a
@@ -4627,6 +5008,7 @@ def phase_table(seed: int, card: str, deferred: list, out: dict) -> dict:
         "serve": lambda: serve_path(seed, card, out["hll path"][1]),
         "replica": lambda: replica_path(seed, card),
         "cluster": lambda: cluster_path(seed, card),
+        "geo": lambda: geo_path(seed, card, out["hll path"][1]),
     }
 
 
@@ -4656,7 +5038,7 @@ def run_phase(name: str, seed: int, card: str, phases: dict, out: dict) -> int:
         print(f"chip_smoke: no phase {name!r}; phases: {', '.join(phases)}",
               file=sys.stderr)
         return 2
-    if name == "serve":
+    if name in ("serve", "geo"):
         out["hll path"] = (None, sort_reference(seed))
     for dep in PHASE_NEEDS.get(name, ()):
         out[dep] = phases[dep]()
@@ -4674,6 +5056,8 @@ def run_phase(name: str, seed: int, card: str, phases: dict, out: dict) -> int:
         log(f"phase replica launches: {json.dumps(out[name]['launches'])}")
     if name == "cluster":
         log(f"phase cluster launches: {json.dumps(out[name]['launches'])}")
+    if name == "geo":
+        log(f"phase geo launches: {json.dumps(out[name]['launches'])}")
     if "batch path" in out:
         out["batch path"][1].shutdown()
     no_jax_loaded()
@@ -4773,12 +5157,15 @@ def main() -> int:
     rep_l = out["replica"]["launches"]
     # Phase 20: the cluster's PFADDs, merges, bits, migrations and the wire.
     cl_l = out["cluster"]["launches"]
+    # Phase 21: both geo sites' local writes and remote applies.
+    geo_l = out["geo"]["launches"]
     launches = add_launches(add_launches(out["hll path"][0], out["batch path"][0]),
                             add_launches(add_launches(dur_l, serve_l),
                                          add_launches(rep_l, cl_l)))
+    launches = add_launches(launches, geo_l)
     bloom_l, bitset_l = out["bloom path"][0], out["bitset path"]
     delta_l = [out[p] for p in ("delta hll path", "delta bloom path",
-                                "delta bitset path", "mixed tape window")] + [dur_l]
+                                "delta bitset path", "mixed tape window")] + [dur_l, geo_l]
 
     no_jax_loaded()
 
@@ -4795,13 +5182,15 @@ def main() -> int:
              launches=(bloom_l["bits_insert_segmented"] + dur_l["bits_insert_segmented"]
                        + serve_l["bits_insert_segmented"]
                        + rep_l["bits_insert_segmented"]
-                       + cl_l["bits_insert_segmented"]),
+                       + cl_l["bits_insert_segmented"]
+                       + geo_l["bits_insert_segmented"]),
              **bseg),
         dict(name="popcount_partials", route="cuda", source=src + "popcount.cu",
              replaces="redisson_tpu/ops/pallas_kernels.py:172",
              launches=(bloom_l["popcount_partials"] + bitset_l["popcount_partials"]
                        + dur_l["popcount_partials"] + serve_l["popcount_partials"]
-                       + rep_l["popcount_partials"] + cl_l["popcount_partials"]),
+                       + rep_l["popcount_partials"] + cl_l["popcount_partials"]
+                       + geo_l["popcount_partials"]),
              **pop),
         dict(name="bitop_cells", route="cuda", source=src + "bitop.cu",
              replaces="redisson_tpu/ops/pallas_kernels.py:223",

@@ -20,8 +20,14 @@ cell budget allows, or under `ingest="tape"` through one `window_merge`
 launch (`ingest/tape.py`); the other groups go to `_classic_group_run`.
 A Bloom filter may also be served from a packed host mirror (the Bloom
 host mirror section), synced to the device before any device-side op.
-The mesh collectives and the geo-replication planes arrive with their
-slices.
+
+`geo_merge` (a remote site's pre-folded delta plane, geo/) shares the
+steal group: its groups skip the planner and retire through the same
+`delta_merge` launches as local writes, never through a tape window
+(`_geo_fold_group`); `_op_geo_merge` is the classic fallback (counted in
+`geo_classic`), and `_op_geo_replace` / `_op_geo_delete` /
+`_op_geo_flush` install the applier's LWW decisions. The mesh
+collectives arrive with their slice.
 """
 
 from __future__ import annotations
@@ -444,13 +450,16 @@ class TorchBackend:
     targets (one device call carries keys for many sketches through a
     per-key row vector)."""
 
-    GLOBAL_COALESCE = frozenset({"hll_add", "bloom_add", "bitset_set"})
+    GLOBAL_COALESCE = frozenset({"hll_add", "bloom_add", "bitset_set",
+                                 "geo_merge"})
 
     #: the executor's steal alias: the three delta kinds share one gate
     #: group, so one window may hold hll_add, bloom_add and bitset_set runs
-    #: of many targets and retire them in one merge launch
+    #: of many targets and retire them in one merge launch; geo_merge (a
+    #: remote site's pre-folded plane, geo/) shares it, so remote
+    #: convergence rides the same launch as local writes
     COALESCE_GROUPS = {"hll_add": "delta", "bloom_add": "delta",
-                       "bitset_set": "delta"}
+                       "bitset_set": "delta", "geo_merge": "delta"}
 
     #: cell budget (padded T x padded L uint8 cells) of one merge launch; a
     #: window whose planes exceed it splits into several launches
@@ -520,6 +529,8 @@ class TorchBackend:
             "window_launches": 0,  # device calls issued retiring windows
             "launch_us": 0.0,     # host wall time spent issuing them
             "delta_scratch_bytes": 0,  # in-flight delta plane bytes (meter)
+            "geo_planes": 0,      # remote site planes through delta_merge
+            "geo_classic": 0,     # remote planes absorbed by the fallback
         }
         self._scratch_lock = threading.Lock()
         # memstat ledger (MemLedger-shaped) or None: the bank's size is
@@ -776,6 +787,8 @@ class TorchBackend:
         classic handlers, which isolate them per target) and the planner
         must pick 'delta' or 'tape'. Returns that path, or None for the
         classic path."""
+        if kind == "geo_merge":
+            return self._geo_planned(tname, tops[0].payload["inner"])
         nkeys = sum(op.nkeys or delta_mod.payload_nkeys(kind, op.payload)
                     for op in tops)
         if kind == "hll_add":
@@ -811,6 +824,27 @@ class TorchBackend:
                                raw_per_key=4, allow_delta=True)
         return path if path in self._DELTA_PATHS else None
 
+    def _geo_planned(self, tname: str, inner: str) -> Optional[str]:
+        """The geo gate: remote planes arrive folded (shipping them is sunk
+        cost), so no planner is consulted, only the type gates; never
+        'tape' (its per-op results, newly bits and pre-merge SETBIT reads,
+        do not apply to remote planes)."""
+        if inner == "hll_add":
+            if tname not in self._rows and self.store.get(tname) is not None:
+                return None  # the name holds a BitSet / Bloom: WRONGTYPE
+            return "delta"
+        if tname in self._rows:
+            return None  # the name holds an HLL: WRONGTYPE
+        obj = self.store.get(tname)
+        if inner == "bloom_add":
+            if obj is not None and (obj.otype != ObjectType.BLOOM
+                                    or obj.meta.get("blocked")):
+                return None
+            return "delta"
+        if obj is not None and obj.otype != ObjectType.BITSET:
+            return None
+        return "delta"
+
     def _delta_dispatch(self, target: str, ops: List[Op]) -> None:
         """Split a coalesced run (across kinds and targets) into (target,
         kind) groups and route each whole group through the delta window or
@@ -829,7 +863,23 @@ class TorchBackend:
             else:
                 classic.extend(tops)
         if delta_groups:
-            self._delta_window(delta_groups, tape=use_tape)
+            # Remote planes never ride a tape window, and no target may
+            # hold two rows of one stack (the later writeback would drop
+            # the earlier row's bits): a geo plane whose target also has a
+            # local group in this run retires in a window of its own,
+            # after the local one, against the state that one committed.
+            local = [g for g in delta_groups if g[1] != "geo_merge"]
+            geo = [g for g in delta_groups if g[1] == "geo_merge"]
+            if use_tape:
+                first, later = local, geo
+            else:
+                mine = {g[0] for g in local}
+                first = local + [g for g in geo if g[0] not in mine]
+                later = [g for g in geo if g[0] in mine]
+            if first:
+                self._delta_window(first, tape=use_tape)
+            if later:
+                self._delta_window(later, tape=False)
         if classic:
             self._classic_group_run(classic)
 
@@ -916,6 +966,8 @@ class TorchBackend:
         spec, on the host. The only device work it queues is a SETBIT
         group's pre-merge pack (skipped under `tape`: the tape's pack of
         every row carries the same bits)."""
+        if kind == "geo_merge":
+            return self._geo_fold_group(tname, tops)
         payloads = [op.payload for op in tops]
         nkeys = sum(delta_mod.payload_nkeys(kind, p) for p in payloads)
         raw = sum(delta_mod.payload_raw_bytes(kind, p) for p in payloads)
@@ -967,6 +1019,99 @@ class TorchBackend:
         dp = delta_mod.encode(kind, tname, plane, cells=nbits, packed=True,
                               nkeys=nkeys, raw_bytes=raw)
         return dp, {"kind": kind, "ops": tops, "old_packed": old_packed}
+
+    # -- geo remote planes (cross-site convergence, geo/) -------------------
+    #
+    # A geo_merge payload is a plane another site already folded:
+    # {"inner": hll_add | bloom_add | bitset_set, "cells", a dense "plane"
+    # or a sparse "idx" / "val" / "plane_bytes", "meta", "stamp"}. The fold
+    # below only combines one target's planes (element-wise max / OR) and
+    # re-encodes them as an ordinary DeltaPlane of the INNER kind, so
+    # _delta_merge_chunk's gather and writeback serve remote applies
+    # unchanged: one delta_merge launch per window however many remote ops
+    # the planes summarize.
+
+    @staticmethod
+    def _geo_plane(payload) -> np.ndarray:
+        """A geo payload's dense byte plane (the link ships sparse (idx,
+        val) pairs when few bytes are set)."""
+        if "plane" in payload:
+            return np.asarray(payload["plane"], np.uint8)
+        plane = np.zeros((int(payload["plane_bytes"]),), np.uint8)
+        idx = np.asarray(payload["idx"], np.int64)
+        if idx.size:
+            np.maximum.at(plane, idx, np.asarray(payload["val"], np.uint8))
+        return plane
+
+    def _geo_bloom_ensure(self, target: str, meta: dict):
+        """The local twin of a remote Bloom filter, made on first sight
+        (the origin's init parameters ship with every plane)."""
+        self._check_not_hll(target, ObjectType.BLOOM)
+        obj = self.store.get(target, ObjectType.BLOOM)
+        if obj is not None:
+            return obj
+        m = int(meta.get("size", 0))
+        if m <= 0:
+            raise RuntimeError(
+                f"geo bloom plane for uninitialized filter '{target}' "
+                "carries no size meta")
+        obj = self.store.get_or_create(
+            target, ObjectType.BLOOM, lambda: bitset_ops.make(m), dict(meta))
+        self._touch(target)
+        return obj
+
+    def _geo_fold_group(self, tname: str, tops: List[Op]):
+        """Fold one target's remote planes into a DeltaPlane and a geo spec
+        for the stacked merge (the geo_merge half of _delta_fold_group)."""
+        payloads = [op.payload for op in tops]
+        inner = payloads[0]["inner"]
+        nkeys = sum(int(p.get("nkeys", 0)) for p in payloads)
+        raw = sum(int(p.get("raw", 0)) for p in payloads)
+        self.counters["geo_planes"] += len(payloads)
+        spec = {"kind": "geo_merge", "geo": True, "ops": tops}
+        if inner == "hll_add":
+            self._hll_row(tname)  # allocate the bank row (may grow the bank)
+            plane = np.zeros((delta_mod.HLL_M,), np.uint8)
+            for p in payloads:
+                np.maximum(plane, self._geo_plane(p), out=plane)
+            dp = delta_mod.encode("hll_add", tname, plane,
+                                  cells=delta_mod.HLL_M, packed=False,
+                                  nkeys=nkeys, raw_bytes=raw)
+            return dp, spec
+        if inner == "bloom_add":
+            obj = self._geo_bloom_ensure(tname, payloads[0].get("meta") or {})
+            m = obj.meta["size"]
+            # Pending host-mirror bits reach the device before the merge
+            # replaces the cells (the writeback drops the mirror, so bits
+            # still parked there would be lost).
+            self._bloom_device_sync(tname)
+            plane = np.zeros(((m + 7) >> 3,), np.uint8)
+            for p in payloads:
+                if int(p["cells"]) != m:
+                    raise RuntimeError(
+                        f"geo bloom plane for '{tname}' sized {p['cells']} "
+                        f"bits vs local filter {m} — sites must init bloom "
+                        "filters with identical parameters")
+                np.bitwise_or(plane, self._geo_plane(p), out=plane)
+            dp = delta_mod.encode("bloom_add", tname, plane, cells=m,
+                                  packed=True, nkeys=nkeys, raw_bytes=raw)
+            return dp, spec
+        # bitset_set: the plane covers the allocation after growth
+        obj = self._bitset(tname, nbits=1024)
+        mx = max(int(p["cells"]) for p in payloads) - 1
+        obj = self._grow_for(obj, max(mx, 0))
+        ext = max(int((p.get("meta") or {}).get("max_idx", -1))
+                  for p in payloads)
+        if ext >= 0:
+            self._extend(obj, ext)
+        nbits = obj.state.shape[0]
+        plane = np.zeros(((nbits + 7) >> 3,), np.uint8)
+        for p in payloads:
+            src = self._geo_plane(p)
+            np.bitwise_or(plane[:src.shape[0]], src, out=plane[:src.shape[0]])
+        dp = delta_mod.encode("bitset_set", tname, plane, cells=nbits,
+                              packed=True, nkeys=nkeys, raw_bytes=raw)
+        return dp, spec
 
     def _delta_merge_chunk(self, planes, specs) -> None:
         """Retire one chunk of planes in one stacked merge: the [T, L] uint8
@@ -1032,7 +1177,8 @@ class TorchBackend:
                 _fire_d2h("delta", planes[0].target)
                 host_changed = flag.wait().numpy()
                 host_old = {i: spec["old_packed"].wait().numpy()
-                            for i, p, spec in entries if p.kind == "bitset_set"}
+                            for i, p, spec in entries
+                            if spec.get("old_packed") is not None}
             except Exception as exc:  # noqa: BLE001
                 exc = classify(exc, seam="d2h_complete")
                 for _i, _p, spec in entries:
@@ -1061,10 +1207,14 @@ class TorchBackend:
     def _commit_store_row(self, p, spec, merged_row: torch.Tensor) -> None:
         """Install a merged BitSet / Bloom row (a copy: the stack is a
         window temporary). A Bloom mirror then equals the device filter:
-        mirror + this batch, the fold's scratch."""
+        mirror + this batch, the fold's scratch. Remote bits merged on the
+        device only: the mirror is dropped (rebuilt from the device on next
+        use) rather than guessed at."""
         self.store.swap(p.target, merged_row[: p.cells].clone())
         self._touch(p.target)
-        if p.kind == "bloom_add":
+        if spec.get("geo"):
+            self._bloom_mirrors.pop(p.target, None)
+        elif p.kind == "bloom_add":
             spec["mirror"]["bits"] = spec["scratch"]
             spec["mirror"]["synced_dev"] = self.store.get(p.target).version
 
@@ -1072,9 +1222,12 @@ class TorchBackend:
     def _complete_entries(entries, host_changed, host_old) -> None:
         """Resolve a retired window's ops: PFADD -> did the target's row
         rise; Bloom add -> the fold's per-key newly flags; SETBIT -> each
-        key's pre-merge bit from the packed old row."""
+        key's pre-merge bit from the packed old row; a remote plane -> True
+        (it carries no per-key result: the applier needs the ack only)."""
         for i, p, spec in entries:
-            if p.kind == "hll_add":
+            if spec.get("geo"):
+                values = [True] * len(spec["ops"])
+            elif p.kind == "hll_add":
                 values = [bool(host_changed[i])] * len(spec["ops"])
             elif p.kind == "bloom_add":
                 values = spec["newly"]
@@ -2211,16 +2364,22 @@ class TorchBackend:
 
     # -- generic ------------------------------------------------------------
 
-    def _op_delete(self, target: str, ops: List[Op]) -> None:
-        row = self._alloc.release(target)
+    def _delete_one(self, name: str) -> bool:
+        """Drop one sketch (its bank row, or its store object and Bloom
+        mirror); whether it existed."""
+        row = self._alloc.release(name)
         if row is not None:
             self.bank = engine.hll_bank_zero_row(self.bank, row)
             res = True
         else:
-            self._bloom_mirrors.pop(target, None)
-            res = self.store.delete(target)
-        self._touch(target)
-        self.read_cache.invalidate(target)
+            self._bloom_mirrors.pop(name, None)
+            res = self.store.delete(name)
+        self._touch(name)
+        self.read_cache.invalidate(name)
+        return res
+
+    def _op_delete(self, target: str, ops: List[Op]) -> None:
+        res = self._delete_one(target)
         for op in ops:
             op.future.set_result(res)
 
@@ -2274,6 +2433,105 @@ class TorchBackend:
         self._account_bank()
         for op in ops:
             op.future.set_result(None)
+
+    # -- geo remote apply (cross-site replication, geo/) --------------------
+
+    def _op_geo_merge(self, target: str, ops: List[Op]) -> None:
+        """The classic absorb of remote planes: ingest configs without the
+        delta window, and targets its gate refused (blocked Blooms,
+        WRONGTYPE probes). Each plane is maxed into the target on the
+        device, one op at a time; the stacked _geo_fold_group path is the
+        hot one."""
+        self.counters["geo_classic"] += len(ops)
+        for op in ops:
+            try:
+                self._geo_merge_one(target, op.payload)
+            except Exception as exc:  # noqa: BLE001 — per-op isolation
+                op.future.set_exception(classify(exc, seam="kernel_launch"))
+                continue
+            op.future.set_result(True)
+
+    def _geo_merge_one(self, target: str, payload: dict) -> None:
+        inner = payload["inner"]
+        plane = self._to_device(self._geo_plane(payload))
+        if inner == "hll_add":
+            row = self._hll_row(target)  # WRONGTYPE if a store object
+            bank = self._ensure_bank()
+            regs = torch.maximum(bank[row], plane.to(torch.int32))
+            self.bank = engine.hll_bank_set_row(bank, regs, row)
+            self._bump(target)
+            return
+        if inner == "bloom_add":
+            obj = self._geo_bloom_ensure(target, payload.get("meta") or {})
+            m = obj.meta["size"]
+            if int(payload["cells"]) != m:
+                raise RuntimeError(
+                    f"geo bloom plane for '{target}' sized "
+                    f"{payload['cells']} bits vs local filter {m}")
+            self._bloom_device_sync(target)
+            obj = self.store.get(target, ObjectType.BLOOM)
+            self.store.swap(target, torch.maximum(
+                obj.state, engine.delta_unpack(plane, m)))
+            self._bloom_mirrors.pop(target, None)
+            self._touch(target)
+            return
+        # bitset_set
+        obj = self._bitset(target, nbits=1024)
+        cells = int(payload["cells"])
+        obj = self._grow_for(obj, max(cells - 1, 0))
+        ext = int((payload.get("meta") or {}).get("max_idx", -1))
+        if ext >= 0:
+            self._extend(obj, ext)
+        merged = obj.state.clone()
+        unp = engine.delta_unpack(plane, plane.shape[0] * 8)
+        n = min(unp.shape[0], merged.shape[0])
+        torch.maximum(merged[:n], unp[:n], out=merged[:n])
+        self.store.swap(target, merged)
+        self._touch(target)
+
+    def _op_geo_replace(self, target: str, ops: List[Op]) -> None:
+        """Stamped full-state overwrite, the LWW half of the geo contract
+        (BitSet clears, rename destinations, snapshot repair). The applier
+        decided that the stamp wins before dispatching; this handler only
+        installs the state."""
+        for op in ops:
+            try:
+                payload = op.payload
+                inner = payload["inner"]
+                plane = self._geo_plane(payload)
+                if inner == "hll_add":
+                    row = self._hll_row(target)
+                    self.bank = engine.hll_bank_set_row(
+                        self._ensure_bank(),
+                        self._to_device(plane.astype(np.int32)), row)
+                    self._bump(target)
+                    self.read_cache.invalidate(target)
+                else:
+                    otype = (ObjectType.BLOOM if inner == "bloom_add"
+                             else ObjectType.BITSET)
+                    cells = int(payload["cells"])
+                    meta = dict(payload.get("meta") or {})
+                    meta.pop("max_idx", None)
+                    self._install_bits(target, otype,
+                                       np.unpackbits(plane)[:cells], meta)
+            except Exception as exc:  # noqa: BLE001 — per-op isolation
+                op.future.set_exception(classify(exc, seam="kernel_launch"))
+                continue
+            op.future.set_result(True)
+
+    def _op_geo_delete(self, target: str, ops: List[Op]) -> None:
+        """Stamped tombstone delete: in state, _op_delete; the (origin_seq,
+        site) stamp in the payload is for the journal (crash replay) and
+        the applier's LWW bookkeeping."""
+        self._op_delete(target, ops)
+
+    def _op_geo_flush(self, target: str, ops: List[Op]) -> None:
+        """Stamped keyspace flush: deletes the concrete key list the applier
+        resolved against its LWW floors (keys with writes newer than the
+        flush stamp survive), so replay is deterministic."""
+        for op in ops:
+            op.future.set_result(sum(
+                self._delete_one(name) for name in op.payload.get("keys", ())))
 
     def _op_keys(self, target: str, ops: List[Op]) -> None:
         for op in ops:

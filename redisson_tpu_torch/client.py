@@ -30,6 +30,11 @@ reads to a replica inside the staleness bound and writes to the primary.
 `get_topology_manager()` is the failure-detection poller over the client's
 nodes.
 
+`Config.use_geo(site_id)` (with `use_persist`) makes this engine one site
+of an active-active mesh (`client.geo`, the GeoManager; peer sites with
+`geo.connect_sites([...])`): its journal ships to the peers as stamped
+delta planes, and theirs arrive through the delta_merge window.
+
 `Config.use_cluster()` makes this client a cluster FACADE: it builds N shard
 clients (each a full engine stack behind a slot-ownership guard; on one card
 all on `cuda:0`) and binds every object getter to the ClusterRouter
@@ -83,7 +88,7 @@ from redisson_tpu_torch.memstat import MemLedger, MemoryReport, PressureMonitor
 from redisson_tpu_torch.memstat.pressure import device_memory
 from redisson_tpu_torch.observability import (ExecutorMetrics, MetricsRegistry,
                                               NodesGroup, register_delta_ingest,
-                                              register_memstat,
+                                              register_geo, register_memstat,
                                               register_read_cache,
                                               register_replica,
                                               register_trace)
@@ -106,6 +111,8 @@ class RedissonTorch:
         # (shard members included); the RESP front-end when Config.wire.
         self.cluster = None
         self.wire = None
+        # The GeoManager when Config.geo makes this engine a site (_init_geo).
+        self._geo = None
         self._is_shutdown = False
         clcfg = self.config.cluster
         if clcfg is not None and clcfg.shard_id == -1:
@@ -230,9 +237,33 @@ class RedissonTorch:
             # created from here on routes reads through the fleet.
             self._dispatch = self._replicas.router
             register_replica(self.metrics, self._replicas)
+        self._init_geo()
         # The RESP front-end last, so the first socket read finds the whole
         # stack (serve admission, persist, replicas) standing.
         self._start_wire()
+
+    def _init_geo(self) -> None:
+        """Geo-replication site (geo/): this engine becomes one active site
+        of a cross-site mesh whose journal ships to peers as stamped delta
+        planes. Wired after the replicas (both tail the same journal);
+        peering happens at run time through `geo.connect_sites([...])`."""
+        gcfg = self.config.geo
+        if gcfg is None:
+            return
+        if self._persist is None:
+            self.shutdown()
+            raise ValueError(
+                "Config.geo requires Config.persist with a dir — the "
+                "persist journal is the geo replication transport")
+        from redisson_tpu_torch.geo import GeoManager
+
+        self._geo = GeoManager(self, gcfg)
+        try:
+            self._geo.start()
+        except Exception:
+            self.shutdown()
+            raise
+        register_geo(self.metrics, self._geo)
 
     def _init_cluster_mode(self) -> None:
         """The facade's own state: the ClusterManager (shard clients,
@@ -500,6 +531,11 @@ class RedissonTorch:
         return self._fault
 
     @property
+    def geo(self):
+        """The GeoManager when Config.geo is set, else None."""
+        return self._geo
+
+    @property
     def replicas(self):
         """The ReplicaManager when Config.replicas is set, else None."""
         return self._replicas
@@ -599,10 +635,16 @@ class RedissonTorch:
             sections["memory"] = self._memreport.info_memory()
         if self._persist is not None:
             sections["persistence"] = self._persist.stats()
-        if self._replicas is not None:
-            sections["replication"] = {
-                "role": "primary",
-                "connected_replicas": len(self._replicas.replicas)}
+        replication = None
+        if self._geo is not None:
+            replication = self._geo.info()
+        elif self._replicas is not None:
+            replication = {"role": "primary"}
+        if replication is not None:
+            if self._replicas is not None:
+                replication["connected_replicas"] = len(
+                    self._replicas.replicas)
+            sections["replication"] = replication
         if self.cluster is not None:
             sections["cluster"] = self.cluster.cluster_info()
         if section is not None:
@@ -750,6 +792,13 @@ class RedissonTorch:
         if self._fault is not None:
             self._fault.stop()
             self._fault = None
+        if self._geo is not None:
+            # Before the replicas and persist: link threads read this
+            # journal and peer appliers dispatch into this executor; both
+            # quiesce (and the LWW sidecar flushes) while the stack under
+            # them still takes work.
+            self._geo.close()
+            self._geo = None
         if self._replicas is not None:
             self._replicas.close()
             self._replicas = None

@@ -266,6 +266,27 @@ class WireConfig:
     shed_retry_after_s: float = 0.05
 
 
+@dataclass
+class GeoConfig:
+    """Active-active geo-replication (geo/): this site is one of N
+    independent engine stacks that each accept local writes and converge
+    asynchronously. The persist journal is the transport: a SiteLink per
+    peer tails it, folds the sketch-tier writes into stamped delta planes
+    and ships them; the peer applies them as `geo_*` kinds through the
+    fused delta_merge path. Requires `Config.persist` with a dir."""
+
+    # Unique site name in the fleet ("" = the persist dir's parent name).
+    # Stamps are (origin_seq, site_id); ties break on the id string.
+    site_id: str = ""
+    # Link tail cadence and the most journal records folded per poll.
+    poll_interval_s: float = 0.01
+    batch_records: int = 4096
+    # Cadence of the LWW sidecar flush (geo_state.json).
+    anti_entropy_interval_s: float = 0.5
+    # Bound on unresolved remote-apply futures tracked per applier.
+    apply_window: int = 4096
+
+
 def _apply(section, overrides: dict):
     names = {f.name for f in fields(section)}
     for key, value in overrides.items():
@@ -292,6 +313,8 @@ class Config:
     cluster: Optional[ClusterConfig] = None
     # RESP wire front-end (None = facade-only access, no TCP listener).
     wire: Optional[WireConfig] = None
+    # Active-active geo-replication (None = this engine is not a site).
+    geo: Optional[GeoConfig] = None
 
     def use_cuda(self, **overrides) -> CudaConfig:
         self.cuda = _apply(self.cuda or CudaConfig(), overrides)
@@ -369,6 +392,16 @@ class Config:
             self.wire.port = port
         return _apply(self.wire, overrides)
 
+    def use_geo(self, site_id: str = "", **overrides) -> GeoConfig:
+        """The geo section: this engine becomes one site of an
+        active-active mesh (needs `use_persist`: the journal is the
+        transport). Peering is wired at run time with
+        `geo.connect_sites([...])`."""
+        self.geo = self.geo or GeoConfig()
+        if site_id:
+            self.geo.site_id = site_id
+        return _apply(self.geo, overrides)
+
     # -- (de)serialization --------------------------------------------------
 
     def to_dict(self) -> Dict[str, Any]:
@@ -407,4 +440,4 @@ SECTION_TYPES = {"cuda": CudaConfig, "persist": PersistConfig,
                  "faults": FaultConfig, "serve": ServeConfig,
                  "trace": TraceConfig, "memory": MemConfig,
                  "replicas": ReplicaConfig, "cluster": ClusterConfig,
-                 "wire": WireConfig}
+                 "wire": WireConfig, "geo": GeoConfig}

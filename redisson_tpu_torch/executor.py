@@ -54,7 +54,11 @@ RBatch: `execute_many` enqueues a staged pipeline under one lock
 acquisition; `BatchCollector` / `StagedFuture` collect, dispatch and return
 results in staging order.
 
-The contract witness and the mesh shard tag arrive with their slices.
+Locks come from `concurrency` (`make_lock` / `make_rlock` /
+`make_condition`, re-exported here for the modules that import them from
+this waist): plain `threading` primitives unless the lock-order witness is
+armed. The op-contract witness (`contractwitness`) taps both enqueue
+entry points. The mesh shard tag arrives with its slice.
 """
 
 from __future__ import annotations
@@ -67,6 +71,9 @@ from concurrent.futures import Future
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+from redisson_tpu_torch import contractwitness as _cw
+from redisson_tpu_torch.concurrency import (make_condition, make_lock,  # noqa: F401
+                                            make_rlock)
 from redisson_tpu_torch.fault import inject as fault_inject
 from redisson_tpu_torch.fault.taxonomy import StateUncertainFault, classify
 from redisson_tpu_torch.serve.errors import DeadlineExceeded
@@ -90,21 +97,6 @@ PARKED_KINDS = frozenset({"bpop"})
 BARRIER_KIND = "__barrier__"
 
 _op_counter = itertools.count()
-
-
-def make_lock(site: str):
-    """A plain lock; `site` names it for the lock-order witness, which
-    arrives with the concurrency tooling."""
-    return threading.Lock()
-
-
-def make_rlock(site: str):
-    """A re-entrant lock, named like `make_lock`."""
-    return threading.RLock()
-
-
-def make_condition(site: str, lock=None):
-    return threading.Condition(lock)
 
 
 @dataclass
@@ -299,6 +291,11 @@ class CommandExecutor:
                       deadline: Optional[float] = None) -> Future:
         op = Op(target=target, kind=kind, payload=payload, nkeys=nkeys,
                 tenant=tenant, deadline=deadline)
+        # Contract-witness tap at the single enqueue funnel: every real op
+        # kind passes here, whatever the surface (facade, wire window,
+        # journal replay, replica stream, geo apply).
+        if _cw.RECORD is not None and kind != BARRIER_KIND:
+            _cw.RECORD(kind)
         with self._cv:
             self._enqueue_locked(op)
             self._cv.notify()
@@ -315,6 +312,10 @@ class CommandExecutor:
         tracer's same-thread handoff."""
         ops = [Op(target=t, kind=k, payload=p, nkeys=n, tenant=tenant,
                   deadline=deadline) for (t, k, p, n) in staged]
+        if _cw.RECORD is not None:
+            for op in ops:
+                if op.kind != BARRIER_KIND:
+                    _cw.RECORD(op.kind)
         trace = self._trace
         annotate = (trace.tracer.annotate_next
                     if trace is not None and admitted_ats is not None

@@ -23,9 +23,12 @@ JAX package's, so its plans run here unchanged):
                   loop (a fault there freezes the replica's watermark)
   health_probe    replica/manager.py — the primary's health probe (a fault
                   there is a failed probe)
-  mesh_collective, wire_conn, geo_link — seams of tiers the port has not
-                  reached yet (the mesh, the wire front end, geo
-                  replication); plans may name them, nothing fires them
+  wire_conn       wire/server.py — each socket read of a RESP connection
+  geo_link        geo/link.py — the top of every SiteLink tick, with
+                  target=<peer site id> (a fault there is a cross-site
+                  partition: the tick aborts and the cursor holds)
+  mesh_collective the mesh data plane's collectives, which the port has
+                  not reached yet; plans may name it, nothing fires it
 
 Cost when disabled: `fire()` reads one module global and returns — no
 lock, no allocation — so the instrumentation stays under the <1%

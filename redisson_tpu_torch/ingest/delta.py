@@ -138,9 +138,13 @@ def payload_raw_bytes(kind: str, payload) -> int:
 def foldable(kind: str, payload) -> bool:
     """Can this op's payload be folded on the host? Device-resident payloads
     (``device_packed``) never; hll/bloom payloads need the host fold
-    library; SETBIT index payloads fold in numpy."""
+    library; SETBIT index payloads fold in numpy. A remote site's
+    ``geo_merge`` plane arrives folded (dense ``plane`` bytes or a sparse
+    ``idx`` / ``val`` pair): nothing to hash, so it needs no library."""
     if payload is None or not isinstance(payload, dict):
         return False
+    if kind == "geo_merge":
+        return "plane" in payload or "idx" in payload
     if kind == "bitset_set":
         return "idx" in payload
     if "device_packed" in payload:

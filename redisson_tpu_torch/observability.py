@@ -17,8 +17,9 @@ hooks, and the nodes/health API (counterpart of
 `register_follower` and `register_replica` expose the journal follower's
 lag and the read-replica fleet (the client registers the fleet's gauges
 when `Config.replicas` is set); `register_wire` the RESP front-end's
-wire.* gauges (the client registers them when `Config.wire` is set); the
-geo tier's (`register_geo`) arrive with that tier.
+wire.* gauges (the client registers them when `Config.wire` is set);
+`register_geo` a geo site's geo.* gauges (link lag, LWW arbitration
+counters, link against raw bytes; registered when `Config.geo` is set).
 """
 
 from __future__ import annotations
@@ -561,6 +562,37 @@ def register_trace(registry: MetricsRegistry, manager) -> None:
                    lambda: manager.monitor.active())
     registry.gauge("trace.monitor_dropped", lambda: manager.monitor.dropped())
     registry.gauge("trace.retries", lambda: manager.retries)
+
+
+def register_geo(registry: MetricsRegistry, manager) -> None:
+    """Geo-replication site gauges (geo/manager.py), JAX's names: link
+    health (worst lag in records and seconds), the LWW arbitration counters
+    (applies, suppressions, DEL-race resurrections), and the bytes shipped
+    against what the raw key batches would have cost."""
+    registry.gauge("geo.peers", lambda: len(manager.links))
+    registry.gauge("geo.applied", lambda: manager.applier.applied)
+    registry.gauge("geo.suppressed", lambda: manager.applier.suppressed)
+    registry.gauge("geo.resurrections",
+                   lambda: manager.applier.resurrections)
+
+    def _worst(field):
+        def read():
+            lags = [link.lag()[field] for link in list(manager.links.values())]
+            return max(lags) if lags else 0
+        return read
+
+    def _total(stat):
+        def read():
+            return sum(link.stats[stat]
+                       for link in list(manager.links.values()))
+        return read
+
+    registry.gauge("geo.max_lag_records", _worst("records"))
+    registry.gauge("geo.max_lag_seconds", _worst("seconds"))
+    registry.gauge("geo.link_bytes", _total("link_bytes"))
+    registry.gauge("geo.raw_bytes", _total("raw_bytes"))
+    registry.gauge("geo.partitions", _total("partitions"))
+    registry.gauge("geo.repairs", _total("repairs"))
 
 
 def register_wire(registry: MetricsRegistry, wire) -> None:

@@ -35,7 +35,7 @@ from collections import deque
 from typing import Any, Dict, List, Optional
 from zlib import crc32
 
-from redisson_tpu_torch import checkpoint
+from redisson_tpu_torch import checkpoint, contractwitness
 from redisson_tpu_torch.executor import make_lock
 from redisson_tpu_torch.ops.crc16 import key_slot
 from redisson_tpu_torch.persist.journal import (
@@ -312,8 +312,10 @@ class JournalFollower:
             if key != group:
                 drain()
                 group = key
-            futures.append(
-                executor.execute_async(rec.target, rec.kind, rec.payload))
+            with contractwitness.surface("replica"):
+                futures.append(
+                    executor.execute_async(rec.target, rec.kind,
+                                           rec.payload))
         drain()
         with self._applied_lock:
             self._applied = last_seq

@@ -30,7 +30,7 @@ import time
 from collections import deque
 from typing import Any, Dict, Optional
 
-from redisson_tpu_torch import checkpoint
+from redisson_tpu_torch import checkpoint, contractwitness
 from redisson_tpu_torch.persist.journal import iter_records
 from redisson_tpu_torch.persist.snapshotter import STRUCTURES_FILE, find_snapshots
 
@@ -94,8 +94,9 @@ def recover(client, path: str, replay_window: int = REPLAY_WINDOW) -> Dict[str, 
             group = key
         elif len(pending) >= replay_window:
             errors += drain(replay_window // 2)
-        pending.append(
-            executor.execute_async(rec.target, rec.kind, rec.payload))
+        with contractwitness.surface("replay"):
+            pending.append(
+                executor.execute_async(rec.target, rec.kind, rec.payload))
         replayed += 1
         last_seq = rec.seq
     errors += drain(0)

@@ -60,12 +60,15 @@ def replica_engine_config(primary_config):
     primary) and a facade's cluster topology. A shard member's cluster section
     (shard_id >= 0) is KEPT: its replicas need the slot-ownership guard to
     replay the journaled migrate_* records, so the slot table survives a
-    promotion. JAX's copy also drops the redis durability tier and its
-    `flush_interval_s`; the port's Config has neither yet."""
+    promotion. The geo section is stripped too (a replica is no site: it
+    has no journal to ship); JAX's copy keeps it, so a JAX geo site with
+    replicas fails to start. JAX's copy also drops the redis durability
+    tier and its `flush_interval_s`; the port's Config has neither yet."""
     cfg = copy.deepcopy(primary_config)
     cfg.persist = None
     cfg.replicas = None
     cfg.faults = None
+    cfg.geo = None
     if cfg.cluster is None or cfg.cluster.shard_id < 0:
         cfg.cluster = None
     return cfg

@@ -38,6 +38,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+from redisson_tpu_torch import contractwitness
 from redisson_tpu_torch.cluster.errors import (SlotAskError, SlotMovedError,
                                                render_redirect)
 from redisson_tpu_torch.fault.inject import fire
@@ -355,10 +356,13 @@ class WireServer:
         self.last_window_depth = len(staged)
         dispatch = self._get_dispatch()
         try:
-            if self._dispatch_accepts_admitted(dispatch):
-                futures = dispatch.execute_many(staged, admitted_ats=ats)
-            else:
-                futures = dispatch.execute_many(staged)
+            # execute_many runs synchronously on this thread, so the
+            # contract-witness surface tag covers the whole window.
+            with contractwitness.surface("wire"):
+                if self._dispatch_accepts_admitted(dispatch):
+                    futures = dispatch.execute_many(staged, admitted_ats=ats)
+                else:
+                    futures = dispatch.execute_many(staged)
         except Exception as exc:
             for state, idx in targets:
                 self._op_settle(state, idx, exc, True)

@@ -9,9 +9,9 @@ import pytest
 from redisson_tpu import commands as jax_commands
 from redisson_tpu_torch import commands
 
-#: device-tier kinds the port has no handler for yet: they arrive with geo/
-#: (ROADMAP Queue 1, item "Cluster, replica, geo, wire, interop")
-WAITING_FOR_GEO = {"geo_merge", "geo_replace", "geo_delete", "geo_flush"}
+#: device-tier kinds the port has no handler for yet: none since geo/ and
+#: the backend's four `_op_geo_*` handlers landed
+WAITING_FOR_GEO = set()
 
 
 def _ops_of(path: str) -> set:

@@ -12,7 +12,8 @@ through seg_insert and the segment-OR, replica reads through merge_stack
 and popcount, state equal to the primary's, a failover losing no
 acknowledged write); a 4-shard cluster facade on cuda:0 against a CPU
 cluster, and PFADDs over its RESP servers against an in-process client on
-the card. They skip where no card is visible. Run them on a
+the card; geo-sized planes through delta_merge, and a geo pair on the card
+against a geo pair on the CPU. They skip where no card is visible. Run them on a
 machine with one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -956,3 +957,76 @@ def test_wire_pfadd_on_card_matches_in_process(dev, tmp_path):
     finally:
         ref.shutdown()
         c.shutdown()
+
+
+@pytest.mark.parametrize("t,l", [(1088, 16384), (1, 1 << 27), (1, 1 << 28)])
+def test_geo_plane_stacks_through_delta_merge_match_plain(dev, t, l):
+    """The stacks a geo site's remote applies give delta_merge at phase
+    21's widths: one site's 1088 HLL planes in one window, the 2^27-bit
+    bitmap's plane and the Bloom filter's (m = 257,296,945, padded to
+    2^28 lanes)."""
+    old, delta = _merge_stacks(dev, t, l)
+    want_old, want = ok.delta_merge_plain(old.clone(), delta)
+    before = ok.launches["delta_merge"]
+    got_old, got = ok.delta_merge(old, delta)
+    assert torch.equal(got_old, want_old) and torch.equal(got, want)
+    assert ok.launches["delta_merge"] == before + 1
+
+
+def _geo_pair(root, device):
+    from redisson_tpu_torch.geo import connect_sites
+
+    sites = []
+    for sid in ("A", "B"):
+        cfg = Config()
+        if device == "cpu":
+            cfg.use_cuda(device="cpu")
+        cfg.use_persist(str(root / device / sid), fsync="always")
+        cfg.use_geo(sid, poll_interval_s=0.005)
+        sites.append(RedissonTorch.create(cfg))
+    connect_sites(sites)
+    return sites
+
+
+def test_geo_pair_on_card_matches_cpu_pair(dev, tmp_path):
+    """Two geo sites on the card (the default config) converge to the
+    state two sites on the CPU reach from the same writes, remote planes
+    through delta_merge (geo_planes > 0, geo_classic == 0)."""
+    from redisson_tpu_torch.geo import converge
+
+    rng = np.random.default_rng(21)
+    hll = [rng.integers(0, 1 << 62, size=20_000, dtype=np.int64).astype(np.uint64)
+           for _ in range(8)]
+    bloom = [rng.integers(0, 1 << 62, size=50_000, dtype=np.int64).astype(np.uint64)
+             for _ in range(2)]
+    bits = [rng.integers(0, 1 << 20, size=30_000) for _ in range(2)]
+    states = {}
+    for device in ("cpu", "cuda"):
+        ok.reset_launches()
+        sites = _geo_pair(tmp_path, device)
+        try:
+            for i, keys in enumerate(hll):
+                sites[i % 2].get_hyper_log_log(f"h{i % 3}").add_ints(keys)
+            for i, keys in enumerate(bloom):
+                f = sites[i].get_bloom_filter("bf")
+                f.try_init(200_000, 0.01)
+                f.add_ints(keys)
+            for i, idx in enumerate(bits):
+                sites[i].get_bit_set("day").set_bits(idx)
+            assert converge(sites, 60)
+            states[device] = [
+                {n: c.geo._export(n)[1] for n in ("h0", "h1", "h2", "bf", "day")}
+                for c in sites]
+            for c in sites:
+                assert c.sketch.counters["geo_planes"] > 0
+                assert c.sketch.counters["geo_classic"] == 0
+            if device == "cuda":
+                torch.cuda.synchronize()
+                assert ok.launches["delta_merge"] > 0
+        finally:
+            for c in sites:
+                c.shutdown()
+    for i in range(2):
+        for n, cells in states["cpu"][i].items():
+            np.testing.assert_array_equal(states["cuda"][i][n], cells, err_msg=n)
+            np.testing.assert_array_equal(states["cuda"][1 - i][n], cells, err_msg=n)

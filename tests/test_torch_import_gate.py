@@ -21,8 +21,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: with observability, trace/, memstat/ and the rest of serve/, 96 with the
 #: replica tier, the follower, cluster/errors, reactive/, services/ and
 #: version, 108 with the cluster tier, parallel/topology, loopwitness and
-#: wire/)
-NMODS = 108
+#: wire/, 114 with geo/ and the two runtime witnesses)
+NMODS = 114
 
 _GATE = textwrap.dedent("""
     import importlib, pkgutil, runpy, sys
@@ -81,6 +81,11 @@ _GATE = textwrap.dedent("""
                *(f"redisson_tpu_torch.wire.{m}" for m in
                  ("proto", "commands", "server"))}
     print("SLICE11", sorted(slice11 - set(mods)))
+    slice12 = {"redisson_tpu_torch.concurrency",
+               "redisson_tpu_torch.contractwitness", "redisson_tpu_torch.geo",
+               *(f"redisson_tpu_torch.geo.{m}" for m in
+                 ("applier", "link", "manager"))}
+    print("SLICE12", sorted(slice12 - set(mods)))
     print("MODULES", len(mods), "SMOKE_RC", rc, "LEAKED", leaked)
 """)
 
@@ -99,6 +104,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert "SLICE9 []" in out.stdout  # and the serving / tracing / memory tier
     assert "SLICE10 []" in out.stdout  # and the replica tier and the facades
     assert "SLICE11 []" in out.stdout  # and the cluster tier and the wire
+    assert "SLICE12 []" in out.stdout  # and geo/ and the witnesses
     assert rc == "2"  # chip_smoke refuses to run without a card
     assert leaked == "[]"
     assert '"ok"' not in out.stdout
