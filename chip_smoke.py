@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phase replica     # the build and phase 19 alone
     python3 chip_smoke.py --phase cluster     # the build and phase 20 alone
     python3 chip_smoke.py --phase geo         # the build, a sort reference and phase 21
+    python3 chip_smoke.py --phase redis       # the build and phase 22 alone
     python3 chip_smoke.py --merge-pair TREE   # the client's merge call only, of TREE's package
     python3 chip_smoke.py --child-writer DIR  # phase 15's writer (the phase starts it)
 
@@ -233,9 +234,34 @@ Phases, each of which fails the run on error:
      geo_classic == 0 at both sites, delta_merge launched. Converge seconds
      per step, remote-apply keys/s, link against raw journal bytes and the
      phase's launches are printed, never checked.
+ 22. the redis durability tier (interop/): the port's EmbeddedRedis in
+     this process with redis's own HLL hash (MurmurHash64A), and a card
+     client (cuda:0, ingest "segment", hll_hash="redis") whose redis
+     section points at it. (1) BASELINE config 3's 256 sketches of the HLL
+     path's 40,000 keys (each uint64's 8 little-endian bytes, with the
+     path's neighbouring overlap), config 2's Bloom filter (m =
+     257,296,945, k = 7) with 10M adds and one 2^27-bit day of 8M SETBITs;
+     (2) `durability.flush()` writes 258 objects: each HLL blob decodes to
+     the card's bank row bit for bit, the Bloom blob is packbits of the
+     card's cells and its {name}__config hash carries size,
+     hashIterations, expectedInsertions and falseProbability, the BitSet
+     blob is the packed extent; (3) the server's own PFADD of 4 sketches'
+     keys into fresh keys gives the card's registers, and its PFCOUNT of
+     every sketch is its estimator over the card's registers, the card's
+     count within rel 1e-5 of it (plus half a unit of integer rounding);
+     (4) a fresh card client loads every object: registers, cells and
+     bitmap equal, BITCOUNT equal to numpy's, all 10M added keys
+     contained (counted on the card), the union PFCOUNT over the 256
+     (merge_stack) equal, every state tensor on cuda:0; (5) a client with
+     flush_interval_s = 0.2 carries one more PFADD to the server's blob,
+     and a second only_dirty flush writes nothing; seg_insert,
+     bits_insert_segmented, popcount_partials and merge_stack launched.
+     Fill, flush and load seconds, flush MB/s, the device-to-host copy of
+     the Bloom cells apart from np.packbits and the phase's wall seconds
+     are printed, never checked.
 
 Each path (3, 7, 8, 10, 11, 13, 15's recovery with the checks after it,
-16, each step of 19 and 20, and 21) resets the launch counters just before
+16, each step of 19 and 20, 21 and 22) resets the launch counters just before
 it and reads them just after. The last lines are the card's name and power limit, a
 JSON object with one entry per kernel, and `{"ok": true, "device": {...}}`.
 Exits non-zero, with no result, when no card is visible or the package is
@@ -418,6 +444,16 @@ GEO_CLEAR = 1_000  # bits a SETBIT-to-0 clears (replicated as a replace)
 GEO_PART_SKETCHES = 64  # sketches both sites write while B is isolated
 GEO_KILL_KEYS = 10_000  # keys per sketch A writes while B is down
 GEO_WAIT_S = 120.0
+
+# Phase 22 (the redis durability tier): BASELINE config 3's 256 sketches of
+# the HLL path's keys, config 2's Bloom filter and one day of the BitSet
+# path, flushed to the embedded RESP server and loaded back.
+RD_SKETCHES = 256  # B3_SKETCHES
+RD_FOLD_CHECK = 4  # sketches the server re-folds from the keys (pure Python)
+RD_FLUSH_S = 0.2  # the periodic client's flush_interval_s
+RD_EXTRA_KEYS = 10_000  # keys of the PFADD the periodic flusher must carry
+RD_TIMEOUT_MS = 60_000  # the pool's response timeout: a 32 MB SET is one reply
+RD_WAIT_S = 60.0
 # Per-sketch estimates: the RMS error must stay below 2%, and at most this
 # share of sketches may exceed 2%. A single sketch is not held to 2%: the
 # standard error at p = 14 is 0.81%, so 2% is a 2.5-sigma draw, and among
@@ -4937,6 +4973,256 @@ def geo_path(seed: int, card: str, ref) -> dict:
     return out
 
 
+def rd_metric(card: str, what: str, value) -> None:
+    """One phase-22 number on its own line, beside the card it ran on."""
+    log(f"[{card}] phase 22 {what}: {value}")
+
+
+def rd_client(port: int, flush_interval_s: float = 0.0):
+    """A card client (cuda:0, ingest "segment", the redis hash family)
+    whose durability tier writes to the embedded server on `port`."""
+    from redisson_tpu_torch.client import RedissonTorch
+    from redisson_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.use_cuda(hll_hash="redis", ingest="segment")
+    rcfg = cfg.use_redis()
+    rcfg.address = f"redis://127.0.0.1:{port}"
+    rcfg.timeout_ms = RD_TIMEOUT_MS
+    cfg.flush_interval_s = flush_interval_s
+    return RedissonTorch.create(cfg)
+
+
+def rd_keys(i: int, seed: int) -> np.ndarray:
+    """Sketch i's keys: the HLL path's 40,000 with its neighbouring overlap.
+    Under the redis family the client hashes each uint64's 8 little-endian
+    bytes, so these are the byte keys a server's PFADD gets."""
+    return keys_for(i * STRIDE, KEYS, seed)
+
+
+def rd_fill(c, names, seed: int):
+    """256 sketches, the Bloom filter with 10M adds, one 2^27-bit day ->
+    the day's set bits."""
+    futs = [c.get_hyper_log_log(n).add_ints_async(rd_keys(i, seed))
+            for i, n in enumerate(names)]
+    [f.result() for f in futs]
+    bloom_fill(c, "rd:bloom", seed)
+    day = rp_day(seed)
+    c.get_bit_set("rd:day").set_bits(day)
+    return day
+
+
+def rd_rows(c, names) -> np.ndarray:
+    bank, rows = c.to_numpy_state()
+    return np.stack([bank[rows[n]] for n in names]).astype(np.uint8)
+
+
+def rd_flush_checks(c, rc, names, seed: int, card: str) -> dict:
+    """Steps 3 and 4: every blob against the card's state, the server's own
+    fold of RD_FOLD_CHECK sketches' keys and its PFCOUNT of every sketch."""
+    from redisson_tpu_torch.interop import hyll
+    from redisson_tpu_torch.interop.durability import bloom_config_key
+
+    regs = rd_rows(c, names)
+    blobs = rc.pipeline([("GET", n) for n in names])
+    for i, blob in enumerate(blobs):
+        if not np.array_equal(hyll.decode(blob), regs[i]):
+            raise AssertionError(f"phase 22: the blob of {names[i]} is not the card's row")
+        if hyll.blob_family(blob) != "redis":
+            raise AssertionError("phase 22: a redis-family flush carries the m3 tag")
+    cells = export_cells(c, "rd:bloom")
+    bloom_blob = rc.execute("GET", "rd:bloom")
+    if bloom_blob != np.packbits(cells).tobytes():
+        raise AssertionError("phase 22: the Bloom blob is not packbits of the card's cells")
+    cfg = rc.execute("HGETALL", bloom_config_key("rd:bloom"))
+    cfg = {bytes(cfg[j]).decode(): bytes(cfg[j + 1]).decode() for j in range(0, len(cfg), 2)}
+    want = {"size": str(BLOOM_M), "hashIterations": str(BLOOM_K),
+            "expectedInsertions": str(BLOOM_N), "falseProbability": str(BLOOM_P)}
+    if cfg != want:
+        raise AssertionError(f"phase 22: the Bloom config hash is {cfg}, not {want}")
+    ext = c._store.get("rd:day").meta["extent_bits"]
+    day_blob = rc.execute("GET", "rd:day")
+    day_cells = export_cells(c, "rd:day")[:ext]
+    if len(day_blob) != (ext + 7) // 8 or day_blob != np.packbits(day_cells).tobytes():
+        raise AssertionError(f"phase 22: the BitSet blob ({len(day_blob)} bytes) is not "
+                             f"the packed {ext}-bit extent")
+    t = time.perf_counter()
+    picks = np.linspace(0, len(names) - 1, RD_FOLD_CHECK).astype(int)
+    for i in picks:
+        rc.execute("PFADD", f"rdsrv:{i}", *[k.tobytes() for k in rd_keys(int(i), seed)])
+        if not np.array_equal(hyll.decode(rc.execute("GET", f"rdsrv:{i}")), regs[i]):
+            raise AssertionError(f"phase 22: the server's PFADD of sketch {i}'s keys "
+                                 "differs from the card's registers")
+    rd_metric(card, f"server-side fold of {RD_FOLD_CHECK} x {KEYS} keys (pure Python) "
+              "seconds", time.perf_counter() - t)
+    srv = rc.pipeline([("PFCOUNT", n) for n in names])
+    mine = [f.result() for f in [c.get_hyper_log_log(n).count_async() for n in names]]
+    worst = 0.0
+    for n, a, b, r in zip(names, srv, mine, regs):
+        est = hyll.estimate(r)
+        if a != int(round(est)):
+            raise AssertionError(f"phase 22: the server's PFCOUNT of {n} is {a}, its "
+                                 f"estimator over the blob gives {est}")
+        # The card counts in float32: within rel 1e-5 of the float64
+        # estimate, and half a unit for each side's rounding to an integer.
+        if abs(b - est) > 1e-5 * est + 0.5:
+            raise AssertionError(f"phase 22: {n} counts {b} on the card, {a} on the server")
+        worst = max(worst, abs(b - a) / max(a, 1))
+    rd_metric(card, "largest relative difference of card and server PFCOUNT", worst)
+    return {"regs": regs, "cells": cells, "day_cells": day_cells, "ext": ext,
+            "bytes": sum(len(b) for b in blobs) + len(bloom_blob) + len(day_blob)}
+
+
+def rd_reload(port: int, names, state: dict, day, seed: int, card: str,
+              union: int) -> float:
+    """Step 5: a fresh card client loads every object and holds it against
+    the first client's state -> load seconds."""
+    import torch
+
+    c = rd_client(port)
+    try:
+        t = time.perf_counter()
+        for n in names:
+            if not c.durability.load_hll(n):
+                raise AssertionError(f"phase 22: no blob for {n}")
+        if not (c.durability.load_bloom("rd:bloom")
+                and c.durability.load_bitset("rd:day")):
+            raise AssertionError("phase 22: the Bloom or BitSet blob is missing")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        if not np.array_equal(rd_rows(c, names), state["regs"]):
+            raise AssertionError("phase 22: reloaded registers differ")
+        if not np.array_equal(export_cells(c, "rd:bloom"), state["cells"]):
+            raise AssertionError("phase 22: reloaded Bloom cells differ")
+        if not np.array_equal(export_cells(c, "rd:day")[:state["ext"]],
+                              state["day_cells"]):
+            raise AssertionError("phase 22: the reloaded bitmap differs")
+        expect("phase 22 BITCOUNT after the reload", c.get_bit_set("rd:day").cardinality(),
+               int(np.unique(day).size))
+        bloom = c.get_bloom_filter("rd:bloom")
+        hits = [bloom.contains_count_device_async(torch.from_numpy(
+            bloom_keys(lo, BLOOM_BATCH, seed).view(np.int64)).to(c.device))
+            for lo in range(0, BLOOM_KEYS, BLOOM_BATCH)]
+        expect("phase 22 added keys contained after the reload",
+               sum(f.result() for f in hits), BLOOM_KEYS)
+        expect("phase 22 union PFCOUNT after the reload",
+               c.get_hyper_log_log(names[0]).count_with(*names[1:]), union)
+        if not on_card(c):
+            raise AssertionError("phase 22: a reloaded state tensor is not on cuda:0")
+    finally:
+        c.shutdown()
+    rd_metric(card, f"load seconds ({len(names)} HLL rows, the Bloom filter, the "
+              "BitSet)", load_s)
+    return load_s
+
+
+def rd_periodic(port: int, rc, seed: int, card: str) -> float:
+    """Step 6: a client with flush_interval_s = 0.2 loads sketch 0, PFADDs
+    one more batch, and the periodic flusher carries it to the server; then
+    two only_dirty flushes, the second writing nothing -> seconds until the
+    server's blob held the batch."""
+    from redisson_tpu_torch.interop import hyll
+
+    c = rd_client(port, RD_FLUSH_S)
+    try:
+        if c.durability._timer is None:
+            raise AssertionError("phase 22: flush_interval_s started no periodic flusher")
+        c.durability.load_hll("rd:0")
+        c.get_hyper_log_log("rd:0").add_ints(keys_for(1 << 40, RD_EXTRA_KEYS, seed))
+        want = rd_rows(c, ["rd:0"])[0]
+        t = time.perf_counter()
+        while not np.array_equal(hyll.decode(rc.execute("GET", "rd:0")), want):
+            if time.perf_counter() - t > RD_WAIT_S:
+                raise AssertionError("phase 22: the periodic flusher never carried "
+                                     "the last PFADD to the server")
+            time.sleep(0.02)
+        seen_s = time.perf_counter() - t
+        c.durability.stop_periodic()
+        c.durability.flush(only_dirty=True)
+        expect("phase 22 objects written by a second only_dirty flush",
+               c.durability.flush(only_dirty=True), 0)
+    finally:
+        c.shutdown()
+    rd_metric(card, f"seconds until the periodic flusher ({RD_FLUSH_S} s) carried a "
+              "PFADD to the server", seen_s)
+    return seen_s
+
+
+def redis_path(seed: int, card: str) -> dict:
+    """Phase 22: the redis durability tier on the card against the port's
+    embedded RESP server (hll_hash="redis"); the launch counters are reset
+    at its start and read at its end."""
+    import torch
+
+    from redisson_tpu_torch.interop.fake_server import EmbeddedRedis
+    from redisson_tpu_torch.interop.resp_client import SyncRespClient
+
+    t_phase = time.perf_counter()
+    log(f"phase 22 on {card}:")
+    reset_all_launches()
+    names = [f"rd:{i}" for i in range(RD_SKETCHES)]
+    out = {}
+    er = EmbeddedRedis(hll_hash="redis")
+    rc = SyncRespClient(port=er.port, timeout=RD_TIMEOUT_MS / 1000.0)
+    try:
+        rc.connect()
+        c = rd_client(er.port)
+        try:
+            t = time.perf_counter()
+            day = rd_fill(c, names, seed)
+            torch.cuda.synchronize()
+            rd_metric(card, f"fill seconds ({RD_SKETCHES} x {KEYS} PFADD keys, "
+                      f"{BLOOM_KEYS} Bloom adds, {DAY_SETS} SETBITs)",
+                      time.perf_counter() - t)
+            t = time.perf_counter()
+            flushed = c.durability.flush()
+            out["flush_s"] = time.perf_counter() - t
+            # The pipeline's own seconds (the socket and the server); the
+            # rest of the flush is the exports, copies and encodes.
+            out["pipeline_s"] = c.durability.last_flush_s
+            expect("phase 22 objects flushed", flushed, RD_SKETCHES + 2)
+            state = rd_flush_checks(c, rc, names, seed, card)
+            out["flush_bytes"] = state["bytes"]
+            out["flush_mb_s"] = state["bytes"] / 1e6 / out["flush_s"]
+            rd_metric(card, "flush seconds, of them the pipeline's (socket and "
+                      "server), MB over the socket, MB/s",
+                      f"{out['flush_s']} {out['pipeline_s']} {state['bytes'] / 1e6} "
+                      f"{out['flush_mb_s']}")
+            union = c.get_hyper_log_log(names[0]).count_with(*names[1:])
+            cells = c._store.get("rd:bloom").state
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            host = cells.cpu().numpy()
+            out["d2h_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            np.packbits(host)
+            out["pack_s"] = time.perf_counter() - t
+            rd_metric(card, f"device-to-host copy of the Bloom's {cells.numel()} cells "
+                      "seconds, then np.packbits seconds",
+                      f"{out['d2h_s']} {out['pack_s']}")
+            del host, cells
+            if not on_card(c):
+                raise AssertionError("phase 22: a state tensor of the flushing client "
+                                     "is not on cuda:0")
+        finally:
+            c.shutdown()
+        out["load_s"] = rd_reload(er.port, names, state, day, seed, card, union)
+        out["periodic_s"] = rd_periodic(er.port, rc, seed, card)
+    finally:
+        rc.close()
+        er.stop()
+    launches = all_launches()
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - t_phase
+    rd_metric(card, "kernel launches", json.dumps(launches))
+    rd_metric(card, "wall seconds", out["wall_s"])
+    missing = [k for k in ("seg_insert", "bits_insert_segmented", "popcount_partials",
+                           "merge_stack") if not launches[k]]
+    if missing:
+        raise AssertionError(f"phase 22 never launched {missing}: {launches}")
+    return out
+
+
 def merge_pair(tree: str, seed: int) -> int:
     """The client's merge call (`engine._merged_rows`: a numpy row list of
     257 and 1001 bank rows, as the backend passes it) and merge_stack over a
@@ -5009,6 +5295,7 @@ def phase_table(seed: int, card: str, deferred: list, out: dict) -> dict:
         "replica": lambda: replica_path(seed, card),
         "cluster": lambda: cluster_path(seed, card),
         "geo": lambda: geo_path(seed, card, out["hll path"][1]),
+        "redis": lambda: redis_path(seed, card),
     }
 
 
@@ -5056,8 +5343,8 @@ def run_phase(name: str, seed: int, card: str, phases: dict, out: dict) -> int:
         log(f"phase replica launches: {json.dumps(out[name]['launches'])}")
     if name == "cluster":
         log(f"phase cluster launches: {json.dumps(out[name]['launches'])}")
-    if name == "geo":
-        log(f"phase geo launches: {json.dumps(out[name]['launches'])}")
+    if name in ("geo", "redis"):
+        log(f"phase {name} launches: {json.dumps(out[name]['launches'])}")
     if "batch path" in out:
         out["batch path"][1].shutdown()
     no_jax_loaded()
@@ -5159,10 +5446,12 @@ def main() -> int:
     cl_l = out["cluster"]["launches"]
     # Phase 21: both geo sites' local writes and remote applies.
     geo_l = out["geo"]["launches"]
+    # Phase 22: the durability tier's fill, reads and reload.
+    rd_l = out["redis"]["launches"]
     launches = add_launches(add_launches(out["hll path"][0], out["batch path"][0]),
                             add_launches(add_launches(dur_l, serve_l),
                                          add_launches(rep_l, cl_l)))
-    launches = add_launches(launches, geo_l)
+    launches = add_launches(add_launches(launches, geo_l), rd_l)
     bloom_l, bitset_l = out["bloom path"][0], out["bitset path"]
     delta_l = [out[p] for p in ("delta hll path", "delta bloom path",
                                 "delta bitset path", "mixed tape window")] + [dur_l, geo_l]
@@ -5183,14 +5472,15 @@ def main() -> int:
                        + serve_l["bits_insert_segmented"]
                        + rep_l["bits_insert_segmented"]
                        + cl_l["bits_insert_segmented"]
-                       + geo_l["bits_insert_segmented"]),
+                       + geo_l["bits_insert_segmented"]
+                       + rd_l["bits_insert_segmented"]),
              **bseg),
         dict(name="popcount_partials", route="cuda", source=src + "popcount.cu",
              replaces="redisson_tpu/ops/pallas_kernels.py:172",
              launches=(bloom_l["popcount_partials"] + bitset_l["popcount_partials"]
                        + dur_l["popcount_partials"] + serve_l["popcount_partials"]
                        + rep_l["popcount_partials"] + cl_l["popcount_partials"]
-                       + geo_l["popcount_partials"]),
+                       + geo_l["popcount_partials"] + rd_l["popcount_partials"]),
              **pop),
         dict(name="bitop_cells", route="cuda", source=src + "bitop.cu",
              replaces="redisson_tpu/ops/pallas_kernels.py:223",

@@ -1454,9 +1454,15 @@ class TorchBackend:
         return {"objects": objects, "bank": bank, "rows": rows}
 
     def bank_names(self) -> List[str]:
-        """Names of the HLLs held as bank rows (the checkpoint and snapshot
-        surface exports each through hll_export)."""
+        """Names of the HLLs held as bank rows (the checkpoint, snapshot and
+        redis durability surface exports each through hll_export)."""
         return list(self._rows)
+
+    def row_version(self, name: str) -> int:
+        """A bank row's version (bumped on every write to it): the redis
+        durability tier's `flush(only_dirty=True)` skips rows whose version
+        has not moved since their last flush."""
+        return self._row_versions.get(name, 0)
 
     def names(self, pattern: str = "*") -> List[str]:
         out = dict.fromkeys(self.store.keys(pattern))

@@ -35,6 +35,15 @@ of an active-active mesh (`client.geo`, the GeoManager; peer sites with
 `geo.connect_sites([...])`): its journal ships to the peers as stamped
 delta planes, and theirs arrive through the delta_merge window.
 
+`Config.use_redis()` beside the `cuda` section is the redis durability tier
+(`client.durability`, the DurabilityManager; `flush_to_redis()`): the
+card's HLL bank rows, Bloom filters and BitSets flush to a RESP server
+(one endpoint, master/slave, sentinel or cluster) as blobs a real server
+reads natively, every `Config.flush_interval_s` seconds when that is set,
+and load back with `durability.load_hll` / `load_bloom` / `load_bitset`.
+A config whose only section is redis (JAX's passthrough mode) raises
+NotImplementedError.
+
 `Config.use_cluster()` makes this client a cluster FACADE: it builds N shard
 clients (each a full engine stack behind a slot-ownership guard; on one card
 all on `cuda:0`) and binds every object getter to the ClusterRouter
@@ -113,6 +122,12 @@ class RedissonTorch:
         self.wire = None
         # The GeoManager when Config.geo makes this engine a site (_init_geo).
         self._geo = None
+        # The redis durability tier (_connect_durability): the manager, the
+        # pool or router it writes through, and the router's watchers.
+        self._durability = None
+        self._resp = None
+        self._role_monitor = None
+        self._cluster_manager = None
         self._is_shutdown = False
         clcfg = self.config.cluster
         if clcfg is not None and clcfg.shard_id == -1:
@@ -123,6 +138,12 @@ class RedissonTorch:
             self._init_cluster_mode()
             self._start_wire()
             return
+        if self.config.mode() == "redis":
+            raise NotImplementedError(
+                "a config whose only section is redis is the passthrough "
+                "mode (every op runs on the RESP server), which the port "
+                "does not have yet (ROADMAP queue 1 item 6, second half); "
+                "add use_cuda() for the durability tier")
         self.device = device_mod.resolve(ccfg.device)
         self._store = SketchStore(self.device)
         self.sketch = TorchBackend(
@@ -238,6 +259,14 @@ class RedissonTorch:
             self._dispatch = self._replicas.router
             register_replica(self.metrics, self._replicas)
         self._init_geo()
+        if self.config.redis is not None:
+            try:
+                self._connect_durability()
+            except Exception:
+                # A failed first dial must not leak the background threads
+                # already running.
+                self.shutdown()
+                raise
         # The RESP front-end last, so the first socket read finds the whole
         # stack (serve admission, persist, replicas) standing.
         self._start_wire()
@@ -264,6 +293,113 @@ class RedissonTorch:
             self.shutdown()
             raise
         register_geo(self.metrics, self._geo)
+
+    def _make_resp_pool(self):
+        """Connection pool to the configured redis endpoint, which the
+        durability flushes write through (ConnectionPool.java role). With
+        cluster_addresses, a ClusterRouter over a bootstrapped
+        ClusterTopologyManager; with sentinel_addresses, a SentinelManager;
+        with slave_addresses, a MasterSlaveRouter (write-to-master,
+        balanced reads, freeze-driven promotion, MOVED/ASK redirects) over
+        one pool per endpoint, plus a RolePollingMonitor when
+        role_scan_interval_ms is set (JAX's `_make_resp_pool`)."""
+        from urllib.parse import urlparse
+
+        from redisson_tpu_torch.interop.pool import RespConnectionPool
+
+        rcfg = self.config.redis
+
+        def factory(host: str, port: int) -> RespConnectionPool:
+            return RespConnectionPool(
+                host=host or "127.0.0.1",
+                port=port or 6379,
+                password=rcfg.password,
+                db=rcfg.database,
+                timeout=rcfg.timeout_ms / 1000.0,
+                retry_attempts=rcfg.retry_attempts,
+                retry_interval=rcfg.retry_interval_ms / 1000.0,
+                size=rcfg.connection_pool_size,
+                min_idle=rcfg.connection_minimum_idle_size,
+                failed_attempts=rcfg.failed_attempts,
+                reconnection_timeout=rcfg.reconnection_timeout_ms / 1000.0,
+                idle_timeout=rcfg.idle_connection_timeout_ms / 1000.0,
+            )
+
+        u = urlparse(rcfg.address)
+        if rcfg.cluster_addresses:
+            from redisson_tpu_torch.interop.topology_redis import (
+                ClusterRouter, ClusterTopologyManager)
+
+            router = ClusterRouter(factory, rcfg.cluster_addresses)
+            mgr = ClusterTopologyManager(
+                router,
+                scan_interval_s=rcfg.cluster_scan_interval_ms / 1000.0)
+            try:
+                mgr.bootstrap()
+            except Exception:
+                # bootstrap dialed pools through the router; nobody above
+                # holds a reference yet, so reclaim them (and the scan
+                # thread) here or they leak per failed create().
+                mgr.close()
+                router.close()
+                raise
+            self._cluster_manager = mgr
+            return router
+        from redisson_tpu_torch.interop.topology_redis import make_balancer
+
+        balancer = make_balancer(rcfg.load_balancer, rcfg.slave_weights,
+                                 rcfg.default_slave_weight)
+        if rcfg.sentinel_addresses:
+            from redisson_tpu_torch.interop.resp_client import SyncPubSubClient
+            from redisson_tpu_torch.interop.topology_redis import SentinelManager
+
+            def pubsub_factory(host: str, port: int) -> SyncPubSubClient:
+                return SyncPubSubClient(
+                    host=host, port=port, password=rcfg.password,
+                    timeout=rcfg.timeout_ms / 1000.0)
+
+            return SentinelManager(
+                factory, rcfg.sentinel_addresses, rcfg.master_name,
+                read_mode=rcfg.read_mode, pubsub_factory=pubsub_factory,
+                timeout=rcfg.timeout_ms / 1000.0,
+                sentinel_password=rcfg.password, balancer=balancer)
+        if rcfg.slave_addresses:
+            from redisson_tpu_torch.interop.topology_redis import (
+                MasterSlaveRouter, RolePollingMonitor)
+
+            router = MasterSlaveRouter(
+                factory,
+                f"{u.hostname or '127.0.0.1'}:{u.port or 6379}",
+                rcfg.slave_addresses,
+                read_mode=rcfg.read_mode, balancer=balancer)
+            if rcfg.role_scan_interval_ms > 0:
+                self._role_monitor = RolePollingMonitor(
+                    router,
+                    scan_interval_s=rcfg.role_scan_interval_ms / 1000.0)
+            return router
+        return factory(u.hostname, u.port)
+
+    def _connect_durability(self) -> None:
+        """The redis durability tier: dial the pool, wire the manager to the
+        store, the executor and the bank-owning backend (HLL rows flush and
+        load through dispatcher-serialized hll_export / hll_import), and
+        start the periodic flusher when flush_interval_s > 0."""
+        from redisson_tpu_torch.interop.durability import DurabilityManager
+
+        self._resp = self._make_resp_pool()
+        self._resp.connect()
+        pod = self._pod_backend()
+        self._durability = DurabilityManager(
+            self._store, self._resp, executor=self._executor,
+            pod_backend=pod, hll_family=getattr(pod, "family", "m3"))
+        if self.config.flush_interval_s > 0:
+            self._durability.start_periodic(self.config.flush_interval_s)
+
+    def _pod_backend(self):
+        """The backend that owns the HLL bank (`bank_names`, `row_version`,
+        `family`), the durability tier's view of it; None on a cluster
+        facade (JAX's name: its pod backend plays this part)."""
+        return self.sketch
 
     def _init_cluster_mode(self) -> None:
         """The facade's own state: the ClusterManager (shard clients,
@@ -548,6 +684,18 @@ class RedissonTorch:
             raise RuntimeError("no replica fleet configured (Config.replicas)")
         return self._replicas.wait_for_replicas(n, timeout_s=timeout_s)
 
+    @property
+    def durability(self):
+        """The DurabilityManager when a redis tier is configured, else None."""
+        return self._durability
+
+    def flush_to_redis(self, names=None) -> int:
+        """Flush the named sketches (default: all) to the redis tier; the
+        number of objects written."""
+        if self._durability is None:
+            raise RuntimeError("no redis durability tier configured")
+        return self._durability.flush(names)
+
     def snapshot_now(self) -> str:
         """On-demand persistent snapshot (BGSAVE analogue): cuts through
         the dispatcher barrier, writes via checkpoint.py, truncates covered
@@ -764,8 +912,9 @@ class RedissonTorch:
         executor still takes their replay), the replica fleet (its prober
         polls this executor; each replica shuts its own client down, the
         promoted one with the persistence a failover attached), the
-        snapshotter, the remote services' workers, the eviction sweeps and
-        the lock watchdog (both submit ops), then the executor
+        snapshotter, the remote services' workers, the redis durability
+        tier (its final flush, then its pool), the eviction sweeps and the
+        lock watchdog (both submit ops), then the executor
         (drains queued and in-flight runs, which still journal), the
         journal (final fsync), the device completer, the parked blocking
         pops (their waiters get an error), and last the pub/sub delivery
@@ -807,6 +956,7 @@ class RedissonTorch:
         for rs in self._remote_services.values():
             rs.shutdown(wait=False)
         self._remote_services.clear()
+        self._close_durability()
         self._eviction.shutdown()
         self._watchdog.shutdown()
         if self.serve is not None:
@@ -822,6 +972,31 @@ class RedissonTorch:
         self._routing.structures.fail_waiters()
         self._pubsub.shutdown()
         self._is_shutdown = True
+
+    def _close_durability(self) -> None:
+        """Stop the periodic flusher, make the final flush of a clean
+        shutdown (a dead server must not abort the rest of shutdown), then
+        close the role monitor, the cluster topology manager and the pool."""
+        if self._durability is not None:
+            self._durability.stop_periodic()
+            try:
+                self._durability.flush()
+            except Exception:
+                pass
+            self._durability = None
+        if self._role_monitor is not None:
+            self._role_monitor.close()
+            self._role_monitor = None
+        if self._cluster_manager is not None:
+            self._cluster_manager.close()
+            self._cluster_manager = None
+        if self._resp is not None:
+            try:
+                self._resp.close()
+            except Exception:
+                # A wedged IO loop must not abort the rest of shutdown.
+                pass
+            self._resp = None
 
     def __enter__(self):
         return self

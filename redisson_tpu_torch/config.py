@@ -7,8 +7,14 @@ returns that section. `use_persist(dir)`, `use_faults()`, `use_serve()`,
 `use_trace()`, `use_memstat()`, `use_replicas()`, `use_cluster()` and
 `use_wire()` do the same for the durability, fault, serving, trace, memory,
 read-replica, cluster and RESP wire sections (the JAX package's fields and
-defaults). `to_dict` / `from_dict` / `to_json` / `from_json` round-trip a
-Config through plain data.
+defaults). `use_redis()` returns the `RedisConfig` section like JAX's
+(no overrides; set its fields): beside the compute section it is the
+durability tier, which flushes the card's sketches to a RESP server every
+`flush_interval_s` seconds (0 = on demand only). A config whose only
+section is redis is JAX's passthrough mode, which the port does not have
+yet: `mode()` says "redis" and the client raises NotImplementedError.
+`to_dict` / `from_dict` / `to_json` / `from_json` round-trip a Config
+through plain data.
 """
 
 from __future__ import annotations
@@ -56,6 +62,54 @@ class CudaConfig:
     key_width_buckets: tuple = (16, 32, 64, 128, 256)
     # Epoch-stamped read cache entries (memoized PFCOUNT); 0 disables.
     read_cache_entries: int = 1024
+
+
+@dataclass
+class RedisConfig:
+    """RESP durability flush target (mirrors `redisson_tpu.config.
+    RedisConfig`, every field and default; the passthrough mode that JAX
+    also drives with it is not ported yet)."""
+
+    address: str = "redis://127.0.0.1:6379"
+    # Master/slave topology (BaseMasterSlaveServersConfig): writes go to
+    # `address`, reads balance over `slave_addresses` per `read_mode`
+    # (SLAVE | MASTER | MASTER_SLAVE). Empty = single endpoint.
+    slave_addresses: List[str] = field(default_factory=list)
+    read_mode: str = "SLAVE"
+    # Slave read balancing (reference `connection/balancer/`):
+    # "round_robin" | "random" | "weighted" (weighted uses slave_weights,
+    # address -> weight, with default_slave_weight for unlisted addresses).
+    load_balancer: str = "round_robin"
+    slave_weights: Dict[str, int] = field(default_factory=dict)
+    default_slave_weight: int = 1
+    # Cluster mode (ClusterServersConfig): bootstrap the slot topology with
+    # CLUSTER NODES from any of these seeds, route keyed commands by CRC16
+    # slot, and re-scan every cluster_scan_interval_ms (0 = bootstrap
+    # only). Takes precedence over sentinel and master/slave settings.
+    cluster_addresses: List[str] = field(default_factory=list)
+    cluster_scan_interval_ms: int = 1000
+    # Sentinel mode (SentinelServersConfig): discover the master/slaves by
+    # name from these sentinels and follow +switch-master events. When set,
+    # `address`/`slave_addresses` are ignored.
+    sentinel_addresses: List[str] = field(default_factory=list)
+    master_name: str = "mymaster"
+    # Elasticache-style detection: poll INFO replication roles every N ms
+    # (0 = off); needs slave_addresses.
+    role_scan_interval_ms: int = 0
+    # Murmur3 seed for passthrough-mode bloom index derivation; must match
+    # CudaConfig.hash_seed when filters cross tiers via durability flushes.
+    hash_seed: int = 0
+    timeout_ms: int = 3000  # BaseConfig.timeout
+    retry_attempts: int = 3  # BaseConfig.retryAttempts
+    retry_interval_ms: int = 1000  # BaseConfig.retryInterval
+    password: Optional[str] = None
+    database: int = 0
+    # Connection pool (connection/pool/ConnectionPool.java semantics):
+    connection_pool_size: int = 4  # masterConnectionPoolSize
+    connection_minimum_idle_size: int = 1  # masterConnectionMinimumIdleSize
+    failed_attempts: int = 3  # freeze threshold (ConnectionPool.java:184-186)
+    reconnection_timeout_ms: int = 3000  # re-probe period (:297-386)
+    idle_connection_timeout_ms: int = 10000  # reaper (IdleConnectionWatcher)
 
 
 @dataclass
@@ -315,11 +369,35 @@ class Config:
     wire: Optional[WireConfig] = None
     # Active-active geo-replication (None = this engine is not a site).
     geo: Optional[GeoConfig] = None
+    # RESP server the durability tier flushes to (None = no redis tier).
+    redis: Optional[RedisConfig] = None
+    # Durability: flush sketch state to redis every N seconds (0 = off).
+    flush_interval_s: float = 0.0
+
+    _MODES = ("cuda", "redis")
+
+    def mode(self) -> str:
+        """The active backend mode, validated like JAX's `mode()`: redis
+        beside the compute section is the durability tier ("cuda"); redis
+        alone is the passthrough mode ("redis", not ported yet); neither is
+        the default device engine ("cuda")."""
+        active = [m for m in self._MODES if getattr(self, m) is not None]
+        compute = [m for m in active if m != "redis"]
+        if compute or not active:
+            return "cuda"
+        return active[0]
 
     def use_cuda(self, **overrides) -> CudaConfig:
         self.cuda = _apply(self.cuda or CudaConfig(), overrides)
         check_ingest(self.cuda.ingest)
         return self.cuda
+
+    def use_redis(self) -> RedisConfig:
+        """The redis section (JAX's `use_redis()`): the durability tier's
+        flush target beside `use_cuda`, `address` and the topology fields
+        set on the returned section."""
+        self.redis = self.redis or RedisConfig()
+        return self.redis
 
     def use_persist(self, dir: str = "", **overrides) -> PersistConfig:
         """The durability section: journal and snapshots under `dir`."""
@@ -440,4 +518,5 @@ SECTION_TYPES = {"cuda": CudaConfig, "persist": PersistConfig,
                  "faults": FaultConfig, "serve": ServeConfig,
                  "trace": TraceConfig, "memory": MemConfig,
                  "replicas": ReplicaConfig, "cluster": ClusterConfig,
-                 "wire": WireConfig, "geo": GeoConfig}
+                 "wire": WireConfig, "geo": GeoConfig,
+                 "redis": RedisConfig}

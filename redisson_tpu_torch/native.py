@@ -4,8 +4,11 @@
 The host half of the delta / tape ingest and of the Bloom host mirror:
 murmur3 folds of u64 keys or byte rows into HLL registers or a packed
 big-endian Bloom bitmap, Bloom probes against such a bitmap, and a
-population count. And the RESP2 wire codec of the RESP front-end (`wire/`):
-`resp_encode` / `resp_encode_pipeline` and the incremental `RespParser`.
+population count (`hll_fold` is the list-of-bytes form the embedded RESP
+server's PFADD folds with, `interop/fake_server.py`). And the RESP2 wire
+codec of the RESP front-end (`wire/`) and of the redis tier's client
+(`interop/`): `resp_encode` / `resp_encode_pipeline` and the incremental
+`RespParser`.
 The port's counterpart of the fold and RESP functions of
 `redisson_tpu.native`, with its own copy of the C++ source.
 
@@ -100,8 +103,10 @@ def build() -> None:
 
 def _load() -> Optional[ctypes.CDLL]:
     global _lib, _tried
-    if _lib is not None or _tried:
+    if _lib is not None:
         return _lib
+    # `_tried` is read under the lock: a thread that came while another one
+    # was building must wait for that build, not report the library missing.
     with _lock:
         if _lib is None and not _tried:
             _tried = True
@@ -190,6 +195,26 @@ def hll_fold_rows(data: np.ndarray, lengths: np.ndarray, regs: np.ndarray,
     _lib_or_raise().hf_hll_fold_rows(
         _p(data, ctypes.c_uint8), data.shape[1], _p(lengths, ctypes.c_int32),
         data.shape[0], seed, _p(regs, ctypes.c_uint8))
+    return regs
+
+
+def hll_fold(keys: Sequence[bytes], regs: np.ndarray, seed: int = 0) -> np.ndarray:
+    """Fold a list of byte keys into the registers, in place; returns
+    `regs`. The keys go to the library's row entry as zero-padded [n, w]
+    rows (JAX's list form has a Python fallback; this one raises without
+    the library, like every entry here)."""
+    _check_regs(regs)
+    lib = _lib_or_raise()
+    n = len(keys)
+    if n == 0:
+        return regs
+    lengths = np.fromiter(map(len, keys), np.int32, n)
+    w = max(1, int(lengths.max()))
+    data = np.zeros((n, w), np.uint8)
+    data[np.arange(w) < lengths[:, None]] = np.frombuffer(b"".join(keys), np.uint8)
+    lib.hf_hll_fold_rows(_p(data, ctypes.c_uint8), w,
+                         _p(lengths, ctypes.c_int32), n, seed,
+                         _p(regs, ctypes.c_uint8))
     return regs
 
 

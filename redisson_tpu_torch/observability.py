@@ -289,8 +289,8 @@ class Node:
 
 class NodesGroup:
     """client.get_nodes_group(): enumerate + ping nodes (the client's
-    device; the redis durability tier is not part of the port), listen to
-    connect/disconnect events."""
+    device, and the redis durability tier's server when one is
+    configured), listen to connect/disconnect events."""
 
     def __init__(self, client):
         self._client = client
@@ -298,7 +298,19 @@ class NodesGroup:
 
     def nodes(self) -> List[Node]:
         device = self._client.device
-        return [Node("device", str(device), _device_pinger(device))]
+        out = [Node("device", str(device), _device_pinger(device))]
+        resp = getattr(self._client, "_resp", None)
+        if resp is not None:
+
+            def ping_redis() -> bool:
+                return resp.execute("PING") in (b"PONG", b"pong")
+
+            # A topology router names its current master (JAX reads
+            # host/port, which only a single pool has).
+            ident = (getattr(resp, "master_address", None)
+                     or f"{resp.host}:{resp.port}")
+            out.append(Node("redis", ident, ping_redis))
+        return out
 
     def ping_all(self) -> bool:
         return all(n.ping() for n in self.nodes())

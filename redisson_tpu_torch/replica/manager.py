@@ -62,8 +62,8 @@ def replica_engine_config(primary_config):
     replay the journaled migrate_* records, so the slot table survives a
     promotion. The geo section is stripped too (a replica is no site: it
     has no journal to ship); JAX's copy keeps it, so a JAX geo site with
-    replicas fails to start. JAX's copy also drops the redis durability
-    tier and its `flush_interval_s`; the port's Config has neither yet."""
+    replicas fails to start. The redis durability tier and its
+    `flush_interval_s` go, as in JAX's copy: only the primary flushes."""
     cfg = copy.deepcopy(primary_config)
     cfg.persist = None
     cfg.replicas = None
@@ -71,6 +71,8 @@ def replica_engine_config(primary_config):
     cfg.geo = None
     if cfg.cluster is None or cfg.cluster.shard_id < 0:
         cfg.cluster = None
+    cfg.redis = None
+    cfg.flush_interval_s = 0.0
     return cfg
 
 

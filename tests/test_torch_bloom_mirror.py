@@ -1,8 +1,9 @@
 """The port's Bloom host mirror (the cases of tests/test_bloom_mirror.py that
-need neither persistence nor checkpoints), with ingest='hostfold' forcing
-the mirror on the CPU: membership and cells against the device path and
-the JAX package, per-key newly flags, count from the mirror, a device
-probe syncing pending mirror bits, a device write invalidating the mirror,
+need neither persistence nor checkpoints, and its redis durability flush),
+with ingest='hostfold' forcing the mirror on the CPU: membership and cells
+against the device path and the JAX package, per-key newly flags, count
+from the mirror, a device probe syncing pending mirror bits, a device write
+invalidating the mirror, a durability flush carrying the mirror's bits,
 blocked filters staying on the device, and every state change that must
 drop a mirror."""
 
@@ -120,6 +121,27 @@ def test_device_write_invalidates_mirror(hclient):
     assert bf.contains(b"host-side")  # the mirror rebuilds from the device
     assert bf.contains(b"device-side")
     assert not bf.contains(b"neither")
+
+
+def test_durability_flush_includes_mirror_bits(hclient):
+    from redisson_tpu_torch.interop.durability import DurabilityManager
+    from redisson_tpu_torch.interop.fake_server import EmbeddedRedis
+    from redisson_tpu_torch.interop.resp_client import SyncRespClient
+
+    bf = hclient.get_bloom_filter("bm:flush")
+    bf.try_init(5000, 0.01)
+    bf.add_all([b"f%d" % i for i in range(500)])
+    with EmbeddedRedis() as er:
+        with SyncRespClient(port=er.port) as rc:
+            dm = DurabilityManager(
+                hclient._store, rc, executor=hclient._executor,
+                pod_backend=hclient._pod_backend())
+            assert dm.flush(["bm:flush"]) == 1
+            raw = bytes(rc.execute("GET", "bm:flush"))
+    # the flushed blob must carry exactly the host-folded bits
+    flushed_pop = int(np.unpackbits(np.frombuffer(raw, np.uint8)).sum())
+    mirror_pop = tnative.popcount(hclient.sketch._bloom_mirrors["bm:flush"]["bits"])
+    assert flushed_pop == mirror_pop > 0
 
 
 def test_blocked_filter_stays_on_device_path(hclient):

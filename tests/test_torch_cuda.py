@@ -13,7 +13,10 @@ and popcount, state equal to the primary's, a failover losing no
 acknowledged write); a 4-shard cluster facade on cuda:0 against a CPU
 cluster, and PFADDs over its RESP servers against an in-process client on
 the card; geo-sized planes through delta_merge, and a geo pair on the card
-against a geo pair on the CPU. They skip where no card is visible. Run them on a
+against a geo pair on the CPU; the redis durability tier flushing the
+card's HLL rows, a Bloom filter and a BitSet to the embedded RESP server
+and loading them back onto the card, and load_hll under both hash
+families. They skip where no card is visible. Run them on a
 machine with one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -1030,3 +1033,94 @@ def test_geo_pair_on_card_matches_cpu_pair(dev, tmp_path):
         for n, cells in states["cpu"][i].items():
             np.testing.assert_array_equal(states["cuda"][i][n], cells, err_msg=n)
             np.testing.assert_array_equal(states["cuda"][1 - i][n], cells, err_msg=n)
+
+
+def _durable_pair(hll_hash, port):
+    """A card client and a CPU client, both flushing to the server."""
+    out = []
+    for device in ("cuda:0", "cpu"):
+        cfg = Config()
+        cfg.use_cuda(device=device, hll_hash=hll_hash)
+        cfg.use_redis().address = f"redis://127.0.0.1:{port}"
+        out.append(RedissonTorch.create(cfg))
+    return out
+
+
+def _durable_fill(c):
+    rng = np.random.default_rng(21)
+    for i in range(4):
+        c.get_hyper_log_log(f"d:h{i}").add_all(
+            [b"u%d" % v for v in rng.integers(0, 10**6, 30_000)])
+    bf = c.get_bloom_filter("d:bf")
+    bf.try_init(expected_insertions=200_000, false_probability=0.01)
+    bf.add_all([b"b%d" % i for i in range(100_000)])
+    bs = c.get_bit_set("d:bs")
+    for v in rng.integers(0, 1 << 20, 500):
+        bs.set(int(v))
+
+
+def test_durability_round_trip_on_card(dev):
+    from redisson_tpu_torch.interop import hyll
+    from redisson_tpu_torch.interop.fake_server import EmbeddedRedis
+
+    names = [f"d:h{i}" for i in range(4)]
+    with EmbeddedRedis() as er:
+        card, cpu = _durable_pair("murmur3", er.port)
+        try:
+            _durable_fill(card)
+            _durable_fill(cpu)
+            blobs = []
+            for c in (card, cpu):
+                assert c.durability.flush() == 6
+                blobs.append({n: bytes(c.durability.client.execute("GET", n))
+                              for n in names + ["d:bf", "d:bs"]})
+            assert blobs[0] == blobs[1]  # the card's bytes are the CPU's
+            for n in names:
+                regs, _v = card._executor.execute_sync(n, "hll_export", None)
+                assert np.array_equal(hyll.decode(blobs[0][n]), regs)
+            card.flushall()
+            for n in names:
+                assert card.durability.load_hll(n)
+            assert card.durability.load_bloom("d:bf")
+            assert card.durability.load_bitset("d:bs")
+            for n in ("d:bf", "d:bs"):
+                assert card._store.get(n).state.device == dev
+            assert card.get_bloom_filter("d:bf").contains_all(
+                [b"b%d" % i for i in range(100_000)]).all()
+            assert card.get_bit_set("d:bs").cardinality() == \
+                cpu.get_bit_set("d:bs").cardinality()
+            assert card.get_hyper_log_log(names[0]).count_with(*names[1:]) == \
+                cpu.get_hyper_log_log(names[0]).count_with(*names[1:])
+            card.durability.flush(only_dirty=True)  # the loads moved versions
+            assert card.durability.flush(only_dirty=True) == 0
+        finally:
+            card.shutdown()
+            cpu.shutdown()
+
+
+@pytest.mark.parametrize("family", ["murmur3", "redis"])
+def test_load_hll_under_both_families_on_card(dev, family):
+    from redisson_tpu_torch.interop import hyll
+    from redisson_tpu_torch.interop.fake_server import EmbeddedRedis
+
+    keys = [b"user:%d" % i for i in range(20_000)]
+    with EmbeddedRedis(hll_hash=family) as er:
+        card, cpu = _durable_pair(family, er.port)
+        try:
+            card.get_hyper_log_log("f:h").add_all(keys)
+            card.flush_to_redis(["f:h"])
+            blob = bytes(card.durability.client.execute("GET", "f:h"))
+            assert hyll.blob_family(blob) == ("m3" if family == "murmur3" else "redis")
+            card.durability.client.execute("PFADD", "f:srv", *keys[:2000])
+            assert cpu.durability.load_hll("f:h")
+            a, _ = card._executor.execute_sync("f:h", "hll_export", None)
+            b, _ = cpu._executor.execute_sync("f:h", "hll_export", None)
+            assert np.array_equal(a, b)
+            card.get_hyper_log_log("f:srv").add_all(keys[:2000])
+            mine, _ = card._executor.execute_sync("f:srv", "hll_export", None)
+            srv = hyll.decode(card.durability.client.execute("GET", "f:srv"))
+            assert np.array_equal(mine, srv)  # the server's fold is the card's
+            assert card.durability.load_hll("f:srv", force=True)
+        finally:
+            card.shutdown()
+            cpu.shutdown()

@@ -21,8 +21,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: with observability, trace/, memstat/ and the rest of serve/, 96 with the
 #: replica tier, the follower, cluster/errors, reactive/, services/ and
 #: version, 108 with the cluster tier, parallel/topology, loopwitness and
-#: wire/, 114 with geo/ and the two runtime witnesses)
-NMODS = 114
+#: wire/, 114 with geo/ and the two runtime witnesses, 122 with interop/)
+NMODS = 122
 
 _GATE = textwrap.dedent("""
     import importlib, pkgutil, runpy, sys
@@ -86,6 +86,11 @@ _GATE = textwrap.dedent("""
                *(f"redisson_tpu_torch.geo.{m}" for m in
                  ("applier", "link", "manager"))}
     print("SLICE12", sorted(slice12 - set(mods)))
+    slice13 = {"redisson_tpu_torch.interop",
+               *(f"redisson_tpu_torch.interop.{m}" for m in
+                 ("hyll", "resp_client", "pool", "topology_redis", "mini_lua",
+                  "fake_server", "durability"))}
+    print("SLICE13", sorted(slice13 - set(mods)))
     print("MODULES", len(mods), "SMOKE_RC", rc, "LEAKED", leaked)
 """)
 
@@ -105,6 +110,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert "SLICE10 []" in out.stdout  # and the replica tier and the facades
     assert "SLICE11 []" in out.stdout  # and the cluster tier and the wire
     assert "SLICE12 []" in out.stdout  # and geo/ and the witnesses
+    assert "SLICE13 []" in out.stdout  # and interop/
     assert rc == "2"  # chip_smoke refuses to run without a card
     assert leaked == "[]"
     assert '"ok"' not in out.stdout
@@ -118,6 +124,11 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
         RedissonTorch.create(Config().use_cuda())
     with pytest.raises(RuntimeError):
         RedissonTorch.create()  # the default is the card, not the CPU
+    durable = Config()
+    durable.use_cuda()
+    durable.use_redis().address = "redis://127.0.0.1:1"
+    with pytest.raises(RuntimeError, match="cuda"):
+        RedissonTorch.create(durable)  # the durability tier asks for cuda:0
     assert device_mod.resolve("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         device_mod.resolve("mps")

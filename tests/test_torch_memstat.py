@@ -30,7 +30,8 @@ from redisson_tpu_torch.store import SketchStore
 EXCLUDED = {
     "test_client_memory_facade_requires_device_mode":
         "it stubs the redis passthrough mode (no memory report); the port "
-        "has the device mode only until the redis tier (queue 1 item 5)",
+        "has the device mode only until the passthrough mode lands (ROADMAP "
+        "queue 1 item 6, second half)",
 }
 
 

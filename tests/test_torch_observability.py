@@ -22,11 +22,7 @@ from redisson_tpu_torch.observability import (ExecutorMetrics, Histogram, Metric
                                               NodesGroup, profile)
 
 #: tests of tests/test_observability.py with no counterpart here, and why
-EXCLUDED = {
-    "test_nodes_group_with_redis_tier":
-        "the redis durability tier (interop/, an embedded RESP server) is "
-        "queue 1 item 5; the port's NodesGroup holds the device node only",
-}
+EXCLUDED = {}
 
 
 def cpu_client(cfg=None):
@@ -199,6 +195,23 @@ def test_nodes_group_ping(client):
     nodes = ng.nodes()
     assert any(n.kind == "device" for n in nodes)
     assert ng.ping_all()
+
+
+def test_nodes_group_with_redis_tier():
+    from redisson_tpu_torch.interop.fake_server import EmbeddedRedis
+
+    with EmbeddedRedis() as er:
+        cfg = Config()
+        cfg.use_cuda(device="cpu")
+        cfg.use_redis().address = f"redis://127.0.0.1:{er.port}"
+        c = RedissonTorch.create(cfg)
+        try:
+            ng = c.get_nodes_group()
+            kinds = {n.kind for n in ng.nodes()}
+            assert kinds == {"device", "redis"}
+            assert ng.ping_all()
+        finally:
+            c.shutdown()
 
 
 def test_connection_listener_fanout(client):

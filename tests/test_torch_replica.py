@@ -407,8 +407,8 @@ def test_read_kinds_equal_jax():
 @pytest.mark.parametrize("shard_id", [None, -1, 0, 3])
 def test_engine_config_strips_the_sections_jax_strips(tmp_path, shard_id):
     """Of the sections both packages have, `replica_engine_config` clears
-    the same ones (persist, replicas, faults, and the cluster section of a
-    facade) and keeps the same ones (serve, trace, memory, the wire, codec,
+    the same ones (persist, replicas, faults, the redis durability tier and
+    its flush interval, and the cluster section of a facade) and keeps the same ones (serve, trace, memory, the wire, codec,
     the pipeline depth, and the cluster section of a shard member, whose
     replicas replay its journaled slot ownership)."""
     def build(cfg):
@@ -423,6 +423,8 @@ def test_engine_config_strips_the_sections_jax_strips(tmp_path, shard_id):
             cfg.use_cluster(num_shards=4).shard_id = shard_id
         cfg.codec = "pickle"
         cfg.inflight_runs = 3
+        cfg.use_redis().address = "redis://127.0.0.1:7000"
+        cfg.flush_interval_s = 2.0
         return cfg
 
     jcfg = build(JConfig())
@@ -433,8 +435,10 @@ def test_engine_config_strips_the_sections_jax_strips(tmp_path, shard_id):
               "cluster", "wire", "codec", "inflight_runs")
     for name in shared:
         assert (getattr(jout, name) is None) == (getattr(tout, name) is None), name
-    for name in ("persist", "replicas", "faults"):
+    for name in ("persist", "replicas", "faults", "redis"):
         assert getattr(tout, name) is None
+    assert jout.redis is None and jout.flush_interval_s == tout.flush_interval_s == 0.0
+    assert tcfg.redis is not None and tcfg.flush_interval_s == 2.0
     if shard_id is not None and shard_id >= 0:
         assert tout.cluster.shard_id == jout.cluster.shard_id == shard_id
     else:

@@ -61,14 +61,7 @@ from redisson_tpu_torch.wire.server import ShardWireContext
 
 #: tests of tests/test_wire.py / test_wire_cluster.py with no counterpart
 #: here, and why
-EXCLUDED = {
-    "test_wire.py::TestProto::test_fake_server_uses_shared_codec":
-        "interop/fake_server.py is not ported (ROADMAP Queue 1 item 6); "
-        "test_port_codec_is_the_native_library's takes its place",
-    "test_wire.py::TestProto::test_resp_client_uses_shared_codec":
-        "interop/resp_client.py is not ported (ROADMAP Queue 1 item 6); "
-        "test_port_codec_has_no_python_fallback takes its place",
-}
+EXCLUDED = {}
 
 #: reply fields that carry an id, a port or the engine's name, and so may
 #: differ between the JAX package's server and the port's
@@ -184,6 +177,25 @@ class TestProto:
         assert proto.RespError is native.RespError
         assert render_redirect(SlotMovedError(9), "h:1") == proto.moved(9, "h:1")
         assert render_redirect(SlotAskError(9), "h:2") == proto.ask(9, "h:2")
+
+    def test_fake_server_uses_shared_codec(self):
+        # The port's embedded RESP server renders with proto's functions,
+        # and parses with the port's C++ codec through proto.
+        from redisson_tpu_torch.interop import fake_server
+
+        assert fake_server._ok is proto.ok
+        assert fake_server._err is proto.err
+        assert fake_server._int is proto.integer
+        assert fake_server._bulk is proto.bulk
+        assert fake_server._array is proto.array
+        assert fake_server.proto is proto
+
+    def test_resp_client_uses_shared_codec(self):
+        import redisson_tpu_torch.interop.resp_client as rc
+
+        assert rc.proto is proto
+        assert rc.RespError is proto.RespError is native.RespError
+        assert rc.proto.RespParser is native.RespParser
 
     def test_port_codec_has_no_python_fallback(self, monkeypatch):
         monkeypatch.setattr(native, "_load", lambda: None)
