@@ -7,6 +7,8 @@
     python3 chip_smoke.py --phase cluster     # the build and phase 20 alone
     python3 chip_smoke.py --phase geo         # the build, a sort reference and phase 21
     python3 chip_smoke.py --phase redis       # the build and phase 22 alone
+    python3 chip_smoke.py --phase pod         # the build, the references and phase 23
+    python3 chip_smoke.py --phase passthrough # the build and phase 24 alone
     python3 chip_smoke.py --merge-pair TREE   # the client's merge call only, of TREE's package
     python3 chip_smoke.py --child-writer DIR  # phase 15's writer (the phase starts it)
 
@@ -91,7 +93,7 @@ Phases, each of which fails the run on error:
      plain-Python model: a 1M-entry RMap (put_all in 10,000-entry chunks,
      get_all of 100,000 keys), a 1M-member RScoredSortedSet (rank,
      value_range, value_range_by_score), an RBlockingQueue between 4
-     producers and 4 consumers of 10,000 items each, 8 threads x 500
+     producers and 4 consumers of 5,000 items each, 8 threads x 250
      RLock-guarded RAtomicLong increments, a 40,000-entry RMapCache with a
      1 s TTL swept empty by mc_evict_expired, 10,000 RTopic messages to 2
      listeners, and a mixed RBatch (10,000 map puts, 8 PFADDs, a Bloom add)
@@ -259,10 +261,53 @@ Phases, each of which fails the run on error:
      Fill, flush and load seconds, flush MB/s, the device-to-host copy of
      the Bloom cells apart from np.packbits and the phase's wall seconds
      are printed, never checked.
+ 23. the pod tier and the mesh data plane (parallel/, cluster/ mesh
+     plane): a pod client (use_pod(num_shards=4, bank_capacity=1024), four
+     logical shards on cuda:0, one tensor per sharded array whose row
+     blocks or cell ranges are the shards). (1) The HLL path's 1024 x
+     40,000 keys (a 64 MiB bank, 256 rows per shard; one seg_insert per
+     shard per chunk) and 64 of the sketches again as 8-byte strings
+     (hashed on the card, no register rises): the bank bit-identical to
+     phase 3's `sort` reference, per-sketch PFCOUNT, count-all (per-shard
+     merge_stack, a max across shards) and PFMERGE+count over 1000 equal
+     to it (rel 1e-5); reshard(2) then reshard(4) keep the bank bit for
+     bit (64 sketches re-counted). (2)
+     Config 2's filter sharded over the 4 shards, 10M adds in 2M batches
+     (one segment-OR launch per shard per batch): cells and added flags
+     equal phase 7's single-card `scatter` filter, all 10M contained,
+     count() equal. (3) One 2^32-bit BitSet (4 GiB, 2^30 cells per shard):
+     SETBIT at each shard's first and last cell (2^32 - 1 among them) with
+     the old values, LENGTH 2^32, set_range [0, 2^31 + 2^20] and BITCOUNT
+     equal to the host's exact count past 2^31 (per-shard popcount
+     partials, an int64 combine); BITOP OR and AND of two 2^27-bit days
+     against numpy. (4) `use_cluster(num_shards=4, data_plane="mesh")`
+     with phase 20's keys and layout against the stacks plane on the same
+     sequence: replies (128 PFCOUNTs among them) and every register
+     equal, collective_merges > 0,
+     mesh_occupancy() the live sketch count; shard 0's range migrated live
+     to shard 1 under two writers, every acknowledged PFADD present, rows
+     relocated on the card. seg_insert, merge_stack,
+     bits_insert_segmented, popcount_partials and bitop_cells must launch
+     in (1)-(3). Keys/s, merge ms, reshard and migration seconds are
+     printed, never checked. Run alone (`--phase pod`) it makes its own
+     `sort` and `scatter` references.
+ 24. the passthrough mode (interop/backend_redis.py, bloom_redis.py,
+     coordination_redis.py): a config whose only section is redis against
+     the port's EmbeddedRedis (redis's HLL hash) in this process. Config
+     3's 256 sketches x 4,000 keys through server-side PFADD: every
+     server register equals a redis-family card client's (built before
+     the window) and every PFCOUNT the server fold of them; a Bloom filter
+     of 100,000 adds whose contains of 20,000 probes, count() and server
+     string equal the card client's cells; one round of RMap, RQueue with
+     a blocking pop, RLock, fair and read-write locks, semaphore, latch,
+     topic, map cache with its TTL sweep and a script. Cuts (listed in the
+     phase's docstring): 4,000 keys per sketch, 100,000 Bloom adds. Gate:
+     torch.cuda.memory_allocated() is the same before the passthrough
+     client is made and after it shuts down.
 
 Each path (3, 7, 8, 10, 11, 13, 15's recovery with the checks after it,
-16, each step of 19 and 20, 21 and 22) resets the launch counters just before
-it and reads them just after. The last lines are the card's name and power limit, a
+16, each step of 19, 20 and 23, 21 and 22) resets the launch counters just
+before it and reads them just after. The last lines are the card's name and power limit, a
 JSON object with one entry per kernel, and `{"ok": true, "device": {...}}`.
 Exits non-zero, with no result, when no card is visible or the package is
 missing.
@@ -294,6 +339,7 @@ BIG_KEYS = 1 << 23
 MERGE_N = 1000
 STRIDE = KEYS * 3 // 4  # neighbouring sketches share a quarter of their keys
 EXACT_UNION = (MERGE_N - 1) * STRIDE + KEYS
+EXACT_ALL = (SKETCHES - 1) * STRIDE + KEYS  # the union of every sketch
 TIMING_REPS = 3
 # The Bloom path: BASELINE config 2 (benchmarks/suite.py: try_init(2^28 //
 # 10, 0.01)), 10M inserts in 2M-key batches, contains of the first 1M,
@@ -333,21 +379,22 @@ MERGE_GRIDS = ((128, 8), (128, 4), (128, 16), (64, 8), (256, 8))
 # The structures tier at sizes users run (host-side engine, no device work):
 # a 1M-entry map written in 10,000-entry put_all chunks and read with one
 # 100,000-key get_all; a 1M-member leaderboard; a blocking queue between 4
-# producers and 4 consumers of 10,000 items each; 8 threads x 500 locked
+# producers and 4 consumers of 5,000 items each; 8 threads x 250 locked
 # increments; a 40,000-entry map cache with a 1 s TTL swept empty; 10,000
 # topic messages to 2 listeners; one mixed RBatch of 10,000 map puts, 8
 # PFADDs and a Bloom add. The queue, lock and cache passes are per-op host
-# paths, cut below user sizes to keep the whole run inside its limit: a
-# smaller count reads the same per-op rate.
+# paths, cut below user sizes to keep the whole run inside its limit (the
+# queue and lock passes halved again when phases 23-24 came): a smaller
+# count reads the same per-op rate.
 ST_MAP = 1_000_000
 ST_MAP_CHUNK = 10_000
 ST_MAP_GET = 100_000
 ST_ZSET = 1_000_000
 ST_ZSET_PROBES = 1
 ST_QUEUE_THREADS = 4
-ST_QUEUE_ITEMS = 10_000
+ST_QUEUE_ITEMS = 5_000
 ST_LOCK_THREADS = 8
-ST_LOCK_ITERS = 500
+ST_LOCK_ITERS = 250
 ST_CACHE = 40_000
 ST_CACHE_TTL_S = 1.0
 ST_TOPIC = 10_000
@@ -454,6 +501,26 @@ RD_FLUSH_S = 0.2  # the periodic client's flush_interval_s
 RD_EXTRA_KEYS = 10_000  # keys of the PFADD the periodic flusher must carry
 RD_TIMEOUT_MS = 60_000  # the pool's response timeout: a 32 MB SET is one reply
 RD_WAIT_S = 60.0
+
+# Phase 23: the pod tier and the mesh data plane, 4 logical shards on cuda:0.
+PD_DIR = "build/phase23"  # git-ignored, inside the checkout; removed after
+PD_SHARDS = 4
+PD_BYTE_SKETCHES = 64  # sketches whose keys go in again as 8-byte strings
+PD_BIG_BITS = 1 << 32  # the BitSet at the tier's own limit: 4 GiB of cells
+PD_RANGE_LAST = (1 << 31) + (1 << 20)  # set_range [0, PD_RANGE_LAST], inclusive
+PD_WAIT_S = 120.0
+PD_RESHARD_COUNTS = 64  # sketches re-counted after each reshard (the bank is compared whole)
+PD_PLANE_COUNTS = 128  # PFCOUNTs per data plane (every register is compared)
+
+# Phase 24: the passthrough mode against the port's EmbeddedRedis.
+PT_SKETCHES = 256  # B3_SKETCHES
+PT_KEYS = 4_000  # CL_WIRE_KEYS: keys cross the socket as bulk strings
+PT_STRIDE = PT_KEYS * 3 // 4
+PT_BLOOM_N = 100_000  # adds (and the filter's expected insertions)
+PT_BLOOM_P = 0.01
+PT_PROBES = 10_000  # contains probes of added keys, and as many fresh ones
+PT_TIMEOUT_MS = 60_000  # a Lua-guarded Bloom slab on the pure-Python server
+PT_WAIT_S = 30.0
 # Per-sketch estimates: the RMS error must stay below 2%, and at most this
 # share of sketches may exceed 2%. A single sketch is not held to 2%: the
 # standard error at p = 14 is 0.81%, so 2% is a 2.5-sigma draw, and among
@@ -5223,6 +5290,673 @@ def redis_path(seed: int, card: str) -> dict:
     return out
 
 
+# -- phase 23: the pod tier and the mesh data plane ----------------------------
+
+
+def pd_metric(card: str, what: str, value) -> None:
+    """One phase-23 number on its own line, beside the card it ran on."""
+    log(f"[{card}] phase 23 {what}: {value}")
+
+
+def pd_counts(c, names) -> list:
+    return [f.result() for f in [c.get_hyper_log_log(n).count_async() for n in names]]
+
+
+def pd_close(what: str, got, want) -> None:
+    """PFCOUNT within rel 1e-5 (the float32 sum order of the estimator)."""
+    bad = [(i, g, w) for i, (g, w) in enumerate(zip(got, want))
+           if abs(g - w) > 1e-5 * max(w, 1)]
+    if len(got) != len(want) or bad:
+        raise AssertionError(f"{what}: {len(bad)} counts differ, e.g. {bad[:3]}")
+
+
+def pd_on_card(c) -> bool:
+    """The pod's bank, sharded bit arrays and delegate store on the card."""
+    be = c._pod_backend()
+    tensors = ([be.bank] + [o.state for o in be._bits.values()]
+               + [be.store.get(n).state for n in be.store.keys()])
+    return all(t.is_cuda for t in tensors)
+
+
+def pd_hll(c, ref, seed: int, card: str) -> dict:
+    """Step 1: the HLL path at full width over 4 logical shards: 1024
+    sketches x 40,000 keys into a 64 MiB bank of 256 rows per shard, then
+    64 of them again as byte keys; the bank bit-identical to the single-card
+    `sort` reference, per-sketch PFCOUNT, count-all and PFMERGE+count over
+    1000 equal to it; reshard(2) and reshard(4) keep the bank bit for bit
+    and PD_RESHARD_COUNTS sketches' counts (a cut of depth: each PFCOUNT
+    is a launch chain)."""
+    ref_res, ref_bank, ref_rows = ref
+    names = [f"hll:{i}" for i in range(SKETCHES)]
+    batches = [keys_for(i * STRIDE, KEYS, seed) for i in range(SKETCHES)]
+    be = c._pod_backend()
+    reset_all_launches()
+    t = time.perf_counter()
+    added = [f.result() for f in [c.get_hyper_log_log(n).add_ints_async(b)
+                                  for n, b in zip(names, batches)]]
+    import torch
+
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t
+    if not all(added):
+        raise AssertionError("phase 23: a first PFADD into an empty sketch reported "
+                             "no change")
+    bank, rows = c.to_numpy_state()
+    if bank.shape != (SKETCHES, 16384) or be.mesh.size != PD_SHARDS:
+        raise AssertionError(f"phase 23: bank {bank.shape} over {be.mesh.size} shards")
+    same_bank(bank, rows, ref_bank, {n: ref_rows[n] for n in names}, "the pod bank")
+    t = time.perf_counter()
+    flags = [c.get_hyper_log_log(n).add_all([k.tobytes() for k in b])
+             for n, b in zip(names[:PD_BYTE_SKETCHES], batches[:PD_BYTE_SKETCHES])]
+    byte_s = time.perf_counter() - t
+    if any(flags) or not np.array_equal(c.to_numpy_state()[0], bank):
+        raise AssertionError("phase 23: the byte keys (pre-hashed on the card) raised a "
+                             "register their u64 twins had not")
+    counts = pd_counts(c, names)
+    pd_close("phase 23 per-sketch PFCOUNT", counts, ref_res["counts"])
+    t = time.perf_counter()
+    count_all = c._executor.execute_sync("", "hll_count_all", None)
+    all_s = time.perf_counter() - t
+    pd_close("phase 23 count-all", [count_all], [ref_res["count_with"]])
+    t = time.perf_counter()
+    mc = c.get_hyper_log_log("union:mc").merge_with_and_count(*names[:MERGE_N])
+    merge_ms = (time.perf_counter() - t) * 1e3
+    pd_close(f"phase 23 PFMERGE+count over {MERGE_N}", [mc], [ref_res["merge_and_count"]])
+    launches = all_launches()
+    reshard_s = {}
+    before = c.to_numpy_state()[0]
+    for n in (2, PD_SHARDS):
+        t = time.perf_counter()
+        c._executor.execute_barrier(lambda n=n: be.reshard(n)).result()
+        torch.cuda.synchronize()
+        reshard_s[n] = time.perf_counter() - t
+        if be.mesh.size != n:
+            raise AssertionError(f"phase 23: reshard({n}) left {be.mesh.size} shards")
+        if not np.array_equal(c.to_numpy_state()[0], before):
+            raise AssertionError(f"phase 23: reshard({n}) changed the bank")
+        pd_close(f"phase 23 PFCOUNT after reshard({n})",
+                 pd_counts(c, names[:PD_RESHARD_COUNTS]), counts[:PD_RESHARD_COUNTS])
+    if not pd_on_card(c):
+        raise AssertionError("phase 23: a pod state tensor is not on the card")
+    for k in ("seg_insert", "merge_stack"):
+        if not launches[k]:
+            raise AssertionError(f"phase 23 hll never launched {k}: {launches}")
+    err = abs(count_all - EXACT_ALL) / EXACT_ALL
+    pd_metric(card, f"PFADD keys/s ({SKETCHES} x {KEYS} u64 keys over {PD_SHARDS} "
+              "shards)", SKETCHES * KEYS / add_s)
+    pd_metric(card, f"byte-key PFADD keys/s ({PD_BYTE_SKETCHES} x {KEYS})",
+              PD_BYTE_SKETCHES * KEYS / byte_s)
+    pd_metric(card, "count-all ms, PFMERGE+count over 1000 ms",
+              f"{all_s * 1e3} {merge_ms}")
+    pd_metric(card, "reshard seconds (to 2, back to 4)", json.dumps(reshard_s))
+    log(f"  pod hll: bank bit-identical to the sort reference ({SKETCHES} rows, "
+        f"{PD_SHARDS} x {SKETCHES // PD_SHARDS}); count-all {count_all} (exact "
+        f"{EXACT_ALL}, error {err:.5f}); PFMERGE+count over {MERGE_N} {mc}; counts kept "
+        "through reshard(2) and reshard(4)")
+    return {"launches": launches, "keys_per_s": SKETCHES * KEYS / add_s,
+            "merge_ms": merge_ms, "reshard_s": reshard_s}
+
+
+def pd_bloom(c, ref_bloom, seed: int, card: str) -> dict:
+    """Step 2: BASELINE config 2's filter (m = 257,296,945, k = 7) sharded
+    over 4 shards, 10M adds in 2M batches: cells and added flags equal to a
+    single-card `scatter` filter fed the same keys (phase 7's), every added
+    key contained, count() equal."""
+    from redisson_tpu_torch.ops import bloom_math
+
+    ref_cells, ref_added = ref_bloom
+    reset_all_launches()
+    t = time.perf_counter()
+    f, added = bloom_fill(c, "pod:bloom", seed)
+    fill_s = time.perf_counter() - t
+    hits = sum(f.contains_count_ints(bloom_keys(lo, BLOOM_BATCH, seed))
+               for lo in range(0, BLOOM_KEYS, BLOOM_BATCH))
+    count = f.count()
+    launches = all_launches()
+    cells = export_cells(c, "pod:bloom")
+    if (f.get_size(), f.get_hash_iterations()) != (BLOOM_M, BLOOM_K):
+        raise AssertionError("phase 23: the pod filter's geometry differs")
+    if not np.array_equal(cells, ref_cells) or not np.array_equal(added, ref_added):
+        raise AssertionError("phase 23: the pod Bloom's cells or added flags differ "
+                             "from a single-card filter's")
+    expect("phase 23 added keys contained", hits, BLOOM_KEYS)
+    want = int(round(bloom_math.count_estimate(int(np.count_nonzero(ref_cells)),
+                                               BLOOM_M, BLOOM_K)))
+    expect("phase 23 pod Bloom count()", count, want)
+    for k in ("bits_insert_segmented", "popcount_partials"):
+        if not launches[k]:
+            raise AssertionError(f"phase 23 bloom never launched {k}: {launches}")
+    pd_metric(card, f"Bloom adds/s ({BLOOM_KEYS} keys over {PD_SHARDS} shards)",
+              BLOOM_KEYS / fill_s)
+    log(f"  pod bloom: cells and flags equal a single-card filter's; all {BLOOM_KEYS} "
+        f"contained; count() {count}")
+    c.delete("pod:bloom")
+    return {"launches": launches, "adds_per_s": BLOOM_KEYS / fill_s}
+
+
+def pd_bits(c, seed: int, card: str) -> dict:
+    """Step 3: one 2^32-bit BitSet (4 GiB of cells, 2^30 per shard): SETBIT
+    at each shard's first and last cell (2^32 - 1 among them) with GET of
+    the old values, LENGTH 2^32, set_range(0, 2^31 + 2^20) inclusive and a
+    BITCOUNT past 2^31 equal to the host's exact count; then BITOP OR and
+    AND of two 2^27-bit days against numpy."""
+    per = PD_BIG_BITS // PD_SHARDS
+    edges = sorted({b for i in range(PD_SHARDS) for b in (i * per, (i + 1) * per - 1)})
+    reset_all_launches()
+    t = time.perf_counter()
+    big = c.get_bit_set("pod:big")
+    old = big.set_bits(edges)
+    again = big.set_bits(edges)
+    if old.any() or not again.all() or not big.get_bits(edges).all():
+        raise AssertionError("phase 23: SETBIT old values at the shard edges are wrong")
+    expect("phase 23 LENGTH of the 2^32-bit BitSet", big.length(), PD_BIG_BITS)
+    big.set_range(0, PD_RANGE_LAST + 1)
+    total = big.cardinality()
+    want = PD_RANGE_LAST + 1 + sum(1 for e in edges if e > PD_RANGE_LAST)
+    expect("phase 23 BITCOUNT past 2^31 (int64 combine)", total, want)
+    expect("phase 23 LENGTH after the range", big.length(), PD_BIG_BITS)
+    big_s = time.perf_counter() - t
+    c.delete("pod:big")
+    days = day_ids(seed)[:2]
+    t = time.perf_counter()
+    for d, ids in enumerate(days):
+        c.get_bit_set(f"pod:day{d}").set_bits(ids)
+    por = c.get_bit_set("pod:or")
+    por.or_("pod:day0", "pod:day1")
+    pand = c.get_bit_set("pod:and")
+    pand.or_("pod:day0")
+    pand.and_("pod:day1")
+    day_s = time.perf_counter() - t
+    want_days = [np.zeros(DAY_BITS, np.uint8) for _ in days]
+    for w, ids in zip(want_days, days):
+        w[ids] = 1
+    for name, w in (("pod:or", want_days[0] | want_days[1]),
+                    ("pod:and", want_days[0] & want_days[1])):
+        got = export_cells(c, name)
+        if not np.array_equal(got[:DAY_BITS], w) or got[DAY_BITS:].any():
+            raise AssertionError(f"phase 23: {name} differs from numpy")
+        expect(f"phase 23 BITCOUNT of {name}", c.get_bit_set(name).cardinality(),
+               int(w.sum()))
+    launches = all_launches()
+    for k in ("popcount_partials", "bitop_cells"):
+        if not launches[k]:
+            raise AssertionError(f"phase 23 bits never launched {k}: {launches}")
+    pd_metric(card, "2^32-bit BitSet seconds (edges, LENGTH, 2^31-cell range, "
+              "BITCOUNT)", big_s)
+    pd_metric(card, f"two {DAY_BITS}-bit days, BITOP OR and AND seconds", day_s)
+    log(f"  pod bits: BITCOUNT {total} of the 2^32-bit BitSet equals the host's "
+        f"count, LENGTH 2^32; BITOP OR / AND of two days equal numpy")
+    return {"launches": launches}
+
+
+def pd_plane(cfg, data, card: str):
+    """One data plane through phase 20's keys and layout: the RBatch of
+    1024 + 64 {t} sketches, PD_PLANE_COUNTS PFCOUNTs (a cut of depth:
+    every sketch's registers are compared), a PFMERGE over 1000 and its
+    count, a cross-shard merge+count, the {t} countWith -> (the facade,
+    results, registers by name)."""
+    from redisson_tpu_torch.client import RedissonTorch
+
+    names, batches, tags, tag_batches = data
+    c = RedissonTorch.create(cfg)
+    try:
+        t = time.perf_counter()
+        b = c.create_batch()
+        for n, keys in zip(names + tags, batches + tag_batches):
+            b.get_hyper_log_log(n).add_ints_async(keys)
+        res = {"added": list(b.execute())}
+        res["batch_s"] = time.perf_counter() - t
+        res["counts"] = pd_counts(c, names[:PD_PLANE_COUNTS])
+        t = time.perf_counter()
+        c.get_hyper_log_log("union:cl").merge_with(*names[:MERGE_N])
+        res["merge_ms"] = (time.perf_counter() - t) * 1e3
+        res["merged"] = c.get_hyper_log_log("union:cl").count()
+        res["merge_count"] = c.get_hyper_log_log("union:mc").merge_with_and_count(
+            *names[MERGE_N:])
+        res["tag_count"] = c.get_hyper_log_log(tags[0]).count_with(*tags[1:])
+        regs = {n: c._dispatch.execute_sync(n, "hll_export", None)[0]
+                for n in names + tags + ["union:cl", "union:mc"]}
+    except BaseException:
+        c.shutdown()
+        raise
+    return c, res, regs
+
+
+def pd_free_rows(backend, shard: int) -> int:
+    """Rows of `shard`'s preferred block that no sketch holds."""
+    lo, hi = backend._sharded_bank.block(shard, backend._alloc.capacity)
+    used = sum(1 for r in backend._alloc.rows.values() if lo <= r < hi)
+    return hi - lo - used
+
+
+def pd_mesh_migrate(c, data, seed: int, card: str) -> dict:
+    """Step 4, last: shard 0's whole slot range migrates live to the shard
+    whose preferred row block has the most free rows (so the relocation
+    has room: a full block leaves rows in place, a placement hint) under
+    two writers PFADDing into its sketches; every acknowledged PFADD
+    present (a `sort` client fed the base keys and exactly the acknowledged
+    batches), no future lost, rows relocated into the target's block on
+    the card."""
+    import threading
+
+    from redisson_tpu_torch.client import RedissonTorch
+    from redisson_tpu_torch.ops.crc16 import key_slot
+
+    names, batches = data[0], data[1]
+    mgr = c.cluster
+    backend = mgr.mesh_client._routing.sketch
+    table = mgr.router.slot_table()
+    src_slots = [s for s in range(16384) if table[s] == 0]
+    hot = [n for n in names if table[key_slot(n)] == 0]
+    free = {sid: pd_free_rows(backend, sid) for sid in range(1, PD_SHARDS)}
+    target = max(free, key=free.get)
+    lo, hi = backend._sharded_bank.block(target, backend._alloc.capacity)
+    # Every sketch of the moving slots (the {t} and union rows too) whose
+    # row lies outside the target's block; the writers make no new rows.
+    movable = [n for n, r in backend._alloc.rows.items()
+               if table[key_slot(n)] == 0 and not lo <= r < hi]
+    acked, errors, done = [], [], threading.Event()
+    start = threading.Barrier(3)
+
+    def writer(w: int) -> None:
+        start.wait(PD_WAIT_S)
+        for i in range(CL_WRITE_MAX):
+            if done.is_set() and i >= CL_WRITE_MIN:
+                return
+            name = hot[(w * 7 + i) % len(hot)]
+            keys = keys_for((1 << 50) + (w * CL_WRITE_MAX + i) * CL_WRITE_KEYS,
+                            CL_WRITE_KEYS, seed)
+            try:
+                c.get_hyper_log_log(name).add_ints(keys)
+                acked.append((name, keys))
+            except Exception as exc:  # noqa: BLE001 — a lost future fails below
+                errors.append(repr(exc))
+
+    threads = [threading.Thread(target=writer, args=(w,), daemon=True) for w in range(2)]
+    for t in threads:
+        t.start()
+    start.wait(PD_WAIT_S)
+    t0 = time.perf_counter()
+    try:
+        stats = mgr.migrate_slots(src_slots, target, timeout_s=PD_WAIT_S)
+    finally:
+        done.set()
+    migrate_s = time.perf_counter() - t0
+    for t in threads:
+        t.join(PD_WAIT_S)
+    if any(t.is_alive() for t in threads) or errors:
+        raise AssertionError(f"phase 23: a writer's PFADD failed or hung: {errors[:3]}")
+    post = mgr.router.slot_table()
+    if any(post[s] != target for s in src_slots):
+        raise AssertionError(f"phase 23: a migrated slot is not owned by shard {target}")
+    placed = sum(1 for n in movable if lo <= backend._alloc.rows[n] < hi)
+    expect("phase 23 rows relocated into the target's block",
+           stats["bank_rows_relocated"], min(len(movable), free[target]))
+    if placed < stats["bank_rows_relocated"]:
+        raise AssertionError(f"phase 23: {placed} of the migrated rows lie in shard "
+                             f"{target}'s block")
+    ref = RedissonTorch.create(card_config("sort"))
+    try:
+        base = dict(zip(names, batches))
+        futs = [ref.get_hyper_log_log(n).add_ints_async(base[n]) for n in hot]
+        futs += [ref.get_hyper_log_log(n).add_ints_async(k) for n, k in acked]
+        [f.result() for f in futs]
+        bank, rows = ref.to_numpy_state()
+    finally:
+        ref.shutdown()
+    got = {n: c._dispatch.execute_sync(n, "hll_export", None)[0] for n in hot}
+    bad = [n for n in hot if not np.array_equal(got[n], bank[rows[n]])]
+    if bad:
+        raise AssertionError(f"phase 23: {len(bad)} migrated sketches lost an "
+                             f"acknowledged PFADD, e.g. {bad[:3]}")
+    pd_metric(card, "mesh migration of shard 0's range seconds", migrate_s)
+    pd_metric(card, "mesh migration stats", json.dumps(stats))
+    pd_metric(card, f"PFADDs acknowledged during it (2 writers, {CL_WRITE_KEYS} keys)",
+              len(acked))
+    log(f"  mesh migration: {len(src_slots)} slots ({len(hot)} sketches) shard 0 -> "
+        f"{target} (free rows by block {free}) under 2 writers, {len(acked)} "
+        f"acknowledged PFADDs all present; {stats['bank_rows_relocated']} rows "
+        "relocated into its block on the card")
+    return {"migrate_s": migrate_s, "acked": len(acked), "stats": stats}
+
+
+def pd_mesh(seed: int, card: str) -> dict:
+    """Step 4: `use_cluster(num_shards=4, data_plane="mesh")` with phase
+    20's keys and layout against the stacks plane on the same sequence
+    (results and registers equal, as the JAX package's mode-parity test
+    holds them); collective_merges > 0; mesh_occupancy() the live sketch
+    count; then the live migration."""
+    import shutil
+
+    from redisson_tpu_torch.config import Config
+
+    data = cl_data(seed)
+
+    def plane_config(plane: str):
+        cfg = Config()
+        cfg.use_cuda(ingest="segment")
+        cfg.use_cluster(num_shards=PD_SHARDS, dir=os.path.join(PD_DIR, plane),
+                        data_plane=plane)
+        return cfg
+
+    shutil.rmtree(PD_DIR, ignore_errors=True)
+    stacks, s_res, s_regs = pd_plane(plane_config("stacks"), data, card)
+    stacks.shutdown()
+    reset_all_launches()
+    mesh, m_res, m_regs = pd_plane(plane_config("mesh"), data, card)
+    try:
+        launches = all_launches()
+        for k in ("added", "counts", "merged", "merge_count", "tag_count"):
+            if m_res[k] != s_res[k]:
+                raise AssertionError(f"phase 23: the mesh plane's {k} differs from the "
+                                     "stacks plane's")
+        bad = [n for n in s_regs if not np.array_equal(m_regs[n], s_regs[n])]
+        if bad:
+            raise AssertionError(f"phase 23: {len(bad)} mesh registers differ from the "
+                                 f"stacks plane's, e.g. {bad[:3]}")
+        mc = mesh.cluster.mesh_client
+        be = mc._routing.sketch
+        if be.counters["collective_merges"] < 1:
+            raise AssertionError("phase 23: no merge took the mesh collective")
+        bank, rows = mc.to_numpy_state()
+        live = sum(1 for r in rows.values() if bank[r].any())
+        expect("phase 23 mesh_occupancy()", be.mesh_occupancy(), live)
+        expect("phase 23 live sketches", live, len(s_regs))
+        if be.mesh.size != PD_SHARDS or not on_card(mc):
+            raise AssertionError("phase 23: the mesh bank is not 4 shards on the card")
+        if not launches["merge_stack"]:
+            raise AssertionError(f"phase 23 mesh never launched merge_stack: {launches}")
+        info = mesh.cluster_info()
+        pd_metric(card, "mesh RBatch seconds, stacks RBatch seconds",
+                  f"{m_res['batch_s']} {s_res['batch_s']}")
+        pd_metric(card, f"PFMERGE over {MERGE_N} ms: mesh collective, stacks host fold",
+                  f"{m_res['merge_ms']} {s_res['merge_ms']}")
+        pd_metric(card, "collective_merges, multi_shard_windows, cross_shard_merges",
+                  f"{info['collective_merges']} {info['multi_shard_windows']} "
+                  f"{info['cross_shard_merges']}")
+        log(f"  mesh plane: {len(s_regs)} sketches' results and registers equal the "
+            f"stacks plane's; occupancy {live}")
+        migration = pd_mesh_migrate(mesh, data, seed, card)
+        launches = all_launches()
+    finally:
+        mesh.shutdown()
+        shutil.rmtree(PD_DIR, ignore_errors=True)
+    return {"launches": launches, "migration": migration,
+            "merge_ms": m_res["merge_ms"]}
+
+
+def pod_path(seed: int, card: str, ref, ref_bloom) -> dict:
+    """Phase 23: the pod tier (use_pod, 4 logical shards on cuda:0) and the
+    mesh data plane; each step resets the launch counters just before it
+    and reads them just after."""
+    from redisson_tpu_torch.client import RedissonTorch
+    from redisson_tpu_torch.config import Config
+
+    t_phase = time.perf_counter()
+    log(f"phase 23 on {card}:")
+    cfg = Config()
+    cfg.use_pod(num_shards=PD_SHARDS, bank_capacity=SKETCHES)
+    c = RedissonTorch.create(cfg)
+    out, steps = {}, {}
+    try:
+        for name, fn in (("hll", lambda: pd_hll(c, ref, seed, card)),
+                         ("bloom", lambda: pd_bloom(c, ref_bloom, seed, card)),
+                         ("bits", lambda: pd_bits(c, seed, card))):
+            t = time.perf_counter()
+            out[name] = fn()
+            steps[name] = round(time.perf_counter() - t, 3)
+    finally:
+        c.shutdown()
+    t = time.perf_counter()
+    out["mesh"] = pd_mesh(seed, card)
+    steps["mesh"] = round(time.perf_counter() - t, 3)
+    pod_l = {}
+    for step in ("hll", "bloom", "bits"):
+        pod_l = add_launches(pod_l, out[step]["launches"])
+    missing = [k for k in ("seg_insert", "merge_stack", "bits_insert_segmented",
+                           "popcount_partials", "bitop_cells") if not pod_l[k]]
+    if missing:
+        raise AssertionError(f"phase 23 never launched {missing}: {pod_l}")
+    out["launches"] = add_launches(pod_l, out["mesh"]["launches"])
+    out["wall_s"] = time.perf_counter() - t_phase
+    pd_metric(card, "seconds by step", json.dumps(steps))
+    pd_metric(card, "kernel launches", json.dumps(out["launches"]))
+    pd_metric(card, "wall seconds", out["wall_s"])
+    return out
+
+
+def scatter_bloom(seed: int):
+    """(cells, added) of the Bloom path's 10M adds on a single-card
+    `scatter` client: phase 7's reference, made when phase 23 runs alone."""
+    from redisson_tpu_torch.client import RedissonTorch
+
+    ref = RedissonTorch.create(card_config("scatter"))
+    try:
+        _, added = bloom_fill(ref, "bloom", seed)
+        return export_cells(ref, "bloom"), added
+    finally:
+        ref.shutdown()
+
+
+# -- phase 24: the passthrough mode --------------------------------------------
+
+
+def pt_metric(card: str, what: str, value) -> None:
+    """One phase-24 number on its own line, beside the card it ran on."""
+    log(f"[{card}] phase 24 {what}: {value}")
+
+
+def pt_keys(i: int, seed: int) -> np.ndarray:
+    return keys_for(i * PT_STRIDE, PT_KEYS, seed)
+
+
+def pt_card_reference(seed: int):
+    """A redis-family card client fed the phase's keys: (registers of the
+    256 sketches, Bloom cells, contains of the probes, count()), made before
+    the passthrough client's window."""
+    from redisson_tpu_torch.client import RedissonTorch
+    from redisson_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.use_cuda(hll_hash="redis", ingest="segment")
+    c = RedissonTorch.create(cfg)
+    try:
+        names = [f"pt:{i}" for i in range(PT_SKETCHES)]
+        futs = [c.get_hyper_log_log(n).add_ints_async(pt_keys(i, seed))
+                for i, n in enumerate(names)]
+        [f.result() for f in futs]
+        regs = rd_rows(c, names)
+        bf = c.get_bloom_filter("pt:bloom")
+        bf.try_init(PT_BLOOM_N, PT_BLOOM_P)
+        bf.add_ints(bloom_keys(0, PT_BLOOM_N, seed))
+        probes = np.concatenate([bloom_keys(0, PT_PROBES, seed),
+                                 bloom_keys(1 << 40, PT_PROBES, seed)])
+        hits = bf.contains_ints(probes)
+        return regs, export_cells(c, "pt:bloom"), probes, hits, bf.count()
+    finally:
+        c.shutdown()
+
+
+def pt_structures(c) -> dict:
+    """One round of the structures and coordination objects, each answer
+    checked -> seconds per object."""
+    import threading
+
+    secs = {}
+
+    def step(name, fn):
+        t = time.perf_counter()
+        fn()
+        secs[name] = round(time.perf_counter() - t, 4)
+
+    def rmap():
+        m = c.get_map("pt:map")
+        m.put_all({f"k{i}": i for i in range(100)})
+        expect("phase 24 RMap get", m.get("k42"), 42)
+        expect("phase 24 RMap size", m.size(), 100)
+
+    def rqueue():
+        q = c.get_blocking_queue("pt:queue")
+        got = []
+        t = threading.Thread(target=lambda: got.append(q.poll(timeout_s=PT_WAIT_S)))
+        t.start()
+        time.sleep(0.05)
+        q.offer("item")
+        t.join(PT_WAIT_S)
+        expect("phase 24 RQueue blocking pop", got, ["item"])
+
+    def locks():
+        lk = c.get_lock("pt:lock")
+        lk.lock()
+        if not lk.is_locked():
+            raise AssertionError("phase 24: RLock not held after lock()")
+        lk.unlock()
+        fl = c.get_fair_lock("pt:fair")
+        if not fl.try_lock(1.0):
+            raise AssertionError("phase 24: the fair lock was not acquired")
+        fl.unlock()
+        rw = c.get_read_write_lock("pt:rw")
+        rw.read_lock().lock()
+        rw.read_lock().unlock()
+        rw.write_lock().lock()
+        rw.write_lock().unlock()
+
+    def semaphore_latch():
+        s = c.get_semaphore("pt:sem")
+        s.try_set_permits(2)
+        if not (s.try_acquire() and s.try_acquire()) or s.try_acquire():
+            raise AssertionError("phase 24: the semaphore handed out a wrong permit count")
+        s.release()
+        latch = c.get_count_down_latch("pt:latch")
+        latch.try_set_count(1)
+        latch.count_down()
+        if not latch.await_(PT_WAIT_S):
+            raise AssertionError("phase 24: the latch did not open")
+
+    def topic():
+        got, ev = [], threading.Event()
+        tp = c.get_topic("pt:topic")
+        tp.add_listener(lambda _ch, msg: (got.append(msg), ev.set()))
+        tp.publish("hello")
+        if not ev.wait(PT_WAIT_S) or got != ["hello"]:
+            raise AssertionError(f"phase 24: the topic delivered {got}")
+
+    def map_cache():
+        mc = c.get_map_cache("pt:cache")
+        mc.put("short", 1, ttl_s=0.2)
+        mc.put("long", 2)
+        time.sleep(0.3)
+        mc.evict_expired()
+        expect("phase 24 map cache after the TTL sweep",
+               (mc.get("short"), mc.get("long")), (None, 2))
+
+    def script():
+        expect("phase 24 script", c.get_script().eval("return 6 * 7"), 42)
+
+    for name, fn in (("map", rmap), ("blocking queue", rqueue), ("locks", locks),
+                     ("semaphore and latch", semaphore_latch), ("topic", topic),
+                     ("map cache", map_cache), ("script", script)):
+        step(name, fn)
+    return secs
+
+
+def passthrough_path(seed: int, card: str) -> dict:
+    """Phase 24: a config whose only section is redis against the port's
+    EmbeddedRedis (redis's own HLL hash) in this process. Cuts, from
+    BASELINE config 3 and phase 7: 4,000 keys per sketch (phase 20's wire
+    cut: every key crosses the socket as a bulk string) and 100,000 Bloom
+    adds (each a Lua-guarded SETBIT walk on the server, which is pure
+    Python in one process). The mode holds nothing on the card:
+    torch.cuda.memory_allocated() is the same before the client is made
+    and after it shuts down."""
+    import gc
+
+    import torch
+
+    from redisson_tpu_torch.client import RedissonTorch
+    from redisson_tpu_torch.config import Config
+    from redisson_tpu_torch.interop import hyll
+    from redisson_tpu_torch.interop.fake_server import EmbeddedRedis
+    from redisson_tpu_torch.interop.resp_client import SyncRespClient
+
+    t_phase = time.perf_counter()
+    log(f"phase 24 on {card}:")
+    regs, cells, probes, ref_hits, ref_count = pt_card_reference(seed)
+    names = [f"pt:{i}" for i in range(PT_SKETCHES)]
+    out = {}
+    er = EmbeddedRedis(hll_hash="redis")
+    rc = SyncRespClient(port=er.port, timeout=PT_TIMEOUT_MS / 1000.0)
+    try:
+        rc.connect()
+        # The reference client's tensors may wait in reference cycles: free
+        # them first, so the gate sees only the passthrough client.
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        cfg = Config()
+        r = cfg.use_redis()
+        r.address = f"redis://127.0.0.1:{er.port}"
+        r.timeout_ms = PT_TIMEOUT_MS
+        c = RedissonTorch.create(cfg)
+        try:
+            if c.device is not None or c._store is not None:
+                raise AssertionError("phase 24: the passthrough client holds a device")
+            t = time.perf_counter()
+            futs = [c.get_hyper_log_log(n).add_ints_async(pt_keys(i, seed))
+                    for i, n in enumerate(names)]
+            if not all(f.result() for f in futs):
+                raise AssertionError("phase 24: a first PFADD reported no change")
+            out["pfadd_s"] = time.perf_counter() - t
+            counts = [c.get_hyper_log_log(n).count() for n in names]
+            for i, (n, got) in enumerate(zip(names, counts)):
+                if not np.array_equal(hyll.decode(rc.execute("GET", n)), regs[i]):
+                    raise AssertionError(f"phase 24: the server's registers of {n} are "
+                                         "not the card client's")
+                want = int(round(hyll.estimate(regs[i])))
+                if got != want:
+                    raise AssertionError(f"phase 24: PFCOUNT of {n} is {got}, the "
+                                         f"server fold of the card's registers {want}")
+            bf = c.get_bloom_filter("pt:bloom")
+            if not bf.try_init(PT_BLOOM_N, PT_BLOOM_P):
+                raise AssertionError("phase 24: try_init of a fresh filter returned False")
+            t = time.perf_counter()
+            bf.add_ints(bloom_keys(0, PT_BLOOM_N, seed))
+            out["bloom_add_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            hits = bf.contains_ints(probes)
+            out["contains_s"] = time.perf_counter() - t
+            if not np.array_equal(hits, ref_hits):
+                raise AssertionError("phase 24: Bloom contains differ from the card's")
+            expect("phase 24 Bloom count()", bf.count(), ref_count)
+            blob = bytes(rc.execute("GET", "pt:bloom"))
+            packed = np.packbits(cells).tobytes()
+            if blob.rstrip(b"\0") != packed.rstrip(b"\0"):
+                raise AssertionError("phase 24: the server's Bloom string is not the "
+                                     "card's cells")
+            out["structures"] = pt_structures(c)
+        finally:
+            c.shutdown()
+        gc.collect()
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        expect("phase 24 card memory across the passthrough client's life", after, before)
+    finally:
+        rc.close()
+        er.stop()
+    out["wall_s"] = time.perf_counter() - t_phase
+    pt_metric(card, f"server-side PFADD keys/s ({PT_SKETCHES} x {PT_KEYS})",
+              PT_SKETCHES * PT_KEYS / out["pfadd_s"])
+    pt_metric(card, f"Bloom adds/s ({PT_BLOOM_N}, Lua on the pure-Python server), "
+              f"contains of {2 * PT_PROBES} seconds",
+              f"{PT_BLOOM_N / out['bloom_add_s']} {out['contains_s']}")
+    pt_metric(card, "structures and coordination seconds", json.dumps(out["structures"]))
+    pt_metric(card, "card memory allocated before and after (bytes)", f"{before} {after}")
+    pt_metric(card, "wall seconds", out["wall_s"])
+    log(f"  passthrough: {PT_SKETCHES} server-side PFCOUNTs equal the card's fold, the "
+        f"Bloom's contains and count equal the card's; nothing allocated on the card")
+    return out
+
+
 def merge_pair(tree: str, seed: int) -> int:
     """The client's merge call (`engine._merged_rows`: a numpy row list of
     257 and 1001 bank rows, as the backend passes it) and merge_stack over a
@@ -5296,6 +6030,9 @@ def phase_table(seed: int, card: str, deferred: list, out: dict) -> dict:
         "cluster": lambda: cluster_path(seed, card),
         "geo": lambda: geo_path(seed, card, out["hll path"][1]),
         "redis": lambda: redis_path(seed, card),
+        "pod": lambda: pod_path(seed, card, out["hll path"][1],
+                                out["bloom path"][1]),
+        "passthrough": lambda: passthrough_path(seed, card),
     }
 
 
@@ -5325,8 +6062,10 @@ def run_phase(name: str, seed: int, card: str, phases: dict, out: dict) -> int:
         print(f"chip_smoke: no phase {name!r}; phases: {', '.join(phases)}",
               file=sys.stderr)
         return 2
-    if name in ("serve", "geo"):
+    if name in ("serve", "geo", "pod"):
         out["hll path"] = (None, sort_reference(seed))
+    if name == "pod":
+        out["bloom path"] = (None, scatter_bloom(seed))
     for dep in PHASE_NEEDS.get(name, ()):
         out[dep] = phases[dep]()
     t = time.perf_counter()
@@ -5343,7 +6082,7 @@ def run_phase(name: str, seed: int, card: str, phases: dict, out: dict) -> int:
         log(f"phase replica launches: {json.dumps(out[name]['launches'])}")
     if name == "cluster":
         log(f"phase cluster launches: {json.dumps(out[name]['launches'])}")
-    if name in ("geo", "redis"):
+    if name in ("geo", "redis", "pod"):
         log(f"phase {name} launches: {json.dumps(out[name]['launches'])}")
     if "batch path" in out:
         out["batch path"][1].shutdown()
@@ -5448,13 +6187,16 @@ def main() -> int:
     geo_l = out["geo"]["launches"]
     # Phase 22: the durability tier's fill, reads and reload.
     rd_l = out["redis"]["launches"]
+    # Phase 23: the pod tier's per-shard launches and the mesh plane's.
+    pd_l = out["pod"]["launches"]
     launches = add_launches(add_launches(out["hll path"][0], out["batch path"][0]),
                             add_launches(add_launches(dur_l, serve_l),
                                          add_launches(rep_l, cl_l)))
-    launches = add_launches(add_launches(launches, geo_l), rd_l)
+    launches = add_launches(add_launches(add_launches(launches, geo_l), rd_l), pd_l)
     bloom_l, bitset_l = out["bloom path"][0], out["bitset path"]
     delta_l = [out[p] for p in ("delta hll path", "delta bloom path",
-                                "delta bitset path", "mixed tape window")] + [dur_l, geo_l]
+                                "delta bitset path", "mixed tape window")] + [dur_l, geo_l,
+                                                                           pd_l]
 
     no_jax_loaded()
 
@@ -5473,19 +6215,21 @@ def main() -> int:
                        + rep_l["bits_insert_segmented"]
                        + cl_l["bits_insert_segmented"]
                        + geo_l["bits_insert_segmented"]
-                       + rd_l["bits_insert_segmented"]),
+                       + rd_l["bits_insert_segmented"]
+                       + pd_l["bits_insert_segmented"]),
              **bseg),
         dict(name="popcount_partials", route="cuda", source=src + "popcount.cu",
              replaces="redisson_tpu/ops/pallas_kernels.py:172",
              launches=(bloom_l["popcount_partials"] + bitset_l["popcount_partials"]
                        + dur_l["popcount_partials"] + serve_l["popcount_partials"]
                        + rep_l["popcount_partials"] + cl_l["popcount_partials"]
-                       + geo_l["popcount_partials"] + rd_l["popcount_partials"]),
+                       + geo_l["popcount_partials"] + rd_l["popcount_partials"]
+                       + pd_l["popcount_partials"]),
              **pop),
         dict(name="bitop_cells", route="cuda", source=src + "bitop.cu",
              replaces="redisson_tpu/ops/pallas_kernels.py:223",
              launches=(bitset_l["bitop_cells"] + dur_l["bitop_cells"]
-                       + cl_l["bitop_cells"]), **bop),
+                       + cl_l["bitop_cells"] + pd_l["bitop_cells"]), **bop),
         dict(name="delta_merge", route="cuda", source=src + "delta_merge.cu",
              replaces="redisson_tpu/ops/pallas_kernels.py:116",
              launches=sum(d["delta_merge"] for d in delta_l), **dmerge),

@@ -26,8 +26,14 @@ steal group: its groups skip the planner and retire through the same
 `delta_merge` launches as local writes, never through a tape window
 (`_geo_fold_group`); `_op_geo_merge` is the classic fallback (counted in
 `geo_classic`), and `_op_geo_replace` / `_op_geo_delete` /
-`_op_geo_flush` install the applier's LWW decisions. The mesh
-collectives arrive with their slice.
+`_op_geo_flush` install the applier's LWW decisions.
+
+Mesh data plane (cluster `data_plane="mesh"`): `attach_mesh` puts the
+still-lazy bank onto a logical mesh (`parallel/mesh.ShardedBank`): rows
+are allocated in the owning logical shard's preferred row block, PFMERGE /
+countWith / the fused merge+count run as the engine's mesh collectives
+(per-shard merge_stack folds, a max across shards), and the tape stamps
+each entry's logical shard in its shard column.
 """
 
 from __future__ import annotations
@@ -289,10 +295,15 @@ class RowAllocator:
         self.capacity = capacity
         self._grow = grow
 
-    def row_of(self, name: str) -> int:
+    def row_of(self, name: str, prefer=None) -> int:
         row = self.rows.get(name)
         if row is not None:
             return row
+        if prefer is not None:
+            row = self.claim_range(*prefer)
+            if row is not None:
+                self.rows[name] = row
+                return row
         if self.free:
             row = self.free.pop()
         else:
@@ -302,6 +313,25 @@ class RowAllocator:
             self.next += 1
         self.rows[name] = row
         return row
+
+    def claim_range(self, lo: int, hi: int) -> Optional[int]:
+        """Allocate a free row inside [lo, hi), or None when the range is
+        full (mesh plane row placement: a shard's preferred row block;
+        callers fall back to allocation anywhere on None)."""
+        for i, r in enumerate(self.free):
+            if lo <= r < hi:
+                return self.free.pop(i)
+        if lo <= self.next < hi:
+            row = self.next
+            self.next += 1
+            return row
+        if self.next < lo <= hi - 1 and hi <= self.capacity:
+            # Skip the watermark forward into the block; the skipped rows
+            # stay allocatable through the free list.
+            self.free.extend(range(self.next, lo))
+            self.next = lo + 1
+            return lo
+        return None
 
     def release(self, name: str) -> Optional[int]:
         """Free the name's row for reuse; returns it (None if absent)."""
@@ -531,11 +561,18 @@ class TorchBackend:
             "delta_scratch_bytes": 0,  # in-flight delta plane bytes (meter)
             "geo_planes": 0,      # remote site planes through delta_merge
             "geo_classic": 0,     # remote planes absorbed by the fallback
+            "collective_merges": 0,    # PFMERGE / count runs via mesh collectives
+            "multi_shard_windows": 0,  # tape windows spanning > 1 shard
         }
         self._scratch_lock = threading.Lock()
         # memstat ledger (MemLedger-shaped) or None: the bank's size is
         # reported on every creation, growth, install and flushall.
         self.accounting = None
+        # Mesh data plane: attach_mesh installs the ShardedBank geometry
+        # before the lazy bank exists; None in every other mode.
+        self.mesh = None
+        self._sharded_bank = None
+        self._shard_of = None
 
     # row-map views
     @property
@@ -550,27 +587,118 @@ class TorchBackend:
     def bank_capacity(self) -> int:
         return self._alloc.capacity
 
+    def attach_mesh(self, mesh, num_shards: int, shard_of=None) -> None:
+        """Put the (still lazy) HLL bank onto a logical mesh: its row
+        blocks are the mesh entries' shards, and each logical shard has a
+        preferred row block so its sketches stay in one entry's rows.
+        `shard_of` maps a target name to its logical shard (the tape's
+        shard column, the per-shard memstat attribution). Must be called
+        before the first bank-touching op (the client wires it right after
+        construction, before the executor starts)."""
+        from redisson_tpu_torch.parallel.mesh import ShardedBank
+
+        if self.bank is not None:
+            raise RuntimeError("attach_mesh: bank already materialized")
+        sb = ShardedBank(mesh, self._alloc.capacity, num_shards)
+        if mesh.device != self.device:
+            raise ValueError(f"attach_mesh: mesh on {mesh.device}, backend on "
+                             f"{self.device}")
+        self.mesh = mesh
+        self._sharded_bank = sb
+        self._shard_of = shard_of
+        self._alloc.capacity = sb.capacity
+
+    def _put(self, arr: np.ndarray) -> torch.Tensor:
+        """A bank-kernel operand on the device: replicated across the mesh
+        in mesh mode (every shard reads it in place), else on the store's
+        device."""
+        if self._sharded_bank is not None:
+            return self._sharded_bank.replicate(np.ascontiguousarray(arr))
+        return self._to_device(arr)
+
+    def mesh_relocate(self, names, target_shard: int) -> int:
+        """Device-side bank-row relocation for mesh-mode slot migration:
+        move each name's registers into the adopting shard's preferred row
+        block (copy row, zero the old one, remap the allocator). Runs on
+        the dispatcher (executor.execute_barrier): the caller's journaled
+        flip fence orders it against in-flight windows. A full target block
+        leaves rows in place (placement is a hint; the collectives select
+        by row index, so results are unchanged). Returns rows moved."""
+        sb = self._sharded_bank
+        if sb is None or self.bank is None:
+            return 0
+        lo, hi = sb.block(int(target_shard), self._alloc.capacity)
+        moved = 0
+        for name in names:
+            row = self._alloc.rows.get(name)
+            if row is None or lo <= row < hi:
+                continue
+            new = self._alloc.claim_range(lo, hi)
+            if new is None:
+                break
+            self.bank[new] = self.bank[row]
+            self.bank = engine.hll_bank_zero_row(self.bank, row)
+            self._alloc.rows[name] = new
+            self._alloc.free.append(row)
+            self._bump(name)
+            moved += 1
+        if moved:
+            self._account_bank()
+        return moved
+
+    def mesh_occupancy(self) -> int:
+        """Mesh-wide non-empty bank row count (the DBSIZE analogue for the
+        sharded bank); 0 off-mesh or before the bank exists."""
+        if self.mesh is None or self.bank is None:
+            return 0
+        return int(engine.hll_bank_occupancy_collective(self.bank,
+                                                         mesh=self.mesh))
+
     def _grow_bank(self, new_cap: int) -> int:
-        """RowAllocator grow hook: reallocate the bank at `new_cap` rows."""
+        """RowAllocator grow hook: reallocate the bank at `new_cap` rows
+        (rounded to a multiple of the mesh size in mesh mode)."""
+        sb = self._sharded_bank
+        if sb is not None:
+            new_cap = sb.round_capacity(new_cap)
+            sb.capacity = new_cap
         self.bank = engine.hll_bank_grow(self._ensure_bank(), new_cap)
         self._account_bank()
         return new_cap
 
     def _ensure_bank(self) -> torch.Tensor:
         if self.bank is None:
-            self.bank = engine.hll_bank_make(self.bank_capacity,
-                                             device=self.device)
+            sb = self._sharded_bank
+            if sb is not None:
+                self.bank = sb.place(engine.hll_bank_make(sb.capacity,
+                                                          device=self.device))
+            else:
+                self.bank = engine.hll_bank_make(self.bank_capacity,
+                                                 device=self.device)
             self._account_bank()
         return self.bank
 
     def _account_bank(self) -> None:
         """Report the bank's bytes to the memstat ledger. Rows are written
-        in place, so only creation, growth, an installed bank and flushall
-        change them, and each of those calls here."""
+        in place, so only creation, growth, an installed bank, a mesh row
+        relocation and flushall change them, and each of those calls here.
+        In mesh mode the bank is reported per logical shard: each allocated
+        row's bytes go to the shard owning its name, so memory_stats()
+        rollups stay exact per shard."""
         acct = self.accounting
-        if acct is not None:
-            acct.set_bank_bytes(int(self.bank.nbytes)
-                                if self.bank is not None else 0)
+        if acct is None:
+            return
+        nbytes = int(self.bank.nbytes) if self.bank is not None else 0
+        if self._sharded_bank is None:
+            acct.set_bank_bytes(nbytes)
+            return
+        row_bytes = nbytes // max(self._alloc.capacity, 1) if nbytes else 0
+        shard_of = self._shard_of
+        by_shard: dict = {}
+        for name in self._alloc.rows:
+            shard = int(shard_of(name)) if shard_of is not None else 0
+            by_shard[shard] = by_shard.get(shard, 0) + row_bytes
+        acct.set_bank_shard_bytes(
+            by_shard, unassigned=nbytes - row_bytes * len(self._alloc.rows))
 
     def scratch_bytes(self) -> dict:
         """Scratch byte meters (the memstat 'scratch' category): the Bloom
@@ -1254,14 +1382,19 @@ class TorchBackend:
                           target=planes[0].target if planes else "")
         t0 = time.perf_counter()
         spec_by = {id(p): s for p, s in zip(planes, specs)}
-        tp = tape_mod.encode_window(planes, self._hll_row)
+        tp = tape_mod.encode_window(planes, self._hll_row, self._shard_of)
         self.counters["link_bytes"] += tp.link_bytes
+        if tp.n_shards > 1:
+            # Mesh data plane: this one launch retires a window whose
+            # entries span several logical shards (the tape's shard column).
+            self.counters["multi_shard_windows"] += 1
         n_hll = tp.n_hll
-        wire = self._to_device(tp.wire)
-        table = self._to_device(tp.table)
+        # The window's operands, read by every shard of a mesh bank.
+        wire = self._put(tp.wire)
+        table = self._put(tp.table)
         if n_hll:
             bank = self._ensure_bank()
-            rows_pad = self._to_device(engine.pad_rows_repeat(tp.hll_rows))
+            rows_pad = self._put(engine.pad_rows_repeat(tp.hll_rows))
         else:
             bank = None
             rows_pad = torch.zeros((1,), dtype=torch.int32, device=self.device)
@@ -1406,7 +1539,14 @@ class TorchBackend:
         if not create:
             return None
         self._ensure_bank()
-        return self._alloc.row_of(name)
+        prefer = None
+        sb = self._sharded_bank
+        if sb is not None and self._shard_of is not None:
+            # Mesh plane: try the owning shard's preferred row block first,
+            # so the row lands in that shard's block (a full block spills
+            # anywhere: placement is a hint, not a domain).
+            prefer = sb.block(int(self._shard_of(name)), self._alloc.capacity)
+        return self._alloc.row_of(name, prefer=prefer)
 
     def _bump(self, name: str) -> None:
         self._alloc.bump(name)
@@ -1758,13 +1898,20 @@ class TorchBackend:
 
     def _op_hll_count_with(self, target: str, ops: List[Op]) -> None:
         # Union count across sketches: one row-max (merge_stack over the
-        # row vector) + estimator; never mutates.
+        # row vector) + estimator; never mutates. Mesh plane: the fold runs
+        # as the collective (per-shard folds, a max across shards).
         for op in ops:
             rows = self._count_rows(target, op.payload["names"])
             if rows is None:
                 op.future.set_result(0)
                 continue
-            est = Readback(engine.hll_bank_count_rows(self.bank, rows))
+            if self.mesh is not None:
+                self.counters["collective_merges"] += 1
+                est = engine.hll_bank_count_rows_collective(self.bank, rows,
+                                                            mesh=self.mesh)
+            else:
+                est = engine.hll_bank_count_rows(self.bank, rows)
+            est = Readback(est)
             self.completer.submit(_complete_all([op], lambda est=est: _estimate(est)))
 
     def _merge_rows(self, target: str, names) -> tuple:
@@ -1780,7 +1927,14 @@ class TorchBackend:
         # target is in the gathered set, so its registers take part).
         for op in ops:
             trow, rows = self._merge_rows(target, op.payload["names"])
-            self.bank = engine.hll_bank_merge_rows(self.bank, rows, trow)
+            if self.mesh is not None:
+                # Collective PFMERGE: per-shard folds, a max across shards,
+                # the target row's owner writes the merged registers.
+                self.counters["collective_merges"] += 1
+                self.bank = engine.hll_bank_merge_rows_collective(
+                    self.bank, rows, trow, mesh=self.mesh)
+            else:
+                self.bank = engine.hll_bank_merge_rows(self.bank, rows, trow)
             self._bump(target)
             op.future.set_result(None)
 
@@ -1788,7 +1942,13 @@ class TorchBackend:
         # Fused PFMERGE + PFCOUNT: one readback instead of two.
         for op in ops:
             trow, rows = self._merge_rows(target, op.payload["names"])
-            self.bank, est = engine.hll_bank_merge_count_rows(self.bank, rows, trow)
+            if self.mesh is not None:
+                self.counters["collective_merges"] += 1
+                self.bank, est = engine.hll_bank_merge_count_rows_collective(
+                    self.bank, rows, trow, mesh=self.mesh)
+            else:
+                self.bank, est = engine.hll_bank_merge_count_rows(
+                    self.bank, rows, trow)
             self._bump(target)
             est = Readback(est)
             self.completer.submit(_complete_all([op], lambda est=est: _estimate(est)))

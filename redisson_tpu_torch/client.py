@@ -1,5 +1,4 @@
-"""The client facade (counterpart of `redisson_tpu.client.RedissonTPU` in
-its local/tpu mode).
+"""The client facade (counterpart of `redisson_tpu.client.RedissonTPU`).
 
 `RedissonTorch.create(config)` resolves the device (a CUDA card by default;
 `device="cpu"` only when asked), builds the sketch backend and the structure
@@ -41,21 +40,33 @@ card's HLL bank rows, Bloom filters and BitSets flush to a RESP server
 (one endpoint, master/slave, sentinel or cluster) as blobs a real server
 reads natively, every `Config.flush_interval_s` seconds when that is set,
 and load back with `durability.load_hll` / `load_bloom` / `load_bitset`.
-A config whose only section is redis (JAX's passthrough mode) raises
-NotImplementedError.
+A config whose only section is redis is the passthrough mode: every op runs
+on the RESP server (`interop/backend_redis.RedisBackend`), coordination
+objects (locks, semaphores, latches, topics, map caches, scripts) run as
+server-side Lua with pub/sub wake-ups (`interop/coordination_redis`), and
+the client holds no device state.
+
+`Config.use_pod()` is the pod tier (`parallel/backend_pod.PodBackend`): the
+HLL bank, BitSets and Bloom filters sharded over a logical mesh of
+`num_shards` entries on the card (the CPU with `device="cpu"`);
+`client._pod_backend()` is the PodBackend, whose `reshard(n)` moves every
+sharded array onto a mesh of n entries.
 
 `Config.use_cluster()` makes this client a cluster FACADE: it builds N shard
 clients (each a full engine stack behind a slot-ownership guard; on one card
 all on `cuda:0`) and binds every object getter to the ClusterRouter
 (`client.cluster` is the ClusterManager: `migrate_slots`, `add_shard`,
 `rebalance`, `cluster_info`; `cluster_keyslot` / `cluster_slots` /
-`cluster_info` here). `Config.use_wire()` starts the RESP front-end last,
+`cluster_info` here); `data_plane="mesh"` runs the shards as logical
+shards of one engine whose bank is row-sharded over a mesh
+(`client.cluster.mesh_client`). `Config.use_wire()` starts the RESP front-end last,
 after the whole stack: one server, or one per shard behind a cluster facade
 (`client.wire`).
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, Optional, Union
 
 import numpy as np
@@ -109,10 +120,17 @@ class RedissonTorch:
     """The RedissonClient analogue on one CUDA device."""
 
     def __init__(self, config: Union[Config, CudaConfig, None] = None):
-        if isinstance(config, CudaConfig):
+        from redisson_tpu_torch.config import PodConfig
+
+        if isinstance(config, PodConfig):
+            pod, config = config, Config()
+            config.pod = pod
+        elif isinstance(config, CudaConfig):
             config = Config(cuda=config)
         self.config = config or Config()
-        ccfg = self.config.cuda or CudaConfig()
+        mode = self.config.mode()
+        ccfg = (self.config.pod if mode == "pod"
+                else self.config.cuda or CudaConfig())
         self._codec = get_codec(self.config.codec)
         self.id = new_client_id()
         self._widths = tuple(ccfg.key_width_buckets)
@@ -128,6 +146,10 @@ class RedissonTorch:
         self._resp = None
         self._role_monitor = None
         self._cluster_manager = None
+        # The passthrough mode's coordination plumbing (_init_redis_mode).
+        self._passthrough = False
+        self._redis_pubsub = None
+        self._redis_watchdog = None
         self._is_shutdown = False
         clcfg = self.config.cluster
         if clcfg is not None and clcfg.shard_id == -1:
@@ -138,18 +160,30 @@ class RedissonTorch:
             self._init_cluster_mode()
             self._start_wire()
             return
-        if self.config.mode() == "redis":
-            raise NotImplementedError(
-                "a config whose only section is redis is the passthrough "
-                "mode (every op runs on the RESP server), which the port "
-                "does not have yet (ROADMAP queue 1 item 6, second half); "
-                "add use_cuda() for the durability tier")
-        self.device = device_mod.resolve(ccfg.device)
-        self._store = SketchStore(self.device)
-        self.sketch = TorchBackend(
-            self._store, hll_impl=ccfg.hll_impl, seed=ccfg.hash_seed,
-            ingest=ccfg.ingest, hll_hash=ccfg.hll_hash,
-            read_cache_entries=ccfg.read_cache_entries)
+        if mode == "redis":
+            # Passthrough: every op translates to Redis commands over RESP,
+            # the reference's own execution model (the server executes, the
+            # client holds no state).
+            self._init_redis_mode()
+            self._start_wire()
+            return
+        if mode == "pod":
+            if ccfg.hll_hash == "redis":
+                raise NotImplementedError(
+                    "hll_hash='redis' is a single-device mode feature; the "
+                    "pod bank inserts implement the murmur3 family")
+            from redisson_tpu_torch.parallel.backend_pod import PodBackend
+
+            self.sketch = PodBackend(ccfg)
+            self.device = self.sketch.device
+            self._store = self.sketch.store
+        else:
+            self.device = device_mod.resolve(ccfg.device)
+            self._store = SketchStore(self.device)
+            self.sketch = TorchBackend(
+                self._store, hll_impl=ccfg.hll_impl, seed=ccfg.hash_seed,
+                ingest=ccfg.ingest, hll_hash=ccfg.hll_hash,
+                read_cache_entries=ccfg.read_cache_entries)
         self._routing = RoutingBackend(self.sketch)
         if clcfg is not None and clcfg.shard_id >= 0:
             # Shard member of a cluster: slot ownership is enforced at the
@@ -159,6 +193,22 @@ class RedissonTorch:
             from redisson_tpu_torch.cluster.shard import SlotOwnershipBackend
 
             self._routing = SlotOwnershipBackend(self._routing, clcfg.shard_id)
+        elif clcfg is not None and clcfg.shard_id == -2:
+            # Mesh data plane: this client is the ONE engine stack behind
+            # every logical shard. The guard holds the whole slot -> shard
+            # table, and the bank goes onto a logical mesh of num_shards
+            # entries BEFORE any bank-touching op (persist recovery
+            # included), so every row the engine makes is mesh-sharded.
+            from redisson_tpu_torch.cluster.shard import MeshOwnershipBackend
+            from redisson_tpu_torch.parallel.mesh import SLOT_AXIS, get_mesh
+
+            guard = MeshOwnershipBackend(self._routing, clcfg.num_shards)
+            self._routing = guard
+            self.sketch.attach_mesh(
+                get_mesh(clcfg.num_shards, axis=SLOT_AXIS, device=ccfg.device),
+                clcfg.num_shards, guard.shard_of_key)
+        # JAX's name for the dispatch waist's backend (tests read it).
+        self._backend = self._routing
         self.metrics = MetricsRegistry()
         # The byte ledger is always on and wired before any traffic (a
         # persist recovery replays through the same seams).
@@ -397,9 +447,111 @@ class RedissonTorch:
 
     def _pod_backend(self):
         """The backend that owns the HLL bank (`bank_names`, `row_version`,
-        `family`), the durability tier's view of it; None on a cluster
-        facade (JAX's name: its pod backend plays this part)."""
+        `family`): the durability tier's view of it, the PodBackend in pod
+        mode (with `reshard` and the sharded bit objects); None on a
+        cluster facade and in the passthrough mode."""
         return self.sketch
+
+    def _init_redis_mode(self) -> None:
+        """The passthrough mode (JAX's `_init_redis_mode`): the pool (or
+        topology router) to the configured server, the RedisBackend behind
+        the executor waist, and no device, store, memory ledger or engine
+        pub/sub: coordination objects run as server-side Lua with pub/sub
+        wake-ups over a lazily dialed subscribe connection."""
+        from redisson_tpu_torch.interop.backend_redis import RedisBackend
+        from redisson_tpu_torch.interop.coordination_redis import ScriptRunner
+
+        if self.config.persist is not None and self.config.persist.dir:
+            raise NotImplementedError(
+                "persist/ journals an engine-owned state tier; in redis "
+                "passthrough mode the server owns the state (use the "
+                "server's own AOF/RDB)")
+        self._passthrough = True
+        self._persist = None
+        self._fault = None
+        self._replicas = None
+        self._resp = self._make_resp_pool()
+        try:
+            self._resp.connect()
+        except Exception:
+            # Reclaim every background resource already started (the role
+            # monitor would otherwise poll forever).
+            if self._role_monitor is not None:
+                self._role_monitor.close()
+                self._role_monitor = None
+            if self._cluster_manager is not None:
+                self._cluster_manager.close()
+                self._cluster_manager = None
+            self._resp.close()  # the IO-loop thread
+            raise
+        self._backend = self._routing = RedisBackend(
+            self._resp, hash_seed=self.config.redis.hash_seed)
+        self.device = None
+        self._store = None
+        self.sketch = None
+        self._widths = (16, 32, 64, 128, 256)
+        # The server owns memory introspection (MEMORY USAGE et al.).
+        self.memstat = None
+        self._pressure = None
+        self._memreport = None
+        self.metrics = MetricsRegistry()
+        self._build_executor(CudaConfig().max_batch_keys)
+        # The blocking-pop silent-loss window (the reply window expires as
+        # the server pops, or a mid-reply drop forces a re-drive): per
+        # backend instance, so two clients never pool their counts.
+        self.metrics.gauge("redis.blocking_pop_loss_windows",
+                           lambda: self._routing.blocking_pop_loss_windows)
+        self._pubsub = None
+        self._watchdog = None
+        # Redis-mode map caches register their Lua sweep here, so TTL
+        # entries are removed without manual evict_expired calls.
+        self._eviction = EvictionScheduler()
+        self._remote_services = {}
+        self._redis_scripts = ScriptRunner(self._resp)
+        self._redis_coord_lock = threading.Lock()
+
+    def _redis_coordination(self):
+        """(scripts, pubsub, watchdog) of the passthrough mode's coordination
+        objects; the subscribe connection and the lease-renewal thread
+        start on first use."""
+        from urllib.parse import urlparse
+
+        from redisson_tpu_torch.interop.coordination_redis import (
+            RedisLockWatchdog)
+        from redisson_tpu_torch.interop.resp_client import SyncPubSubClient
+
+        with self._redis_coord_lock:
+            if self._redis_pubsub is None:
+                rcfg = self.config.redis
+                u = urlparse(rcfg.address)
+                # Follow master promotion: behind a MasterSlaveRouter every
+                # (re)dial asks it for the current master, so lock wake-ups
+                # survive a failover.
+                addr_provider = None
+                if getattr(self._resp, "master_address", None) is not None:
+                    def addr_provider():
+                        host, _, port = self._resp.master_address.rpartition(":")
+                        return host, int(port)
+                pubsub = SyncPubSubClient(
+                    host=u.hostname or "127.0.0.1", port=u.port or 6379,
+                    password=rcfg.password, timeout=rcfg.timeout_ms / 1000.0,
+                    addr_provider=addr_provider)
+                try:
+                    pubsub.connect()
+                except Exception:
+                    pubsub.close()  # reclaim the IO thread of a failed dial
+                    raise
+                self._redis_pubsub = pubsub
+            if self._redis_watchdog is None:
+                self._redis_watchdog = RedisLockWatchdog(self._redis_scripts)
+            return self._redis_scripts, self._redis_pubsub, self._redis_watchdog
+
+    def _require_pubsub(self, feature: str):
+        if self._pubsub is None:
+            raise NotImplementedError(
+                f"{feature} needs the in-process engine's pub/sub hub, which "
+                "this mode does not run")
+        return self._pubsub
 
     def _init_cluster_mode(self) -> None:
         """The facade's own state: the ClusterManager (shard clients,
@@ -544,6 +696,13 @@ class RedissonTorch:
         return RMap(name, self._dispatch, self._resolve_codec(codec), self._widths)
 
     def get_map_cache(self, name: str, codec=None) -> RMapCache:
+        if self._passthrough:
+            from redisson_tpu_torch.interop.coordination_redis import RedisMapCache
+
+            cache = RedisMapCache(name, self._redis_scripts,
+                                  self._resolve_codec(codec))
+            self._eviction.schedule(name, cache.evict_expired)
+            return cache
         return RMapCache(name, self._dispatch, self._resolve_codec(codec),
                          self._widths, eviction_scheduler=self._eviction)
 
@@ -604,36 +763,85 @@ class RedissonTorch:
         return RGeo(name, self._dispatch, self._resolve_codec(codec), self._widths)
 
     def get_topic(self, name: str, codec=None) -> RTopic:
-        return RTopic(name, self._dispatch, self._resolve_codec(codec), self._pubsub)
+        if self._passthrough:
+            from redisson_tpu_torch.interop.coordination_redis import RedisTopic
+
+            _, pubsub, _ = self._redis_coordination()
+            return RedisTopic(name, self._resp, pubsub, self._resolve_codec(codec))
+        return RTopic(name, self._dispatch, self._resolve_codec(codec),
+                      self._require_pubsub("topics"))
 
     def get_pattern_topic(self, pattern: str, codec=None) -> RPatternTopic:
+        if self._passthrough:
+            from redisson_tpu_torch.interop.coordination_redis import (
+                RedisPatternTopic)
+
+            _, pubsub, _ = self._redis_coordination()
+            return RedisPatternTopic(pattern, self._resp, pubsub,
+                                     self._resolve_codec(codec))
         return RPatternTopic(pattern, self._dispatch, self._resolve_codec(codec),
-                             self._pubsub)
+                             self._require_pubsub("topics"))
 
     # -- coordination -------------------------------------------------------
 
     def get_lock(self, name: str) -> RLock:
-        return RLock(name, self._dispatch, self._pubsub, self.id, self._watchdog)
+        if self._passthrough:
+            from redisson_tpu_torch.interop.coordination_redis import RedisLock
+
+            scripts, pubsub, watchdog = self._redis_coordination()
+            return RedisLock(name, scripts, pubsub, self.id, watchdog)
+        return RLock(name, self._dispatch, self._require_pubsub("locks"),
+                     self.id, self._watchdog)
 
     def get_fair_lock(self, name: str) -> RFairLock:
-        return RFairLock(name, self._dispatch, self._pubsub, self.id, self._watchdog)
+        if self._passthrough:
+            from redisson_tpu_torch.interop.coordination_redis import RedisFairLock
+
+            scripts, pubsub, watchdog = self._redis_coordination()
+            return RedisFairLock(name, scripts, pubsub, self.id, watchdog)
+        return RFairLock(name, self._dispatch, self._require_pubsub("locks"),
+                         self.id, self._watchdog)
 
     def get_read_write_lock(self, name: str) -> RReadWriteLock:
-        return RReadWriteLock(name, self._dispatch, self._pubsub, self.id,
+        if self._passthrough:
+            from redisson_tpu_torch.interop.coordination_redis import (
+                RedisReadWriteLock)
+
+            scripts, pubsub, watchdog = self._redis_coordination()
+            return RedisReadWriteLock(name, scripts, pubsub, self.id, watchdog)
+        return RReadWriteLock(name, self._dispatch,
+                              self._require_pubsub("locks"), self.id,
                               self._watchdog)
 
     def get_multi_lock(self, *locks: RLock) -> RMultiLock:
         return RMultiLock(*locks)
 
     def get_semaphore(self, name: str) -> RSemaphore:
-        return RSemaphore(name, self._dispatch, self._pubsub)
+        if self._passthrough:
+            from redisson_tpu_torch.interop.coordination_redis import RedisSemaphore
+
+            scripts, pubsub, _ = self._redis_coordination()
+            return RedisSemaphore(name, scripts, pubsub)
+        return RSemaphore(name, self._dispatch, self._require_pubsub("semaphores"))
 
     def get_count_down_latch(self, name: str) -> RCountDownLatch:
-        return RCountDownLatch(name, self._dispatch, self._pubsub)
+        if self._passthrough:
+            from redisson_tpu_torch.interop.coordination_redis import (
+                RedisCountDownLatch)
+
+            scripts, pubsub, _ = self._redis_coordination()
+            return RedisCountDownLatch(name, scripts, pubsub)
+        return RCountDownLatch(name, self._dispatch,
+                               self._require_pubsub("latches"))
 
     def get_script(self) -> RScript:
         """Atomic scripting: python functions run on the dispatcher over the
-        structure engine."""
+        structure engine; real server-side Lua (EVAL / EVALSHA) in the
+        passthrough mode."""
+        if self._passthrough:
+            from redisson_tpu_torch.interop.coordination_redis import RedisScript
+
+            return RedisScript(self._resp, self._codec)
         return RScript(self._dispatch)
 
     # -- bucket batch helpers -----------------------------------------------
@@ -709,7 +917,9 @@ class RedissonTorch:
         package's format). Every object is exported through the executor,
         so each is a copy taken on the dispatcher: bank rows by hll_export,
         BitSets and Blooms (host mirror bits pushed down first) by
-        bits_export."""
+        bits_export. In pod mode the sharded BitSets and Blooms (outside the
+        store) are exported the same way."""
+        self._require_store("checkpointing")
         extra = {}
         wanted = lambda n: names is None or n in names  # noqa: E731
         for n in self.sketch.bank_names():
@@ -718,7 +928,8 @@ class RedissonTorch:
                 if exported is not None:
                     regs, version = exported
                     extra[n] = ("hll", regs, {}, version)
-        for n in self._store.keys():
+        sharded = getattr(self.sketch, "sharded_bits_names", lambda: [])
+        for n in list(sharded()) + list(self._store.keys()):
             if wanted(n):
                 exported = self._executor.execute_sync(n, "bits_export", None)
                 if exported is not None:
@@ -730,8 +941,9 @@ class RedissonTorch:
         """Restore sketch state from a local checkpoint directory (written
         by either package). Each object is imported through the executor:
         HLLs into bank rows (hll_import), BitSets and Blooms onto the
-        device (bits_import); then every restored name's read-cache epoch
-        is bumped."""
+        device (bits_import; in pod mode into sharded arrays); then every
+        restored name's read-cache epoch is bumped."""
+        self._require_store("checkpointing")
 
         def put(name, otype, host, meta) -> bool:
             if otype == "hll":
@@ -750,24 +962,39 @@ class RedissonTorch:
                 self.sketch.notify_restored(n)
         return restored
 
+    def _require_store(self, feature: str) -> None:
+        if self._store is None:
+            raise NotImplementedError(
+                f"{feature} needs a device-resident store; not available in "
+                "redis passthrough mode")
+
     # -- memory facade (the MEMORY command family; memstat/) ----------------
+
+    def _require_memreport(self, command: str):
+        if self._memreport is None:
+            raise RuntimeError(
+                f"{command} requires a device-backed mode; in redis "
+                "passthrough the server owns memory introspection")
+        return self._memreport
 
     def memory_usage(self, name: str) -> Optional[int]:
         """MEMORY USAGE: exact device bytes plus metadata overhead for one
         key, or None when the key does not exist."""
-        return self._memreport.memory_usage(name)
+        return self._require_memreport("MEMORY USAGE").memory_usage(name)
 
     def memory_stats(self):
         """MEMORY STATS over the byte ledger."""
-        return self._memreport.memory_stats()
+        return self._require_memreport("MEMORY STATS").memory_stats()
 
     def memory_doctor(self):
         """MEMORY DOCTOR: rule-based findings."""
-        return self._memreport.memory_doctor()
+        return self._require_memreport("MEMORY DOCTOR").memory_doctor()
 
     def memory_verify(self):
         """The ledger invariant: ledger totals against the live tensors'
         nbytes (zero drift when healthy)."""
+        if self.memstat is None or self._store is None:
+            raise RuntimeError("memory_verify requires a device-backed mode")
         return self.memstat.verify(self._store, self.sketch)
 
     def info(self, section: Optional[str] = None):
@@ -775,9 +1002,13 @@ class RedissonTorch:
         replication, cluster); `section` filters to one block, like INFO
         MEMORY. A cluster facade has no memory section of its own (each
         shard keeps its ledger)."""
+        if self.cluster is not None:
+            mode = "cluster"
+        else:
+            mode = self.config.mode()
         sections = {
-            "server": {"mode": "cluster" if self.cluster is not None else "cuda",
-                       "device": str(self.device), "client_id": str(self.id)},
+            "server": {"mode": mode, "device": str(self.device),
+                       "client_id": str(self.id)},
         }
         if self._memreport is not None:
             sections["memory"] = self._memreport.info_memory()
@@ -938,6 +1169,9 @@ class RedissonTorch:
             self.cluster = None
             self._is_shutdown = True
             return
+        if self._passthrough:
+            self._shutdown_passthrough()
+            return
         if self._fault is not None:
             self._fault.stop()
             self._fault = None
@@ -971,6 +1205,30 @@ class RedissonTorch:
         self.sketch.completer.shutdown()
         self._routing.structures.fail_waiters()
         self._pubsub.shutdown()
+        self._is_shutdown = True
+
+    def _shutdown_passthrough(self) -> None:
+        """The passthrough mode's teardown (JAX's order): the remote
+        services, the pool's watchers, the lease renewals and the subscribe
+        connection, the pool, the eviction sweeps, then the executor."""
+        for rs in self._remote_services.values():
+            rs.shutdown(wait=False)
+        self._remote_services.clear()
+        self._close_durability()
+        if self._redis_watchdog is not None:
+            self._redis_watchdog.shutdown()
+            self._redis_watchdog = None
+        if self._redis_pubsub is not None:
+            try:
+                self._redis_pubsub.close()
+            except Exception:
+                pass
+            self._redis_pubsub = None
+        self._eviction.shutdown()
+        if self.serve is not None:
+            self.serve.shutdown()
+        else:
+            self._executor.shutdown()
         self._is_shutdown = True
 
     def _close_durability(self) -> None:

@@ -2,8 +2,9 @@
 engine stacks owning ranges of the 16384 CRC16 slots, a router that splits
 batches per owner and retries MOVED/ASK redirects, and live slot migration
 over the persist follower protocol. See cluster/manager.py for the wiring.
-On one card every shard's engine shares `cuda:0`; the mesh data plane waits
-for ROADMAP Queue 1 item 7.
+On one card every shard's engine shares `cuda:0`; the mesh data plane
+(`data_plane="mesh"`) runs N logical shards over one engine whose bank is
+row-sharded over a logical mesh on that card.
 """
 
 from redisson_tpu_torch.cluster.errors import (

@@ -1,5 +1,5 @@
 """ClusterManager — N shard engine stacks behind one ClusterRouter
-(counterpart of `redisson_tpu.cluster.manager`, the stacks data plane).
+(counterpart of `redisson_tpu.cluster.manager`, both data planes).
 
 The engine-owned analogue of `ClusterConnectionManager.java`: builds one
 full client per shard (executor + backend + store + optional persist +
@@ -22,10 +22,12 @@ optional per-shard serve admission), hands each a contiguous range of the
   * **parity** — cluster_info / cluster_slots / cluster_keyslot back the
     client's CLUSTER command facade.
 
-The mesh data plane (`ClusterConfig.data_plane="mesh"`: N logical shards
-over one engine whose bank is sharded across devices) raises
-NotImplementedError until ROADMAP Queue 1 item 7 (`parallel/` via
-`torch.distributed`).
+The mesh data plane (`ClusterConfig.data_plane="mesh"`): N logical shards
+(`MeshShard`) over ONE shared engine stack whose HLL bank is row-sharded
+over a logical mesh of N entries (`parallel/mesh.py`); slot ownership is
+one guard holding the whole table, and a migration moves ownership
+through the same journaled records plus a device-side bank-row
+relocation.
 """
 
 from __future__ import annotations
@@ -38,19 +40,11 @@ import torch
 
 from redisson_tpu_torch.cluster.migrator import SlotMigrator
 from redisson_tpu_torch.cluster.router import ClusterRouter
-from redisson_tpu_torch.cluster.shard import ClusterShard
+from redisson_tpu_torch.cluster.shard import ClusterShard, MeshShard
 from redisson_tpu_torch.cluster.split import MAX_SLOT, contiguous_assignment
 from redisson_tpu_torch.executor import make_lock
 from redisson_tpu_torch.ops.crc16 import key_slot
 from redisson_tpu_torch.parallel.topology import TopologyManager
-
-MESH_ITEM = "parallel/ via torch.distributed (MeshShard, the mesh data plane)"
-
-
-def _mesh_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} belongs to a tier redisson_tpu_torch has not ported yet "
-        f"(ROADMAP Queue 1 item 7: {MESH_ITEM})")
 
 
 class ClusterManager:
@@ -60,30 +54,45 @@ class ClusterManager:
         cluster = config.cluster
         if cluster is None:
             raise ValueError("Config.cluster section required")
+        if config.pod is not None:
+            raise ValueError(
+                "cluster and pod modes are mutually exclusive: the cluster "
+                "tier shards the namespace over full engine stacks, pod "
+                "shards one engine over the mesh")
         self.data_plane = getattr(cluster, "data_plane", "stacks") or "stacks"
-        if self.data_plane == "mesh":
-            raise _mesh_not_ported("ClusterConfig.data_plane='mesh'")
         self.config = config
         self._lock = make_lock("manager.ClusterManager._lock")
         self.migrations = 0
         self.migration_stats: Dict[str, int] = {}
         self._next_shard_id = 0
+        # Mesh data plane: the ONE shared engine stack behind every logical
+        # shard (None on the stacks plane).
+        self.mesh_client = None
 
         self.shards: Dict[int, Any] = {}
-        try:
+        if self.data_plane == "mesh":
+            self.mesh_client = RedissonTorch.create(self._mesh_config())
             for _ in range(max(1, int(cluster.num_shards))):
                 shard_id = self._next_shard_id
                 self._next_shard_id += 1
-                self.shards[shard_id] = ClusterShard(
-                    shard_id, RedissonTorch.create(self._shard_config(shard_id)))
-        except Exception:
-            for shard in self.shards.values():
-                shard.shutdown()
-            raise
+                self.shards[shard_id] = MeshShard(shard_id, self.mesh_client)
+        else:
+            try:
+                for _ in range(max(1, int(cluster.num_shards))):
+                    shard_id = self._next_shard_id
+                    self._next_shard_id += 1
+                    self.shards[shard_id] = ClusterShard(
+                        shard_id,
+                        RedissonTorch.create(self._shard_config(shard_id)))
+            except Exception:
+                for shard in self.shards.values():
+                    shard.shutdown()
+                raise
 
         table = self._recovered_table()
         self.router = ClusterRouter(self.shards, table,
-                                    retry_depth=cluster.redirect_retries)
+                                    retry_depth=cluster.redirect_retries,
+                                    mesh=self.data_plane == "mesh")
         self._adopt_table(table)
 
         # Failure plane: one pinger per shard (replaceable for drills /
@@ -149,7 +158,37 @@ class ClusterManager:
         return shard_cfg
 
     def _mesh_config(self):
-        raise _mesh_not_ported("the mesh data plane's shared engine config")
+        """Config of the mesh plane's ONE shared engine stack: shard_id ==
+        -2 makes the client install the MeshOwnershipBackend guard and put
+        the bank onto a logical mesh of `num_shards` entries on the `cuda`
+        section's device (the card by default). The ingest is pinned, not
+        'auto': the tape's window_merge retires a multi-shard window in
+        one launch, stamping each entry's shard."""
+        from redisson_tpu_torch import native as native_mod
+        from redisson_tpu_torch.config import (Config, CudaConfig,
+                                               PersistConfig)
+
+        parent = self.config
+        cluster = parent.cluster
+        cfg = Config(codec=parent.codec, inflight_runs=parent.inflight_runs)
+        ccfg = parent.cuda or CudaConfig()
+        cfg.cuda = dataclasses.replace(
+            ccfg, ingest="tape" if native_mod.available() else "device")
+        if cluster.dir:
+            cfg.persist = PersistConfig(
+                dir=os.path.join(cluster.dir, "mesh"),
+                fsync=cluster.fsync,
+                snapshot_interval_s=0.0)
+        if cluster.replicas_per_shard > 0:
+            raise ValueError(
+                "data_plane='mesh' does not support replicas_per_shard "
+                "yet — the shared stack has one journal, not N")
+        if parent.trace is not None:
+            cfg.trace = dataclasses.replace(parent.trace)
+        if parent.memory is not None:
+            cfg.memory = dataclasses.replace(parent.memory)
+        cfg.cluster = dataclasses.replace(cluster, shard_id=-2)
+        return cfg
 
     def _recovered_table(self) -> List[int]:
         """The live slot table. Fresh start: contiguous near-even ranges.
@@ -251,10 +290,15 @@ class ClusterManager:
         total: Dict[str, int] = {}
         with self._lock:  # one migration at a time (BGSAVE-style)
             for source_id, group in sorted(by_source.items()):
-                migrator = SlotMigrator(
-                    self.router, self.shards[source_id],
-                    self.shards[target_shard], group, timeout_s=timeout_s)
-                stats = migrator.run()
+                if self.data_plane == "mesh":
+                    stats = self._mesh_migrate_group(
+                        source_id, target_shard, group)
+                else:
+                    migrator = SlotMigrator(
+                        self.router, self.shards[source_id],
+                        self.shards[target_shard], group,
+                        timeout_s=timeout_s)
+                    stats = migrator.run()
                 self.migrations += 1
                 for k, v in stats.items():
                     total[k] = total.get(k, 0) + v
@@ -266,7 +310,36 @@ class ClusterManager:
 
     def _mesh_migrate_group(self, source_id: int, target_shard: int,
                             group: List[int]) -> Dict[str, int]:
-        raise _mesh_not_ported("mesh-plane slot migration")
+        """Mesh-plane slot migration: no snapshot, no journal tailing (the
+        state is already shared). What moves is OWNERSHIP, through the same
+        journaled begin / flip / adopt records the stacks plane writes (the
+        flip in the shared journal is the cutover fence), and BANK ROW
+        PLACEMENT, a device-side relocation into the adopting shard's
+        preferred row block, run as an executor barrier so it lands at a
+        dispatcher consistency cut."""
+        source = self.shards[source_id]
+        target = self.shards[target_shard]
+        slots = set(group)
+        # IMPORTING mark first: ops redirected early (between the flip and
+        # the router's table update) find the target accepting.
+        target.begin_migrate(group, target_shard)
+        self.router.begin_cutover(group)
+        try:
+            source.flip(group)          # the journaled cutover fence
+            target.adopt(group)
+        finally:
+            self.router.commit_cutover(group, target_shard)
+        client = self.mesh_client
+        backend = client._routing.sketch
+
+        def relocate() -> int:
+            names = [n for n in list(backend._alloc.rows)
+                     if key_slot(n) in slots]
+            return backend.mesh_relocate(names, target_shard)
+
+        moved = int(client._executor.execute_barrier(relocate).result())
+        return {"slots": len(group), "keys_moved": moved,
+                "bank_rows_relocated": moved}
 
     def drain_shard(self, shard_id: int) -> int:
         """Move every slot off `shard_id` onto the other non-quarantined
@@ -318,8 +391,18 @@ class ClusterManager:
 
         shard_id = self._next_shard_id
         self._next_shard_id += 1
-        shard = ClusterShard(
-            shard_id, RedissonTorch.create(self._shard_config(shard_id)))
+        if self.data_plane == "mesh":
+            shard = MeshShard(shard_id, self.mesh_client)
+            # Widen the logical-shard axis of the shared bank's preferred
+            # row blocks; rows relocate as slots migrate in.
+            sb = self.mesh_client._routing.sketch._sharded_bank
+            if sb is not None:
+                sb.num_shards = max(sb.num_shards, shard_id + 1)
+            guard = self.mesh_client._routing
+            guard.num_shards = max(guard.num_shards, shard_id + 1)
+        else:
+            shard = ClusterShard(
+                shard_id, RedissonTorch.create(self._shard_config(shard_id)))
         shard.adopt([])  # closed ownership: reject until slots migrate in
         self.shards[shard_id] = shard
         self.router.add_shard(shard)
@@ -386,6 +469,11 @@ class ClusterManager:
             "cross_shard_merges": self.router.cross_shard_merges,
             "data_plane": self.data_plane,
         }
+        if self.mesh_client is not None:
+            counters = self.mesh_client._routing.sketch.counters
+            info["collective_merges"] = counters.get("collective_merges", 0)
+            info["multi_shard_windows"] = counters.get(
+                "multi_shard_windows", 0)
         return info
 
     def stats(self) -> Dict[str, Any]:
@@ -402,5 +490,8 @@ class ClusterManager:
         self.topology.shutdown()
         self.router.close()
         for shard in self.shards.values():
-            shard.shutdown()
+            shard.shutdown()      # mesh: per-shard no-op (shared client)
+        if self.mesh_client is not None:
+            self.mesh_client.shutdown()
+            self.mesh_client = None
         self.shards.clear()

@@ -1,5 +1,5 @@
 """ClusterRouter — key_slot(name) -> shard dispatch with MOVED/ASK retry
-(counterpart of `redisson_tpu.cluster.router`, the stacks data plane).
+(counterpart of `redisson_tpu.cluster.router`, both data planes).
 
 The router implements the executor's dispatch protocol (execute_async /
 execute_sync / execute_many / batch), so model getters bind to it exactly
@@ -91,7 +91,7 @@ class ClusterRouter:
     ASK_WAIT_S = 60.0
 
     def __init__(self, shards: Dict[int, Any], table: Sequence[int],
-                 retry_depth: int = RETRY_DEPTH):
+                 retry_depth: int = RETRY_DEPTH, mesh: bool = False):
         if len(table) != MAX_SLOT:
             raise ValueError(f"slot table must cover {MAX_SLOT} slots")
         self._shards = dict(shards)
@@ -99,6 +99,11 @@ class ClusterRouter:
             if sid not in self._shards:
                 raise ValueError(f"slot table references unknown shard {sid}")
         self._table = list(table)
+        # Mesh data plane: every shard fronts ONE shared engine stack, so a
+        # cross-shard PFMERGE submits as a single op (the backend folds it
+        # with the mesh collective, no host register export) and
+        # keyspace-wide ops dispatch once instead of N times.
+        self._mesh = bool(mesh)
         self._lock = make_lock("router.ClusterRouter._lock")
         # (frozenset(slots), Event) while a cutover is in flight — the ASK
         # window. New submissions for those slots wait on the event; the
@@ -255,7 +260,15 @@ class ClusterRouter:
         return BatchCollector(self, **submit_kwargs)
 
     def queue_depth(self) -> int:
-        return sum(s.executor.queue_depth() for s in self._shards.values())
+        # Mesh plane: every shard resolves to the SAME executor; count it
+        # once.
+        seen, total = set(), 0
+        for s in self._shards.values():
+            ex = s.executor
+            if id(ex) not in seen:
+                seen.add(id(ex))
+                total += ex.queue_depth()
+        return total
 
     # -- keyed submission + redirect retry -----------------------------------
 
@@ -317,6 +330,20 @@ class ClusterRouter:
 
     def _unkeyed_async(self, kind, payload, nkeys, tenant, deadline) -> Future:
         shards = list(self._shards.values())
+        if self._mesh and shards:
+            # One shared store holds the whole keyspace: dispatch ONCE
+            # (fanning out would run the same op N times on one engine).
+            shard = min(shards, key=lambda s: s.shard_id)
+            if kind in ("keys", "flushall", "script_flush", "script_load",
+                        "script_exists", "mget", "mset", "msetnx"):
+                if kind == "keys":
+                    reduce_fn = lambda rs: sorted(set(rs[0] or []))  # noqa: E731
+                elif kind in ("flushall", "script_flush", "mset"):
+                    reduce_fn = lambda rs: None  # noqa: E731
+                else:
+                    reduce_fn = lambda rs: rs[0]  # noqa: E731
+                return self._fanout([(shard, "", kind, payload, nkeys)],
+                                    reduce_fn, tenant, deadline)
         if kind == "keys":
             return self._fanout(
                 [(s, "", kind, payload, 0) for s in shards],
@@ -423,9 +450,15 @@ class ClusterRouter:
                          tenant, deadline) -> Future:
         names = list(payload.get("names") or [])
         home = self._resolve(target)
-        if all(self._resolve(n) is home for n in names):
-            # One shard holds every sketch: one op, merged on that shard's
-            # device (merge_stack over the listed bank rows).
+        if self._mesh or all(self._resolve(n) is home for n in names):
+            # One shard holds every sketch (or the mesh plane's shared bank
+            # holds them all): one op, merged on the device (merge_stack
+            # over the listed bank rows; the mesh collective on the mesh
+            # plane, tagged with the target's owner).
+            if self._mesh and any(self._resolve(n) is not home
+                                  for n in names):
+                with self._lock:
+                    self.cross_shard_merges += 1
             pending = _Pending(target, kind, payload, nkeys, tenant, deadline)
             self._submit(pending)
             return pending.outer

@@ -1,5 +1,5 @@
 """One cluster shard: a full engine stack plus the slot-ownership guard
-(counterpart of `redisson_tpu.cluster.shard`, the stacks data plane).
+(counterpart of `redisson_tpu.cluster.shard`, both data planes).
 
 The guard (`SlotOwnershipBackend`) wraps the shard client's RoutingBackend
 at the narrow waist, so every dispatched op crosses exactly one ownership
@@ -17,15 +17,18 @@ themselves journaled ops (`migrate_adopt` / `migrate_begin` /
     (the MOVED retry path), so nothing applies twice.
 
 `ClusterShard` is the manager's per-shard handle: the client, its guard,
-and the dispatch the router submits to. The mesh data plane (`MeshShard`,
-`MeshOwnershipBackend`: N logical shards over one engine whose bank is
-sharded across devices) waits for ROADMAP Queue 1 item 7.
+and the dispatch the router submits to.
+
+The mesh data plane (`MeshOwnershipBackend`, `_GuardView`,
+`_ShardDispatch`, `MeshShard`): N logical shards over ONE engine whose HLL
+bank is row-sharded over a logical mesh (`parallel/mesh.ShardedBank`).
 """
 
 from __future__ import annotations
 
+import inspect
 import time
-from typing import Iterable, List, Optional, Set
+from typing import Dict, Iterable, List, Optional, Set
 
 from redisson_tpu_torch.cluster.errors import SlotMovedError
 from redisson_tpu_torch.executor import make_lock
@@ -298,3 +301,325 @@ class ClusterShard:
 
     def shutdown(self) -> None:
         self.client.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# Mesh data plane (ClusterConfig.data_plane == "mesh")
+#
+# N logical shards share ONE engine stack: one executor, one store, one
+# journal, one HLL bank row-sharded across a device mesh
+# (parallel/mesh.ShardedBank). Slot ownership still exists — it is what
+# makes MOVED/ASK, live migration, and the journaled flip fence
+# bit-identical to the stacks plane — but it is enforced by a single
+# guard holding the WHOLE slot->shard table instead of N per-shard sets.
+# Keyed ops carry their submitting shard as `Op.shard` (stamped by the
+# `_ShardDispatch` facade); the guard compares that tag against the
+# authoritative owner and rejects stale submissions with SlotMovedError
+# exactly like SlotOwnershipBackend does, so the router's redirect loop
+# is reused unchanged.
+# ---------------------------------------------------------------------------
+
+
+class MeshOwnershipBackend:
+    """The mesh plane's single ownership guard at the shared client's
+    dispatch waist.
+
+    Ownership transitions are the SAME journaled kinds as the stacks
+    plane (CLUSTER_KINDS), but since one journal serves every logical
+    shard, each record identifies its shard in the PAYLOAD
+    (``payload["shard"]``) — an op tag would not survive journal replay.
+    Keyed user ops are checked by their ``Op.shard`` tag; untagged ops
+    (tag < 0: recovery replay, direct executor maintenance) are always
+    accepted — the state is shared, so there is no wrong engine for them
+    to land on."""
+
+    def __init__(self, inner, num_shards: int):
+        self._inner = inner
+        self.num_shards = int(num_shards)
+        # None = open table (pre-adoption). The manager journals the full
+        # adopt table at startup, so routed traffic never sees it open.
+        self._owner: Optional[Dict[int, int]] = None
+        self._migrating: Dict[int, Set[int]] = {}
+        self._lock = make_lock("shard.MeshOwnershipBackend._lock")
+        self.rejected_ops = 0
+        self.rejected_by: Dict[int, int] = {}
+
+    # -- delegation ---------------------------------------------------------
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    # -- introspection ------------------------------------------------------
+
+    def owner_table(self) -> Optional[Dict[int, int]]:
+        with self._lock:
+            return None if self._owner is None else dict(self._owner)
+
+    def owned_slots(self, shard_id: int) -> Optional[Set[int]]:
+        with self._lock:
+            if self._owner is None:
+                return None
+            return {s for s, o in self._owner.items() if o == shard_id}
+
+    def migrating_slots(self, shard_id: int) -> Set[int]:
+        with self._lock:
+            return {s for s, ids in self._migrating.items()
+                    if shard_id in ids}
+
+    def owns(self, shard_id: int, slot: int) -> bool:
+        with self._lock:
+            return self._owner is None or self._owner.get(slot) == shard_id
+
+    def shard_of_key(self, name: str) -> int:
+        """Authoritative owner of a key's slot (0 while the table is
+        open) — the backend's `shard_of` hook: tape shard column,
+        per-shard bank-row placement, memstat attribution."""
+        slot = key_slot(name)
+        with self._lock:
+            if self._owner is None:
+                return 0
+            return self._owner.get(slot, 0)
+
+    # -- the waist ----------------------------------------------------------
+
+    def run(self, kind: str, target: str, ops: List, window=None) -> None:
+        if kind in CLUSTER_KINDS:
+            self._run_cluster(kind, ops)
+            return
+        if target:
+            with self._lock:
+                owner = self._owner
+            if owner is not None:
+                live = []
+                for op in ops:
+                    tag = getattr(op, "shard", -1)
+                    slot = key_slot(op.target) if op.target else -1
+                    if tag < 0 or slot < 0:
+                        live.append(op)
+                        continue
+                    with self._lock:
+                        ok = (self._owner is None
+                              or self._owner.get(slot) == tag
+                              or tag in self._migrating.get(slot, ()))
+                    if ok:
+                        live.append(op)
+                    else:
+                        self.rejected_ops += 1
+                        self.rejected_by[tag] = (
+                            self.rejected_by.get(tag, 0) + 1)
+                        op.future.set_exception(
+                            SlotMovedError(slot, op.target))
+                if not live:
+                    return
+                ops = live
+        self._inner.run(kind, target, ops, window=window)
+
+    # -- ownership transitions (journaled; dispatcher thread) ---------------
+
+    def _run_cluster(self, kind: str, ops: List) -> None:
+        for op in ops:
+            try:
+                if kind == "migrate_install":
+                    structures = getattr(self._inner, "structures", None)
+                    if structures is None:
+                        raise RuntimeError(
+                            "migrate_install needs the structure tier")
+                    op.future.set_result(
+                        structures.load_keys(op.payload["blob"]))
+                    continue
+                slots = {int(s) for s in op.payload["slots"]}
+                shard = int(op.payload.get("shard", -1))
+                with self._lock:
+                    if kind == "migrate_begin":
+                        for s in slots:
+                            self._migrating.setdefault(s, set()).add(shard)
+                    elif kind == "migrate_flip":
+                        # The source relinquishes: its owned slots go
+                        # unowned until the target's adopt lands (the
+                        # same window the stacks plane has between a
+                        # source flip and a target adopt).
+                        if self._owner is not None:
+                            for s in slots:
+                                if self._owner.get(s) == shard:
+                                    del self._owner[s]
+                        self._discard(slots, shard)
+                    elif kind == "migrate_adopt":
+                        if self._owner is None:
+                            self._owner = {}
+                        for s in slots:
+                            self._owner[s] = shard
+                        self._discard(slots, shard)
+                    else:  # migrate_abort
+                        self._discard(slots, shard)
+                op.future.set_result(True)
+            except Exception as exc:  # pragma: no cover - defensive
+                if not op.future.done():
+                    op.future.set_exception(exc)
+
+    def _discard(self, slots: Set[int], shard: int) -> None:
+        # Caller holds self._lock.
+        for s in slots:
+            ids = self._migrating.get(s)
+            if ids is not None:
+                ids.discard(shard)
+                if not ids:
+                    del self._migrating[s]
+
+
+class _GuardView:
+    """Per-shard projection of the MeshOwnershipBackend — the slice of
+    the shared table one MeshShard sees, shaped like the introspection
+    surface of SlotOwnershipBackend so manager / stats / tests treat
+    both planes uniformly."""
+
+    def __init__(self, guard: MeshOwnershipBackend, shard_id: int):
+        self._guard = guard
+        self.shard_id = int(shard_id)
+
+    def owned_slots(self) -> Optional[Set[int]]:
+        return self._guard.owned_slots(self.shard_id)
+
+    def migrating_slots(self) -> Set[int]:
+        return self._guard.migrating_slots(self.shard_id)
+
+    def owns(self, slot: int) -> bool:
+        return self._guard.owns(self.shard_id, slot)
+
+    @property
+    def rejected_ops(self) -> int:
+        return self._guard.rejected_by.get(self.shard_id, 0)
+
+
+class _ShardDispatch:
+    """Dispatch facade stamping every submission with its logical shard.
+
+    The router submits to `shard.dispatch`; in mesh mode all shards share
+    one executor, so this facade is what keeps MOVED semantics: it tags
+    ops with `shard=` for the guard's ownership check. When the inner
+    dispatch does not take the kwarg (a ServingLayer front), ops go
+    untagged — the guard accepts them (shared state makes that safe) and
+    ownership enforcement falls back to the router's table."""
+
+    def __init__(self, inner, shard_id: int):
+        self._inner = inner
+        self._shard_id = int(shard_id)
+        try:
+            sig = inspect.signature(inner.execute_async)
+            self._tagged = "shard" in sig.parameters
+        except (TypeError, ValueError):  # pragma: no cover - defensive
+            self._tagged = False
+
+    def _kw(self, kw: dict) -> dict:
+        if self._tagged:
+            kw.setdefault("shard", self._shard_id)
+        return kw
+
+    def execute_async(self, target, kind, payload, nkeys=0, **kw):
+        return self._inner.execute_async(target, kind, payload, nkeys,
+                                         **self._kw(kw))
+
+    def execute_many(self, staged, **kw):
+        return self._inner.execute_many(staged, **self._kw(kw))
+
+    def execute_sync(self, target, kind, payload, nkeys=0, **kw):
+        return self._inner.execute_sync(target, kind, payload, nkeys,
+                                        **self._kw(kw))
+
+    def batch(self, **submit_kwargs):
+        return self._inner.batch(**self._kw(submit_kwargs))
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
+class MeshShard:
+    """The manager's handle on one LOGICAL shard of the mesh data plane.
+
+    Protocol-compatible with ClusterShard (guard / dispatch / executor /
+    adopt / flip / stats / ...) so the router, the recovered-table
+    rebuild, and CLUSTER-command parity run unmodified — but `client` is
+    the ONE shared engine stack, `guard` is a per-shard view of the
+    shared MeshOwnershipBackend, and `shutdown` is a no-op (the manager
+    owns the shared client's lifecycle)."""
+
+    def __init__(self, shard_id: int, client):
+        self.shard_id = int(shard_id)
+        self.client = client
+        self.quarantined = False
+        self._mesh_guard: MeshOwnershipBackend = client._routing
+        self._view = _GuardView(self._mesh_guard, shard_id)
+        self._dispatch = _ShardDispatch(client._dispatch, shard_id)
+
+    @property
+    def replicas(self):
+        return None
+
+    @property
+    def guard(self) -> _GuardView:
+        return self._view
+
+    @property
+    def dispatch(self) -> _ShardDispatch:
+        return self._dispatch
+
+    @property
+    def executor(self):
+        return self.client._executor
+
+    # -- journaled ownership transitions ------------------------------------
+
+    def _cluster_op(self, kind: str, payload: dict) -> None:
+        payload = dict(payload)
+        payload["shard"] = self.shard_id
+        self.executor.execute_sync("", kind, payload)
+
+    def adopt(self, slots: Iterable[int]) -> None:
+        self._cluster_op(
+            "migrate_adopt", {"slots": sorted(int(s) for s in slots)})
+
+    def begin_migrate(self, slots: Iterable[int], target_shard: int) -> None:
+        self._cluster_op(
+            "migrate_begin",
+            {"slots": sorted(int(s) for s in slots),
+             "target_shard": int(target_shard)})
+
+    def flip(self, slots: Iterable[int]) -> None:
+        self._cluster_op(
+            "migrate_flip", {"slots": sorted(int(s) for s in slots)})
+
+    def abort_migrate(self, slots: Iterable[int]) -> None:
+        self._cluster_op(
+            "migrate_abort", {"slots": sorted(int(s) for s in slots)})
+
+    # -- introspection -------------------------------------------------------
+
+    @property
+    def persist(self):
+        return self.client._persist
+
+    @property
+    def journal(self):
+        persist = self.persist
+        return persist.journal if persist is not None else None
+
+    def replica_entries(self) -> List[dict]:
+        return []
+
+    def owned_count(self) -> int:
+        owned = self.guard.owned_slots()
+        return -1 if owned is None else len(owned)
+
+    def stats(self) -> dict:
+        return {
+            "shard_id": self.shard_id,
+            "owned_slots": self.owned_count(),
+            "migrating_slots": len(self.guard.migrating_slots()),
+            "rejected_ops": self.guard.rejected_ops,
+            "queue_depth": self.executor.queue_depth(),
+            "quarantined": self.quarantined,
+            "data_plane": "mesh",
+        }
+
+    def shutdown(self) -> None:
+        # Shared client: the ClusterManager shuts it down exactly once.
+        pass

@@ -7,12 +7,15 @@ returns that section. `use_persist(dir)`, `use_faults()`, `use_serve()`,
 `use_trace()`, `use_memstat()`, `use_replicas()`, `use_cluster()` and
 `use_wire()` do the same for the durability, fault, serving, trace, memory,
 read-replica, cluster and RESP wire sections (the JAX package's fields and
-defaults). `use_redis()` returns the `RedisConfig` section like JAX's
-(no overrides; set its fields): beside the compute section it is the
-durability tier, which flushes the card's sketches to a RESP server every
-`flush_interval_s` seconds (0 = on demand only). A config whose only
-section is redis is JAX's passthrough mode, which the port does not have
-yet: `mode()` says "redis" and the client raises NotImplementedError.
+defaults). `use_pod()` is the pod tier (`PodConfig`, a CudaConfig with the
+mesh fields): the HLL bank and the BitSets / Bloom filters sharded over a
+logical mesh of `num_shards` entries on the card (or the CPU with
+`device="cpu"`); `mode()` says "pod". `use_redis()` returns the
+`RedisConfig` section like JAX's (no overrides; set its fields): beside a
+compute section it is the durability tier, which flushes the card's
+sketches to a RESP server every `flush_interval_s` seconds (0 = on demand
+only); alone it is the passthrough mode ("redis"): every op runs on the
+RESP server and the client holds no device state.
 `to_dict` / `from_dict` / `to_json` / `from_json` round-trip a Config
 through plain data.
 """
@@ -65,10 +68,21 @@ class CudaConfig:
 
 
 @dataclass
+class PodConfig(CudaConfig):
+    """Mesh-sharded sketch engine (mirrors `redisson_tpu.config.PodConfig`):
+    the card's HLL bank and bit arrays sharded over a logical mesh. It
+    inherits `device`, so a pod asks for the card unless the caller passes
+    `device="cpu"`."""
+
+    mesh_axis: str = "shards"
+    num_shards: int = 0  # mesh entries; 0 = one per card (one on the CPU)
+    bank_capacity: int = 4096  # sketch rows in the sharded bank
+
+
+@dataclass
 class RedisConfig:
-    """RESP durability flush target (mirrors `redisson_tpu.config.
-    RedisConfig`, every field and default; the passthrough mode that JAX
-    also drives with it is not ported yet)."""
+    """RESP target of the durability tier and of the passthrough mode
+    (mirrors `redisson_tpu.config.RedisConfig`, every field and default)."""
 
     address: str = "redis://127.0.0.1:6379"
     # Master/slave topology (BaseMasterSlaveServersConfig): writes go to
@@ -285,9 +299,9 @@ class ClusterConfig:
     # Quarantine-then-migrate on topology node_down events (parallel/
     # topology.py watcher): drain the lost shard's slots onto survivors.
     auto_heal: bool = True
-    # Shard data plane: "stacks" (N full engine stacks). "mesh" (N logical
-    # shards over one engine whose bank is sharded across devices) waits
-    # for ROADMAP Queue 1 item 7 and raises NotImplementedError.
+    # Shard data plane: "stacks" (N full engine stacks) or "mesh" (N logical
+    # shards over one engine whose bank is sharded over a logical mesh of
+    # N entries on the card, cluster/shard.py MeshShard).
     data_plane: str = "stacks"
     # INTERNAL: >= 0 marks a config built by the ClusterManager for one
     # shard member (installs the slot-ownership guard); users leave it -1.
@@ -373,17 +387,23 @@ class Config:
     redis: Optional[RedisConfig] = None
     # Durability: flush sketch state to redis every N seconds (0 = off).
     flush_interval_s: float = 0.0
+    # The pod tier (None = not a pod): exclusive with `cuda`.
+    pod: Optional[PodConfig] = None
 
-    _MODES = ("cuda", "redis")
+    _MODES = ("cuda", "pod", "redis")
 
     def mode(self) -> str:
-        """The active backend mode, validated like JAX's `mode()`: redis
-        beside the compute section is the durability tier ("cuda"); redis
-        alone is the passthrough mode ("redis", not ported yet); neither is
-        the default device engine ("cuda")."""
+        """The active backend mode, validated like JAX's `mode()`: one
+        compute section ("cuda" or "pod"), with redis beside it as the
+        durability tier; redis alone is the passthrough mode ("redis");
+        nothing is the default device engine ("cuda")."""
         active = [m for m in self._MODES if getattr(self, m) is not None]
         compute = [m for m in active if m != "redis"]
-        if compute or not active:
+        if len(compute) > 1:
+            raise ValueError(f"multiple backend modes configured: {active}")
+        if compute:
+            return compute[0]
+        if not active:
             return "cuda"
         return active[0]
 
@@ -391,6 +411,13 @@ class Config:
         self.cuda = _apply(self.cuda or CudaConfig(), overrides)
         check_ingest(self.cuda.ingest)
         return self.cuda
+
+    def use_pod(self, **overrides) -> PodConfig:
+        """The pod section (JAX's `use_pod()`; keyword overrides as the
+        other builders take them)."""
+        self.pod = _apply(self.pod or PodConfig(), overrides)
+        check_ingest(self.pod.ingest)
+        return self.pod
 
     def use_redis(self) -> RedisConfig:
         """The redis section (JAX's `use_redis()`): the durability tier's
@@ -514,7 +541,8 @@ class Config:
 
 
 #: Config attribute -> section type (the dict round trip's schema)
-SECTION_TYPES = {"cuda": CudaConfig, "persist": PersistConfig,
+SECTION_TYPES = {"cuda": CudaConfig, "pod": PodConfig,
+                 "persist": PersistConfig,
                  "faults": FaultConfig, "serve": ServeConfig,
                  "trace": TraceConfig, "memory": MemConfig,
                  "replicas": ReplicaConfig, "cluster": ClusterConfig,

@@ -18,8 +18,9 @@ and PFCOUNT are one row-max over an index vector. The hand-written kernels
 are the segmented insert (`ingest="segment"`; a multi-target run takes its
 multi-target form, one launch per chunk) and `merge_stack`
 (`hll_merge_stack`, `hll_count_merged`, and the bank merges, which it reads
-in place through the index vector). The mesh collectives (`engine.py:467-563` of the JAX
-package) arrive with the parallel slice.
+in place through the index vector). The mesh collectives (`engine.py:446-563`
+of the JAX package) fold each shard's rows of a mesh-sharded bank with
+`merge_stack` and combine the partials by a max (JAX's pmax).
 
 BitSet and Bloom state is an [m] uint8 cell tensor (`ops/bitset.py`).
 SETBIT, CLEAR and the Bloom scatter add write it in place (JAX donates
@@ -36,6 +37,8 @@ old rows, where JAX donated it.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -419,6 +422,83 @@ def hll_bank_grow(bank, new_cap: int):
     out = torch.zeros((new_cap, m), dtype=bank.dtype, device=bank.device)
     out[:s] = bank
     return out
+
+
+# ---------------------------------------------------------------------------
+# Mesh collectives (cluster data_plane="mesh")
+#
+# The bank's row blocks are the shards of a logical mesh
+# (parallel/mesh.py SLOT_AXIS). Cross-shard PFMERGE / PFCOUNT / DBSIZE run
+# as JAX's shard_map collectives do: each shard max-folds the requested
+# rows IT owns (merge_stack over its block, JAX's `_local_fold`), the
+# partials combine by a max (JAX's pmax hop), and the target row's owner
+# writes the merged registers into its block. No register image crosses
+# the host link.
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _mesh_collectives(mesh):
+    """Per-mesh collective entry points, cached on the Mesh (hashable, and
+    `parallel.mesh.get_mesh` returns one instance per device set), as JAX
+    caches its compiled shard_maps."""
+    from redisson_tpu_torch.parallel.mesh import row_blocks
+    from redisson_tpu_torch.parallel.sharded import combine_max
+
+    def local_fold(bank, rows):
+        rows = np.asarray(rows, np.int32)
+        parts = []
+        for lo, hi in row_blocks(bank.shape[0], mesh):
+            own = rows[(rows >= lo) & (rows < hi)]
+            if own.size:
+                parts.append(pk.merge_stack(bank[lo:hi], own - np.int32(lo)))
+        if not parts:
+            return bank.new_zeros((bank.shape[1],))
+        return combine_max(parts)
+
+    def merge(bank, rows, target):
+        bank[int(target)] = local_fold(bank, rows)
+        return bank
+
+    def merge_count(bank, rows, target):
+        merged = local_fold(bank, rows)
+        bank[int(target)] = merged
+        return bank, hll.count(merged)
+
+    def count(bank, rows):
+        return hll.count(local_fold(bank, rows))
+
+    def occupancy(bank):
+        # DBSIZE-style row occupancy: each shard counts its non-empty rows,
+        # the partials sum in int64.
+        parts = [(bank[lo:hi] != 0).any(dim=1).sum(dtype=torch.int64)
+                 for lo, hi in row_blocks(bank.shape[0], mesh)]
+        return torch.stack(parts).sum()
+
+    return {"merge": merge, "merge_count": merge_count, "count": count,
+            "occupancy": occupancy}
+
+
+def hll_bank_merge_rows_collective(bank, rows, target, *, mesh):
+    """PFMERGE `rows` into row `target` on a mesh-sharded bank, in place:
+    per-shard folds, a max across shards, the owner's writeback."""
+    return _mesh_collectives(mesh)["merge"](bank, rows, target)
+
+
+def hll_bank_merge_count_rows_collective(bank, rows, target, *, mesh):
+    """Fused collective PFMERGE + PFCOUNT -> (bank, estimate)."""
+    return _mesh_collectives(mesh)["merge_count"](bank, rows, target)
+
+
+def hll_bank_count_rows_collective(bank, rows, *, mesh):
+    """Union cardinality over rows of a mesh-sharded bank (countWith)."""
+    return _mesh_collectives(mesh)["count"](bank, rows)
+
+
+def hll_bank_occupancy_collective(bank, *, mesh):
+    """Mesh-wide non-empty row count (DBSIZE analogue): per-shard counts
+    summed in int64."""
+    return _mesh_collectives(mesh)["occupancy"](bank)
 
 
 # ---------------------------------------------------------------------------

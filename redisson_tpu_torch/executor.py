@@ -58,7 +58,9 @@ Locks come from `concurrency` (`make_lock` / `make_rlock` /
 `make_condition`, re-exported here for the modules that import them from
 this waist): plain `threading` primitives unless the lock-order witness is
 armed. The op-contract witness (`contractwitness`) taps both enqueue
-entry points. The mesh shard tag arrives with its slice.
+entry points. `Op.shard` tags an op with the logical cluster shard it was
+dispatched for (mesh data plane: N logical shards share one executor, and
+the ownership guard compares the tag with the slot's owner).
 """
 
 from __future__ import annotations
@@ -115,6 +117,10 @@ class Op:
     # Sampled trace span (trace/spans.py) or None (the unsampled majority:
     # every stamp guards on it, so disabled tracing costs one read).
     span: Any = None
+    # Logical cluster shard this op was dispatched FOR (mesh data plane:
+    # the guard at the backend waist compares it with the slot's owner to
+    # answer MOVED as the per-stack guards do); -1 = untagged.
+    shard: int = -1
 
 
 _UNMETERED = frozenset({type(None), bool, int, float, str, bytes, tuple, list})
@@ -288,9 +294,10 @@ class CommandExecutor:
 
     def execute_async(self, target: str, kind: str, payload: Any,
                       nkeys: int = 0, tenant: str = "",
-                      deadline: Optional[float] = None) -> Future:
+                      deadline: Optional[float] = None,
+                      shard: int = -1) -> Future:
         op = Op(target=target, kind=kind, payload=payload, nkeys=nkeys,
-                tenant=tenant, deadline=deadline)
+                tenant=tenant, deadline=deadline, shard=shard)
         # Contract-witness tap at the single enqueue funnel: every real op
         # kind passes here, whatever the surface (facade, wire window,
         # journal replay, replica stream, geo apply).
@@ -303,15 +310,15 @@ class CommandExecutor:
 
     def execute_many(self, staged: Sequence[Tuple[str, str, Any, int]],
                      tenant: str = "", deadline: Optional[float] = None,
-                     admitted_ats: Optional[Sequence[float]] = None
-                     ) -> List[Future]:
+                     admitted_ats: Optional[Sequence[float]] = None,
+                     shard: int = -1) -> List[Future]:
         """Enqueue a pre-staged op list under one lock acquisition (the
         RBatch dispatch path): per-target FIFO order follows list order,
         and the whole batch shares one tenant and deadline. `admitted_ats`
         (parallel to `staged`) carries upstream admission stamps into the
         tracer's same-thread handoff."""
         ops = [Op(target=t, kind=k, payload=p, nkeys=n, tenant=tenant,
-                  deadline=deadline) for (t, k, p, n) in staged]
+                  deadline=deadline, shard=shard) for (t, k, p, n) in staged]
         if _cw.RECORD is not None:
             for op in ops:
                 if op.kind != BARRIER_KIND:
@@ -356,8 +363,9 @@ class CommandExecutor:
         q.append(op)
 
     def execute_sync(self, target: str, kind: str, payload: Any,
-                     nkeys: int = 0):
-        return self.execute_async(target, kind, payload, nkeys).result()
+                     nkeys: int = 0, shard: int = -1):
+        return self.execute_async(target, kind, payload, nkeys,
+                                  shard=shard).result()
 
     def execute_barrier(self, fn: Callable[[], Any], target: str = "") -> Future:
         """Run `fn` inline on the dispatcher thread, ordered like an op on

@@ -9,8 +9,10 @@ Every folded delta plane of a window, mixed ``hll_add`` / ``bloom_add`` /
   shard)`` per row. ``target_row`` is the HLL bank row of HLL entries (-1
   for store-backed ones, whose row -> object map the host keeps);
   ``offset`` the row's byte offset into the flattened wire; ``length`` the
-  valid cell count; ``shard`` the logical cluster shard, always 0 on the
-  port's single engine (the column keeps the JAX layout).
+  valid cell count; ``shard`` the logical cluster shard the entry belongs
+  to (0 outside the mesh data plane): the shard axis that lets one launch
+  retire a multi-shard window while per-shard attribution survives into
+  the tape.
 * ``wire`` uint8 ``[T2, W]``: one operand row per entry, register bytes for
   HLL entries, packed big-endian bits for Bloom / BitSet. Sparse planes are
   made dense again here.
@@ -23,13 +25,13 @@ prefix; ``T2`` and ``W`` are powers of two, padded with ``OP_PAD`` rows
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import numpy as np
 
 from redisson_tpu_torch.ingest.delta import DeltaPlane
 from redisson_tpu_torch.ops.window_kernel import (
-    OP_BITSET, OP_BLOOM, OP_HLL, OP_PAD, TABLE_COLS)
+    COL_SHARD, OP_BITSET, OP_BLOOM, OP_HLL, OP_PAD, TABLE_COLS)
 
 _OP_OF = {"hll_add": OP_HLL, "bloom_add": OP_BLOOM, "bitset_set": OP_BITSET}
 
@@ -57,6 +59,13 @@ class WindowTape:
     planes: List[DeltaPlane] = field(default_factory=list)  # row order
     link_bytes: int = 0             # table + wire bytes shipped
 
+    @property
+    def n_shards(self) -> int:
+        """Distinct logical shards this window retires (>= 1)."""
+        if not self.planes:
+            return 1
+        return len(set(self.table[: len(self.planes), COL_SHARD].tolist()))
+
 
 def _wire_row(p: DeltaPlane) -> np.ndarray:
     """A plane's operand row: the folded byte plane, made dense again from
@@ -71,11 +80,15 @@ def _wire_row(p: DeltaPlane) -> np.ndarray:
 
 
 def encode_window(planes: List[DeltaPlane],
-                  hll_row: Callable[[str], int]) -> WindowTape:
+                  hll_row: Callable[[str], int],
+                  shard_of: Optional[Callable[[str], int]] = None
+                  ) -> WindowTape:
     """Encode a window's folded planes into one command tape.
 
-    ``hll_row`` maps an hll_add target to its bank row. Raises ValueError
-    on a kind the tape has no op code for.
+    ``hll_row`` maps an hll_add target to its bank row; ``shard_of`` maps a
+    target to its logical cluster shard for the shard column (mesh data
+    plane; None stamps shard 0 everywhere). Raises ValueError on a kind
+    the tape has no op code for.
     """
     ordered = ([p for p in planes if p.kind == "hll_add"]
                + [p for p in planes if p.kind != "hll_add"])
@@ -98,7 +111,8 @@ def encode_window(planes: List[DeltaPlane],
         row = hll_row(p.target) if op == OP_HLL else -1
         if op == OP_HLL:
             rows[i] = row
-        table[i] = (op, row, i * width, p.cells, 0)
+        shard = int(shard_of(p.target)) if shard_of is not None else 0
+        table[i] = (op, row, i * width, p.cells, shard)
         wire[i, : p.plane_bytes] = _wire_row(p)
     return WindowTape(
         table=table, wire=wire, lanes=lanes, n_hll=n_hll, hll_rows=rows,

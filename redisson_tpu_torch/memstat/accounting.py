@@ -118,16 +118,47 @@ class MemLedger:
             self._live = 0
             self._events += 1
 
+    def _clear_bank_locked(self) -> None:
+        # Caller holds self._lock. Drops the plain bank entry AND any
+        # per-shard bank entries (mesh data plane) in one sweep, so the two
+        # accounting shapes are freely interchangeable.
+        for name in [n for n in self._entries
+                     if n == BANK_ENTRY or n.startswith(BANK_ENTRY + ":")]:
+            e = self._entries.pop(name)
+            self._bump(e.kind, -e.nbytes)
+
     def set_bank_bytes(self, nbytes: int) -> None:
         """Track the shared HLL bank (one entry, kind 'hll')."""
         nbytes = int(nbytes)
         with self._lock:
-            prev = self._entries.pop(BANK_ENTRY, None)
-            if prev is not None:
-                self._bump(prev.kind, -prev.nbytes)
+            self._clear_bank_locked()
             if nbytes > 0:
                 self._entries[BANK_ENTRY] = _Entry("hll", "", -1, nbytes)
                 self._bump("hll", nbytes)
+            self._events += 1
+
+    def set_bank_shard_bytes(self, by_shard: Dict[int, int],
+                             unassigned: int = 0) -> None:
+        """Mesh data plane: track the sharded bank as per-shard entries, one
+        ``__hll_bank__:shard-K`` entry per logical shard (tenant
+        ``shard-K``, so ``attribution()`` rollups give bank rows to the
+        shards that own them) plus a plain ``__hll_bank__`` entry for the
+        unassigned remainder (free rows). The entries total the bank
+        tensor's nbytes, so ``verify()`` stays exact."""
+        with self._lock:
+            self._clear_bank_locked()
+            for shard in sorted(by_shard):
+                nb = int(by_shard[shard])
+                if nb <= 0:
+                    continue
+                tenant = f"shard-{int(shard)}"
+                self._entries[f"{BANK_ENTRY}:{tenant}"] = _Entry(
+                    "hll", tenant, -1, nb)
+                self._bump("hll", nb)
+            unassigned = int(unassigned)
+            if unassigned > 0:
+                self._entries[BANK_ENTRY] = _Entry("hll", "", -1, unassigned)
+                self._bump("hll", unassigned)
             self._events += 1
 
     def _bump(self, kind: str, delta: int) -> None:
@@ -166,8 +197,8 @@ class MemLedger:
 
     def bank_bytes(self) -> int:
         with self._lock:
-            e = self._entries.get(BANK_ENTRY)
-            return e.nbytes if e is not None else 0
+            return sum(e.nbytes for n, e in self._entries.items()
+                       if n == BANK_ENTRY or n.startswith(BANK_ENTRY + ":"))
 
     def entry(self, name: str) -> Optional[Dict[str, Any]]:
         with self._lock:
@@ -253,7 +284,17 @@ class MemLedger:
             if bank is not None:
                 actual[BANK_ENTRY] = int(bank.nbytes)
         with self._lock:
-            ledger = {n: e.nbytes for n, e in self._entries.items()}
+            # Per-shard bank entries (mesh data plane) add up to the one
+            # bank tensor they account before the comparison.
+            ledger: Dict[str, int] = {}
+            bank_total = 0
+            for n, e in self._entries.items():
+                if n == BANK_ENTRY or n.startswith(BANK_ENTRY + ":"):
+                    bank_total += e.nbytes
+                else:
+                    ledger[n] = e.nbytes
+            if bank_total:
+                ledger[BANK_ENTRY] = bank_total
             ledger_total = self._live
         actual_total = sum(actual.values())
         missing = sorted(n for n in actual if n not in ledger)

@@ -298,7 +298,10 @@ class NodesGroup:
 
     def nodes(self) -> List[Node]:
         device = self._client.device
-        out = [Node("device", str(device), _device_pinger(device))]
+        # The passthrough mode holds no device state: its only node is the
+        # server.
+        out = ([] if device is None
+               else [Node("device", str(device), _device_pinger(device))])
         resp = getattr(self._client, "_resp", None)
         if resp is not None:
 

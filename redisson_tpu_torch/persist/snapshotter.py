@@ -136,7 +136,11 @@ class Snapshotter:
         guard's current owned and migrating sets become the segment's first
         records. Runs on the dispatcher inside the cut barrier (the only
         thread that mutates them), so the sets are exact at the watermark."""
-        owned_fn = getattr(self._client._routing, "owned_slots", None)
+        routing = self._client._routing
+        if getattr(routing, "owner_table", None) is not None:
+            self._reseed_mesh_ownership(routing)
+            return
+        owned_fn = getattr(routing, "owned_slots", None)
         if owned_fn is None:  # not a cluster shard
             return
         owned = owned_fn()
@@ -148,6 +152,28 @@ class Snapshotter:
         if migrating:
             reseed.append(Op(target="", kind="migrate_begin",
                              payload={"slots": sorted(migrating)}))
+        for op in reseed:
+            self._journal.append_run(op.kind, [op])
+
+    def _reseed_mesh_ownership(self, guard) -> None:
+        """The mesh data plane's one journal carries every logical shard's
+        ownership, each record naming its shard in the payload: re-seed
+        the whole owner table and every shard's migrating set."""
+        table = guard.owner_table()
+        if table is None:  # open ownership: nothing to pin
+            return
+        by_shard: Dict[int, list] = {}
+        for slot, shard in table.items():
+            by_shard.setdefault(shard, []).append(slot)
+        reseed = [Op(target="", kind="migrate_adopt",
+                     payload={"slots": sorted(slots), "shard": shard})
+                  for shard, slots in sorted(by_shard.items())]
+        for shard in range(guard.num_shards):
+            migrating = guard.migrating_slots(shard)
+            if migrating:
+                reseed.append(Op(target="", kind="migrate_begin",
+                                 payload={"slots": sorted(migrating),
+                                          "shard": shard}))
         for op in reseed:
             self._journal.append_run(op.kind, [op])
 

@@ -31,8 +31,8 @@ Against the JAX package:
    within rel 1e-5 (the float32 sum order of the Ertl estimator);
 7. the port's own rules: with no compute section every shard asks for the
    card (`cuda:<shard % cards>`) and raises without one; `device="cpu"`
-   keeps every shard on the CPU; the mesh data plane raises
-   NotImplementedError naming ROADMAP Queue 1 item 7; a snapshot re-seeds
+   keeps every shard on the CPU (the mesh data plane is
+   tests/test_torch_mesh.py's); a snapshot re-seeds
    the slot table into the new journal segment; get_topology_manager on a
    plain client.
 """
@@ -749,16 +749,6 @@ def test_cpu_cluster_runs_every_shard_on_the_cpu(cluster4):
     for shard in cluster4.cluster.shards.values():
         assert shard.client.device == torch.device("cpu")
         assert shard.client.sketch.bank.device.type == "cpu"
-
-
-def test_mesh_data_plane_names_its_queue_item():
-    cfg = Config()
-    cfg.use_cuda(device="cpu")
-    cfg.use_cluster(num_shards=2, data_plane="mesh")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        RedissonTorch.create(cfg)
-    with pytest.raises(ValueError):
-        Config().use_cluster(data_plane="ring")
 
 
 def test_snapshot_reseeds_the_slot_table(tmp_path):

@@ -16,7 +16,11 @@ the card; geo-sized planes through delta_merge, and a geo pair on the card
 against a geo pair on the CPU; the redis durability tier flushing the
 card's HLL rows, a Bloom filter and a BitSet to the embedded RESP server
 and loading them back onto the card, and load_hll under both hash
-families. They skip where no card is visible. Run them on a
+families; the pod tier's per-shard launches (insert, merge-all, BITCOUNT
+past 2^31 set bits on a 2^32-cell array, BITOP, Bloom add) on 4 logical
+shards of cuda:0 against the plain versions, a pod client and a mesh-plane
+merge+count on the card against the CPU. They skip where no card is
+visible. Run them on a
 machine with one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -1124,3 +1128,152 @@ def test_load_hll_under_both_families_on_card(dev, family):
         finally:
             card.shutdown()
             cpu.shutdown()
+
+
+# -- the pod tier and the mesh data plane: 4 logical shards on cuda:0 ----------
+
+
+def _mesh4(dev):
+    from redisson_tpu_torch.parallel.mesh import build_mesh
+
+    mesh = build_mesh(4)
+    assert mesh.size == 4 and mesh.device == dev
+    return mesh
+
+
+def test_sharded_insert_and_merge_on_card_match_plain(dev):
+    """Per-shard seg_insert (multi-target form) and merge_stack launches
+    over shard views equal the plain versions on the same inputs."""
+    from redisson_tpu_torch.parallel import sharded
+
+    mesh = _mesh4(dev)
+    g = np.random.default_rng(1)
+    n, s = 1 << 20, 1024
+    keys = g.integers(0, 2**63, n, dtype=np.int64).view(np.uint64)
+    hi = (keys >> np.uint64(32)).astype(np.uint32)
+    lo = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    row = g.integers(0, s, n).astype(np.int32)
+    valid = g.random(n) < 0.95
+    bank = sharded.make_bank(mesh, s)
+    ik.reset_launches()
+    ok.reset_launches()
+    bank, changed = sharded.bank_insert(bank, hi, lo, row, valid, mesh)
+    assert ik.launches["seg_insert"] == 4
+    cpu_mesh = type(mesh)(mesh.axis, (torch.device("cpu"),) * 4)
+    want, want_changed = sharded.bank_insert(
+        sharded.make_bank(cpu_mesh, s), hi, lo, row, valid, cpu_mesh)
+    assert torch.equal(bank.cpu(), want) and torch.equal(changed.cpu(), want_changed)
+    merged = sharded.bank_merge_all(bank, mesh)
+    assert ok.launches["merge_stack"] == 4
+    assert torch.equal(merged.cpu(), want.amax(dim=0))
+
+
+def test_sharded_bitcount_past_2_31_on_card(dev):
+    """BITCOUNT of a 2^32-cell array (4 GiB, 2^30 cells per shard) past
+    2^31 set bits: one popcount_partials launch per shard, exact int64
+    combine; LENGTH reaches 2^32 at the top index."""
+    from redisson_tpu_torch.parallel import sharded_bits
+
+    mesh = _mesh4(dev)
+    if torch.cuda.get_device_properties(dev).total_memory < (12 << 30):
+        pytest.skip("needs 12 GiB of device memory")
+    bits = sharded_bits.make_bits(mesh, 1 << 32)
+    try:
+        bits = sharded_bits.set_range(bits, 0, (1 << 31) + (1 << 20), True, mesh)
+        idx = torch.tensor([(1 << 32) - 1, 3 << 30], dtype=torch.int64, device=dev)
+        bits, old = sharded_bits.set_bits(bits, idx, torch.ones(2, dtype=torch.bool,
+                                                                device=dev), mesh)
+        assert old.tolist() == [0, 0]
+        ok.reset_launches()
+        total = sharded_bits.cardinality(bits, mesh)
+        assert ok.launches["popcount_partials"] == 4
+        assert total == (1 << 31) + (1 << 20) + 1 + 2
+        assert sharded_bits.length(bits, mesh) == 1 << 32
+    finally:
+        del bits
+        torch.cuda.empty_cache()
+
+
+def test_sharded_bitop_and_bloom_on_card_match_plain(dev):
+    from redisson_tpu_torch.ops import bloom_math
+    from redisson_tpu_torch.parallel import sharded_bits
+
+    mesh = _mesh4(dev)
+    cpu_mesh = type(mesh)(mesh.axis, (torch.device("cpu"),) * 4)
+    g = torch.Generator().manual_seed(3)
+    n = 1 << 27
+    a = (torch.rand(n, generator=g) < 0.3).to(torch.uint8)
+    b = (torch.rand(n, generator=g) < 0.6).to(torch.uint8)
+    stack = torch.stack([a, b])
+    for op in ("and", "or", "xor"):
+        ok.reset_launches()
+        got = sharded_bits.bitop(stack.to(dev), op, mesh)
+        assert ok.launches["bitop_cells"] == 4
+        assert torch.equal(got.cpu(), sharded_bits.bitop(stack, op, cpu_mesh))
+    m = bloom_math.optimal_num_of_bits(1_000_000, 0.01)
+    k = bloom_math.optimal_num_of_hash_functions(1_000_000, m)
+    keys = torch.randint(0, 2**62, (1 << 20,), generator=g, dtype=torch.int64)
+    bits = sharded_bits.make_bits(mesh, m)
+    ik.reset_launches()
+    bits, added = sharded_bits.bloom_add_packed(bits, keys.to(dev), 1 << 20, k, m,
+                                                0, mesh)
+    assert ik.launches["bits_insert_segmented"] == 4
+    want, want_added = sharded_bits.bloom_add_packed(
+        sharded_bits.make_bits(cpu_mesh, m), keys, 1 << 20, k, m, 0, cpu_mesh)
+    assert torch.equal(bits.cpu(), want) and torch.equal(added.cpu(), want_added)
+
+
+def test_pod_client_on_card_matches_cpu(dev):
+    out = []
+    for device in ("cuda:0", "cpu"):
+        cfg = Config()
+        cfg.use_pod(device=device, num_shards=4, bank_capacity=64)
+        c = RedissonTorch.create(cfg)
+        try:
+            for i in range(8):
+                c.get_hyper_log_log(f"p:{i}").add_ints(
+                    np.arange(i * 1000, i * 1000 + 40_000, dtype=np.uint64))
+            c.get_hyper_log_log("p:b").add_all([b"k%d" % i for i in range(5000)])
+            merged = c.get_hyper_log_log("p:0").merge_with_and_count(
+                *[f"p:{i}" for i in range(1, 8)])
+            bs = c.get_bit_set("p:bits")
+            bs.set_range(0, 100_000)
+            bf = c.get_bloom_filter("p:bf")
+            bf.try_init(100_000, 0.01)
+            bf.add_ints(np.arange(50_000, dtype=np.uint64))
+            out.append((merged, bs.cardinality(),
+                        bf.contains_count_ints(np.arange(60_000, dtype=np.uint64)),
+                        c.to_numpy_state()[0], c.to_numpy_objects()))
+        finally:
+            c.shutdown()
+    (m1, c1, f1, b1, o1), (m2, c2, f2, b2, o2) = out
+    assert (m1, c1, f1) == (m2, c2, f2)
+    assert np.array_equal(b1, b2)
+    assert set(o1) == set(o2)
+    for name in o1:
+        assert np.array_equal(o1[name][1], o2[name][1]), name
+
+
+def test_mesh_plane_merge_count_on_card_matches_cpu(dev, tmp_path):
+    out = []
+    for device in ("cuda:0", "cpu"):
+        cfg = Config()
+        cfg.use_cuda(device=device)
+        cfg.use_cluster(num_shards=4, dir=str(tmp_path / device.replace(":", "")),
+                        data_plane="mesh")
+        c = RedissonTorch.create(cfg)
+        try:
+            for i in range(16):
+                c.get_hyper_log_log(f"mp:{i}").add_all(
+                    [b"%d:%d" % (i, j) for j in range(3000)])
+            ok.reset_launches()
+            got = c.get_hyper_log_log("mp:0").merge_with_and_count(
+                *[f"mp:{i}" for i in range(1, 16)])
+            backend = c.cluster.mesh_client._routing.sketch
+            if device != "cpu":
+                assert ok.launches["merge_stack"] >= 2  # one per shard holding rows
+            out.append((got, backend.counters["collective_merges"],
+                        backend.mesh_occupancy()))
+        finally:
+            c.shutdown()
+    assert out[0] == out[1]

@@ -21,8 +21,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: with observability, trace/, memstat/ and the rest of serve/, 96 with the
 #: replica tier, the follower, cluster/errors, reactive/, services/ and
 #: version, 108 with the cluster tier, parallel/topology, loopwitness and
-#: wire/, 114 with geo/ and the two runtime witnesses, 122 with interop/)
-NMODS = 122
+#: wire/, 114 with geo/ and the two runtime witnesses, 122 with interop/,
+#: 129 with the rest of parallel/ and the passthrough half of interop/)
+NMODS = 129
 
 _GATE = textwrap.dedent("""
     import importlib, pkgutil, runpy, sys
@@ -91,6 +92,11 @@ _GATE = textwrap.dedent("""
                  ("hyll", "resp_client", "pool", "topology_redis", "mini_lua",
                   "fake_server", "durability"))}
     print("SLICE13", sorted(slice13 - set(mods)))
+    slice14 = {*(f"redisson_tpu_torch.parallel.{m}" for m in
+                 ("mesh", "sharded", "sharded_bits", "backend_pod")),
+               *(f"redisson_tpu_torch.interop.{m}" for m in
+                 ("backend_redis", "bloom_redis", "coordination_redis"))}
+    print("SLICE14", sorted(slice14 - set(mods)))
     print("MODULES", len(mods), "SMOKE_RC", rc, "LEAKED", leaked)
 """)
 
@@ -111,6 +117,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert "SLICE11 []" in out.stdout  # and the cluster tier and the wire
     assert "SLICE12 []" in out.stdout  # and geo/ and the witnesses
     assert "SLICE13 []" in out.stdout  # and interop/
+    assert "SLICE14 []" in out.stdout  # and parallel/ and the passthrough
     assert rc == "2"  # chip_smoke refuses to run without a card
     assert leaked == "[]"
     assert '"ok"' not in out.stdout

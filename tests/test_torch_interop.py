@@ -23,8 +23,7 @@ Against the JAX package, on seeded numpy inputs:
 4. state carried across both ways: a JAX client flushes into the port's
    server and a port client loads it, and the other way round.
 
-The port's own rules: a passthrough-only config raises
-NotImplementedError; an imported tensor never aliases the decoded buffer;
+The port's own rules: an imported tensor never aliases the decoded buffer;
 a create / shutdown pair with a periodic flusher leaks no thread; the
 server's PFADD raises without the host library (no Python fallback).
 """
@@ -68,28 +67,61 @@ PORTED = ("redisson_tpu.interop", "redisson_tpu.native", "redisson_tpu.ops",
           "redisson_tpu.wire", "redisson_tpu.checkpoint", "redisson_tpu.store")
 
 
-def _ported(name: str) -> bool:
-    return any(name == p or name.startswith(p + ".") for p in PORTED)
+def _ported(name: str, extra=()) -> bool:
+    return any(name == p or name.startswith(p + ".")
+               for p in PORTED + tuple(extra))
 
 
 def _port_path(name: str) -> str:
     return "redisson_tpu_torch" + name[len("redisson_tpu"):]
 
 
-def _port_import(name, globals=None, locals=None, fromlist=(), level=0):
-    """`__import__` of a rebound corpus: JAX package modules load their port
-    counterparts; JAX itself and an unported module raise ImportError."""
-    if level == 0:
-        if name == "jax" or name.startswith("jax."):
-            raise ImportError(f"a corpus test run against the port imports {name}")
-        if name == "redisson_tpu" or name.startswith("redisson_tpu."):
-            wanted = ([f"{name}.{f}" for f in fromlist] if name == "redisson_tpu"
-                      else [name])
-            missing = [w for w in wanted if not _ported(w)]
-            if missing:
-                raise ImportError(f"{missing} has no counterpart in the port")
-            name = _port_path(name)
-    return builtins.__import__(name, globals, locals, fromlist, level)
+class _AliasModule(types.ModuleType):
+    """A port module seen through a corpus's names: `aliases` maps a JAX
+    name the port spells differently (RedissonTPU) to the port's object."""
+
+    def __init__(self, module, aliases):
+        super().__init__(module.__name__)
+        self._module = module
+        self._aliases = aliases
+
+    def __getattr__(self, attr):
+        if attr in self._aliases:
+            return self._aliases[attr]
+        return getattr(self._module, attr)
+
+
+def _make_import(extra=(), aliases=None):
+    """`__import__` of a rebound corpus: JAX package modules (PORTED plus
+    `extra`) load their port counterparts, seen through `aliases` (JAX
+    module path -> {JAX name: port object}); JAX itself and an unported
+    module raise ImportError."""
+    aliases = aliases or {}
+
+    def port_import(name, globals=None, locals=None, fromlist=(), level=0):
+        if level == 0:
+            if name == "jax" or name.startswith("jax."):
+                raise ImportError(
+                    f"a corpus test run against the port imports {name}")
+            if name == "redisson_tpu" or name.startswith("redisson_tpu."):
+                wanted = ([f"{name}.{f}" for f in fromlist]
+                          if name == "redisson_tpu" else [name])
+                missing = [w for w in wanted if not _ported(w, extra)]
+                if missing:
+                    raise ImportError(f"{missing} has no counterpart in the port")
+                if fromlist and name in aliases:
+                    builtins.__import__(_port_path(name), globals, locals,
+                                        fromlist, level)
+                    return _AliasModule(
+                        importlib.import_module(_port_path(name)),
+                        aliases[name])
+                name = _port_path(name)
+        return builtins.__import__(name, globals, locals, fromlist, level)
+
+    return port_import
+
+
+_port_import = _make_import()
 
 
 class Unported:
@@ -106,25 +138,31 @@ class Unported:
         raise AssertionError(f"{self._what} has no counterpart in the port")
 
 
-def _port_value(value):
+def _port_value(value, extra=(), aliases=None):
     """The port's object for one value of a corpus module's namespace (or
     the value itself when it does not come from the JAX package)."""
+    aliases = aliases or {}
     if isinstance(value, types.ModuleType):
         name = value.__name__
         if name == "redisson_tpu" or name.startswith("redisson_tpu."):
-            return (importlib.import_module(_port_path(name)) if _ported(name)
-                    else Unported(name))
+            return (importlib.import_module(_port_path(name))
+                    if _ported(name, extra) else Unported(name))
         if name == "jax" or name.startswith("jax."):
             return Unported(name)
         return value
     mod = getattr(value, "__module__", None)
     if (isinstance(mod, str) and mod.startswith("redisson_tpu.")
             and (isinstance(value, type) or callable(value))):
-        if not _ported(mod):
+        if not _ported(mod, extra):
             return Unported(f"{mod}.{getattr(value, '__qualname__', value)}")
+        alias = aliases.get(mod, {}).get(value.__qualname__)
+        if alias is not None:
+            return alias
         obj = importlib.import_module(_port_path(mod))
         for part in value.__qualname__.split("."):
-            obj = getattr(obj, part)
+            obj = getattr(obj, part, None)
+            if obj is None:
+                return Unported(f"{mod}.{value.__qualname__}")
         return obj
     return value
 
@@ -147,14 +185,21 @@ def _code_names(code) -> set:
     return names
 
 
-def port_corpus(mod, excluded, prefix):
+def port_corpus(mod, excluded, prefix, extra=(), aliases=None,
+                overrides=None):
     """{`test_<prefix>__<name>`: test rebound to the port} for every test
     of `mod` not in `excluded`; raises if an imported test names something
-    the port does not have (it belongs in `excluded`)."""
+    the port does not have (it belongs in `excluded`). `extra` adds JAX
+    package modules to PORTED for this corpus, and `aliases` (JAX module
+    path -> {JAX name: port object}) names what the port spells
+    differently, such as the client class. `overrides` replaces module
+    helpers the tests call (a client factory on the CPU), as a redefined
+    fixture replaces a corpus fixture."""
     ns = {}
     for key, value in vars(mod).items():
-        ns[key] = _port_value(value)
-    ns["__builtins__"] = dict(vars(builtins), __import__=_port_import)
+        ns[key] = _port_value(value, extra, aliases)
+    ns["__builtins__"] = dict(vars(builtins),
+                              __import__=_make_import(extra, aliases))
     for key, value in vars(mod).items():
         if isinstance(value, types.FunctionType) and value.__module__ == mod.__name__:
             ns[key] = _rebind(value, ns)
@@ -163,6 +208,7 @@ def port_corpus(mod, excluded, prefix):
                     for k, v in vars(value).items()
                     if k not in ("__dict__", "__weakref__")}
             ns[key] = type(value.__name__, value.__bases__, body)
+    ns.update(overrides or {})
     unported = {k for k, v in ns.items() if isinstance(v, Unported)}
     out = {}
     for key, value in vars(mod).items():
@@ -198,9 +244,6 @@ EXCLUDED_INTEROP = {
     "test_config_roundtrip_with_redis_tier":
         "uses JAX's Config with use_tpu() and mode() == 'tpu'; see "
         "test_port_config_roundtrip_with_redis_tier",
-    "test_checkpoint_gated_in_redis_mode":
-        "needs the passthrough mode (ROADMAP queue 1 item 6, second half); "
-        "test_port_passthrough_only_config_raises pins what the port does",
     "test_classic_bloom_import_clears_stale_blocked_flag":
         "builds a second JAX client and a JAX SketchStore; see "
         "test_port_classic_bloom_import_clears_stale_blocked_flag",
@@ -228,7 +271,14 @@ EXCLUDED_COMPAT = {
         "test_port_mixed_writer_with_real_redis_semantics",
 }
 
-_CORPUS = {**port_corpus(test_interop, EXCLUDED_INTEROP, "interop"),
+#: the corpus's JAX modules beyond PORTED, and the names the port spells
+#: differently (the client class)
+CLIENT_EXTRA = ("redisson_tpu.client", "redisson_tpu.config",
+                "redisson_tpu.executor")
+CLIENT_ALIASES = {"redisson_tpu.client": {"RedissonTPU": RedissonTorch}}
+
+_CORPUS = {**port_corpus(test_interop, EXCLUDED_INTEROP, "interop",
+                         CLIENT_EXTRA, CLIENT_ALIASES),
            **port_corpus(test_hll_redis_compat, EXCLUDED_COMPAT, "hllcompat")}
 globals().update(_CORPUS)
 
@@ -269,7 +319,10 @@ def test_corpus_runner_maps_to_the_port():
     with pytest.raises(ImportError):
         imp("jax.numpy")
     with pytest.raises(ImportError):
-        imp("redisson_tpu.client")
+        imp("redisson_tpu.tpu_boot")
+    # The client class is the one name the port spells differently.
+    assert imp("redisson_tpu.client", fromlist=["RedissonTPU"]).RedissonTPU \
+        is RedissonTorch
 
 
 # ---------------------------------------------------------------------------
@@ -323,16 +376,6 @@ def test_port_config_roundtrip_with_redis_tier():
     only = Config()
     only.use_redis()
     assert only.mode() == "redis"
-
-
-def test_port_passthrough_only_config_raises():
-    with EmbeddedRedis() as er:
-        cfg = Config()
-        cfg.use_redis().address = f"redis://127.0.0.1:{er.port}"
-        before = {t.name for t in threading.enumerate()}
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            RedissonTorch.create(cfg)
-        assert {t.name for t in threading.enumerate()} <= before
 
 
 def test_port_classic_bloom_import_clears_stale_blocked_flag(local_client):

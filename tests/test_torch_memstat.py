@@ -26,13 +26,8 @@ from redisson_tpu_torch.observability import MetricsRegistry
 from redisson_tpu_torch.serve.errors import RejectedError
 from redisson_tpu_torch.store import SketchStore
 
-#: tests of tests/test_memstat.py with no counterpart here, and why
-EXCLUDED = {
-    "test_client_memory_facade_requires_device_mode":
-        "it stubs the redis passthrough mode (no memory report); the port "
-        "has the device mode only until the passthrough mode lands (ROADMAP "
-        "queue 1 item 6, second half)",
-}
+#: tests of tests/test_memstat.py with no counterpart here, and why (none)
+EXCLUDED = {}
 
 
 def cpu_client(cfg=None):
@@ -442,6 +437,20 @@ def test_client_memory_parity_end_to_end():
         assert gauges["memstat.live_bytes"] == c.memstat.live_bytes()
         assert gauges["memstat.keys"] == c.memstat.keys_count()
     finally:
+        c.shutdown()
+
+
+def test_client_memory_facade_requires_device_mode():
+    c = cpu_client()
+    try:
+        c._memreport = None  # what the passthrough mode wires
+        c.memstat = None
+        with pytest.raises(RuntimeError, match="MEMORY USAGE"):
+            c.memory_usage("x")
+        with pytest.raises(RuntimeError):
+            c.memory_verify()
+    finally:
+        c._memreport = None
         c.shutdown()
 
 

@@ -2,16 +2,11 @@
 interop/topology_redis.py) on the CPU: the JAX package's corpora
 tests/test_pool.py, tests/test_topology_redis.py and
 tests/test_cluster_redis.py run against the port through `port_corpus`
-(see tests/test_torch_interop.py), then the client's `_make_resp_pool`
-branches driven through the durability tier.
-
-The corpora's tests that build a passthrough client (JAX's `RedissonTPU`
-with a redis-only config, or its `RedisBackend`) wait for the passthrough
-mode (ROADMAP queue 1 item 6, second half) and are in `EXCLUDED`. Their
-counterparts here drive the same topology under the durability tier
-(`use_cuda(device="cpu")` beside the redis section): master/slave,
-sentinel bootstrap and +switch-master, a cluster end to end, and a failed
-cluster bootstrap that leaks no pool or scan thread.
+(see tests/test_torch_interop.py), the passthrough client's tests among
+them (JAX's client class read as `RedissonTorch`), then the client's
+`_make_resp_pool` branches driven through the durability tier:
+master/slave, sentinel bootstrap and +switch-master, a cluster end to end,
+and a failed cluster bootstrap that leaks no pool or scan thread.
 """
 
 import threading
@@ -30,56 +25,38 @@ from redisson_tpu_torch.interop.topology_redis import (ClusterRouter,
                                                        SentinelManager)
 from redisson_tpu_torch.ops import crc16
 from tests import test_cluster_redis, test_pool, test_topology_redis
-from tests.test_torch_interop import corpus_tests, port_corpus
+from tests.test_torch_interop import (CLIENT_ALIASES, CLIENT_EXTRA,
+                                      corpus_tests, port_corpus)
 
-_PASSTHROUGH = ("needs the passthrough client (ROADMAP queue 1 item 6, "
-                "second half)")
-
-#: tests of tests/test_pool.py with no counterpart run unchanged, and why
-EXCLUDED_POOL = {
-    "test_blocking_queue_redis_mode_poll_timeout": _PASSTHROUGH,
-    "test_blocking_queue_redis_mode_take_and_wakeup": _PASSTHROUGH,
-    "test_blocking_queue_redis_mode_immediate": _PASSTHROUGH,
-    "test_brpoplpush_redis_mode": _PASSTHROUGH,
-}
+#: tests of tests/test_pool.py with no counterpart run unchanged (none)
+EXCLUDED_POOL = {}
 
 #: tests of tests/test_topology_redis.py with no counterpart run
-#: unchanged, and why
-EXCLUDED_TOPOLOGY = {
-    "test_client_facade_over_master_slave":
-        _PASSTHROUGH + "; test_durability_over_master_slave drives the same "
-        "router under the durability tier",
-    "test_topic_wakeups_survive_failover": _PASSTHROUGH + " (RTopic over RESP)",
-    "test_sentinel_bootstrap_and_routing":
-        _PASSTHROUGH + "; see test_durability_sentinel_bootstrap",
-    "test_sentinel_switch_master_event":
-        _PASSTHROUGH + "; see test_durability_follows_switch_master",
-    "test_sentinel_slave_events_update_rotation":
-        _PASSTHROUGH + "; see test_durability_sentinel_slave_events",
-    "test_blpop_parked_on_master_survives_failover":
-        _PASSTHROUGH + " (interop/backend_redis.RedisBackend)",
-    "test_blpop_timeout_preserved_across_failover":
-        _PASSTHROUGH + " (interop/backend_redis.RedisBackend)",
-    "test_blocking_pop_loss_window_counter_exposed":
-        _PASSTHROUGH + " (the RedisBackend's gauge)",
-}
+#: unchanged (none)
+EXCLUDED_TOPOLOGY = {}
 
-#: tests of tests/test_cluster_redis.py with no counterpart run unchanged,
-#: and why
-EXCLUDED_CLUSTER = {
-    "test_client_end_to_end_over_cluster":
-        _PASSTHROUGH + "; see test_durability_end_to_end_over_cluster",
-    "test_create_against_non_cluster_does_not_leak":
-        _PASSTHROUGH + "; see test_durability_create_against_non_cluster_"
-        "does_not_leak",
-    "test_coordination_pubsub_follows_cluster_topology":
-        _PASSTHROUGH + " (interop/coordination_redis)",
-}
+#: tests of tests/test_cluster_redis.py with no counterpart run unchanged
+#: (none)
+EXCLUDED_CLUSTER = {}
 
-_CORPUS = {**port_corpus(test_pool, EXCLUDED_POOL, "pool"),
-           **port_corpus(test_topology_redis, EXCLUDED_TOPOLOGY, "topology"),
-           **port_corpus(test_cluster_redis, EXCLUDED_CLUSTER, "cluster")}
+_CORPUS = {**port_corpus(test_pool, EXCLUDED_POOL, "pool", CLIENT_EXTRA,
+                         CLIENT_ALIASES),
+           **port_corpus(test_topology_redis, EXCLUDED_TOPOLOGY, "topology",
+                         CLIENT_EXTRA, CLIENT_ALIASES),
+           **port_corpus(test_cluster_redis, EXCLUDED_CLUSTER, "cluster",
+                         CLIENT_EXTRA, CLIENT_ALIASES)}
 globals().update(_CORPUS)
+
+
+@pytest.fixture()
+def rclient():
+    """test_pool.py's fixture on the port: a passthrough client."""
+    with EmbeddedRedis() as server:
+        cfg = Config()
+        cfg.use_redis().address = f"redis://127.0.0.1:{server.port}"
+        c = RedissonTorch.create(cfg)
+        yield c
+        c.shutdown()
 
 
 @pytest.fixture()
