@@ -201,9 +201,18 @@ Phases, each of which fails the run on error:
      (about 256 sketches) migrated to shard 1 while two writers PFADD into
      those sketches (held at a barrier, not timed), then add_shard() and
      256 slots of shard 2 moved into it: every acknowledged PFADD present
-     (a reference fed exactly those batches), no future lost; a fresh
-     5-shard facade on the directory recovers the slot table and the
-     registers; (6) on that facade, one RESP server per shard: 8 raw
+     (a reference fed exactly those batches), no future lost; (ha)
+     shard-level HA on a second cluster, Redis Cluster's 2 masters with one
+     replica each (replicas_per_shard=1, four engines on cuda:0): 256 of the
+     sketches and a 2^27-bit day (8M SETBITs) caught up by both replicas bit
+     for bit; shard 0's primary executor killed under a writer and its
+     replica promoted: its slots kept, every acknowledged PFADD present (a
+     sort client fed exactly those batches), writes resumed on the
+     promotee, countWith over shard 0's sketches (merge_stack) equal, BITCOUNT
+     computed on the promotee after one more SETBIT (a popcount launch of its
+     own), failovers 1, and a rejoined replica caught up, listed in
+     CLUSTER SLOTS; a fresh 5-shard facade on the directory recovers the
+     slot table and the registers; (6) on that facade, one RESP server per shard: 8 raw
      sockets (the port's resp_encode / RespParser) read CLUSTER SLOTS and
      pipeline PFADD of 1024 sketches x 4,000 12-byte keys (cut from 40,000:
      RESP carries keys as bulk strings) to the owning servers, registers
@@ -212,7 +221,8 @@ Phases, each of which fails the run on error:
      imports it; PFCOUNT of the {t} keys, BITCOUNT and BITOP over the wire
      equal the in-process answers; wire.commands equal to the commands
      sent. Seconds, keys/s, migration seconds and stats, redirects, wire
-     bytes and commands/s are printed, never checked.
+     bytes and commands/s, the HA catch-up and failover seconds and replay
+     keys/s are printed, never checked.
  21. geo replication (geo/; run after 20): Redis Enterprise's
      Active-Active database as its documentation describes it, two
      participating clusters with conflict-free merge and add-wins
@@ -478,6 +488,13 @@ CL_WIRE_KEY_BYTES = 12
 CL_WIRE_SOCKETS = 8
 CL_WIRE_PIPELINE = 64  # commands in flight per socket (the cap is 128)
 CL_WAIT_S = 120.0
+# Phase 20's "ha" step: a second cluster, Redis Cluster's smallest HA
+# layout (2 masters, one replica each: four engines on cuda:0).
+CL_HA_DIR = os.path.join(CL_DIR, "ha")
+CL_HA_SKETCHES = 256  # the first of cl_data's sketches, over both shards by slot
+CL_HA_WRITE_SKETCHES = 64  # further sketches of shard 0 the writer PFADDs into
+CL_HA_WRITE_MIN = 8  # acknowledged writer PFADDs before the kill, and after
+CL_HA_WRITE_MAX = 4000  # the writer's cap (it stops once the checks have run)
 
 # Phase 21: Redis Enterprise's Active-Active (CRDT) database, two
 # participating clusters on one card: sites A and B, each journaling under
@@ -678,6 +695,7 @@ def check_kernels(seed: int, deferred: list):
                              flag.data_ptr(), 0, stream))
                 if rc:
                     raise RuntimeError(f"seg_insert launch failed: CUDA error {rc}")
+            raw.counted = False  # a direct foreign call: no wrapper counts it
             what = f"{blocks} x {cluster} shared" if blocks else "direct"
             deferred.append((f"seg_insert {what} kernel at [{lanes}] lanes", {}, "device_ms",
                              raw, sketch, 10))
@@ -774,6 +792,7 @@ def check_merge(g, deferred: list) -> dict:
                            ok._stream(b))
                 if rc:
                     raise RuntimeError(f"merge_stack launch failed: CUDA error {rc}")
+            raw.counted = False  # a direct foreign call: no wrapper counts it
             deferred.append((f"merge_stack grid {threads} threads x {cluster} at S={s}",
                              {}, "device_ms", raw, src, 10))
         if s not in (B3_SKETCHES + 1, MERGE_N + 1):
@@ -1532,13 +1551,20 @@ def ring_ms(fn, bufs) -> float:
     return start.elapsed_time(end) / (len(bufs) - 1)
 
 
-def device_ms(fn, bufs):
+#: the one event of a device_ms result timed between CUDA events
+CUDA_EVENTS = "cuda events around each call"
+
+
+def device_ms(fn, bufs, counted: bool = False):
     """Device time per call of `fn(buf)` over distinct buffers, from
     torch.profiler's kernel and memset events (host issue excluded), after a
     warm-up on the first -> (total ms per call, {event: ms per call}). Each
     event of a call runs once per call; its time is the mean over the
     occurrences the profiler recorded, which may be fewer than the calls
-    (it can drop events), so a dropped event does not thin the mean."""
+    (it can drop events), so a dropped event does not thin the mean.
+    Where the profiler records nothing three times, each call is timed
+    between CUDA events instead ({CUDA_EVENTS: ms}); `counted` says `fn`
+    goes through a kernel wrapper, which must then count a launch a call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1564,7 +1590,25 @@ def device_ms(fn, bufs):
         log(f"torch.profiler recorded no device time in window {attempt + 1}; "
             "tracing again on the same buffers (already merged into)")
     if not parts:
-        raise AssertionError("torch.profiler recorded no device time")
+        # Three empty windows in a row (seen once in a run of ~80
+        # windows): time each call between CUDA events instead. The
+        # window then also holds the call's launch gap.
+        marks = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True)) for _ in bufs[1:]]
+        before = sum(all_launches().values())
+        for (start, end), b in zip(marks, bufs[1:]):
+            start.record()
+            fn(b)
+            end.record()
+        torch.cuda.synchronize()
+        launched = sum(all_launches().values()) - before
+        if counted and launched < calls:
+            raise AssertionError(f"{launched} kernel launches counted in {calls} calls "
+                                 "timed between CUDA events")
+        ms = sum(start.elapsed_time(end) for start, end in marks) / calls
+        log(f"torch.profiler recorded no device time in 3 windows; CUDA events "
+            f"around each call instead: {ms:.5f} ms per call")
+        return ms, {CUDA_EVENTS: ms}
     if any(n != calls for n in seen.values()):
         log(f"torch.profiler recorded {json.dumps(seen)} events of {calls} calls")
     return sum(parts.values()), parts
@@ -3697,7 +3741,7 @@ def wait_state(what: str, pred, timeout_s: float = RP_WAIT_S) -> None:
     t0 = time.perf_counter()
     while not pred():
         if time.perf_counter() - t0 > timeout_s:
-            raise AssertionError(f"phase 19: no {what} within {timeout_s} s")
+            raise AssertionError(f"no {what} within {timeout_s} s")
         time.sleep(0.005)
 
 
@@ -4165,6 +4209,11 @@ def cl_name(prefix: str, table, shard: int) -> str:
     return f"{prefix}{i}"
 
 
+def shard_primary(shard):
+    """The shard's live engine: its fleet's promotee after a failover."""
+    return shard.replicas.primary_client if shard.replicas else shard.client
+
+
 def owner_rows(c) -> dict:
     """name -> registers of every HLL, read from the shard that owns its
     slot (a migrated sketch's old row stays behind on the source)."""
@@ -4173,7 +4222,7 @@ def owner_rows(c) -> dict:
     table = c.cluster.router.slot_table()
     out = {}
     for sid, shard in c.cluster.shards.items():
-        bank, rows = shard.client.to_numpy_state()
+        bank, rows = shard_primary(shard).to_numpy_state()
         for name, row in rows.items():
             if table[key_slot(name)] == sid:
                 out[name] = bank[row]
@@ -4429,6 +4478,250 @@ def cl_migrate(c, ref, data, seed: int, card: str) -> dict:
             "acked": len(acked), "stats": stats, "redirects": info["redirects"]}
 
 
+def cl_ha_config():
+    """The "ha" step's deployment: Redis Cluster's 2 masters with one
+    replica each (`replicas_per_shard=1`, `use_replicas(1)` the per-shard
+    template), each shard journaling under CL_HA_DIR (fsync the phase's
+    default). The probe is off: the failover is driven by hand."""
+    from redisson_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.use_cuda(ingest="segment")
+    cfg.use_cluster(num_shards=2, dir=CL_HA_DIR, replicas_per_shard=1)
+    rc = cfg.use_replicas(1)
+    rc.health_interval_s = 0.0
+    rc.poll_interval_s = 0.002
+    return cfg
+
+
+def cl_fleet_caught_up(h) -> bool:
+    """Every fleet member of every shard has applied its primary's journal
+    to the tip (`lag() == 0`)."""
+    fleets = [s.replicas for s in h.cluster.shards.values()]
+    return all(f.replicas and all(r.lag() == 0 and r.applied_seq
+                                  >= f.router.journal.last_seq for r in f.replicas)
+               for f in fleets)
+
+
+def cl_fleet_same(h, what: str) -> int:
+    """Each replica's bank rows and cells bit-identical to its primary's,
+    every state tensor on the card -> fleet members checked."""
+    n = 0
+    for sid, shard in h.cluster.shards.items():
+        want = rp_state(shard_primary(shard))
+        for rep in shard.replicas.replicas:
+            if not on_card(rep.client):
+                raise AssertionError(f"a state tensor of shard {sid}'s {rep.name} "
+                                     "is not on the card")
+            same_state(rp_state(rep.client), want, f"{what}: shard {sid} {rep.name}")
+            n += 1
+    return n
+
+
+def cl_fleet_entries(h, what: str) -> None:
+    """CLUSTER SLOTS lists one fleet member for each shard's ranges."""
+    per_shard = {}
+    for _start, _end, sid, reps in h.cluster_slots():
+        per_shard.setdefault(sid, set()).update(e["id"] for e in reps)
+    if sorted(per_shard) != [0, 1] or any(len(v) != 1 for v in per_shard.values()):
+        raise AssertionError(f"{what}: CLUSTER SLOTS fleet members {per_shard}")
+
+
+def cl_ha(seed: int, card: str, data) -> dict:
+    """Step 6: shard-level HA. A second cluster (cl_ha_config) takes
+    CL_HA_SKETCHES of the sketches and one 2^27-bit day (8M SETBITs) on
+    shard 0; both replicas catch up bit for bit. A writer PFADDs into
+    shard 0's further sketches while shard 0's primary executor is killed
+    and its replica promoted: the slots stay owned, every acknowledged
+    PFADD is present (a sort client on the card fed exactly the
+    acknowledged batches), writes resume, countWith (merge_stack) agrees,
+    the promotee computes BITCOUNT after one more SETBIT (a popcount launch
+    of its own), and the rejoined replica catches up."""
+    import itertools
+    import shutil
+    import threading
+
+    from redisson_tpu_torch.client import RedissonTorch
+    from redisson_tpu_torch.ops.crc16 import key_slot
+
+    names, batches = data[0][:CL_HA_SKETCHES], data[1][:CL_HA_SKETCHES]
+    shutil.rmtree(CL_HA_DIR, ignore_errors=True)
+    h = RedissonTorch.create(cl_ha_config())
+    try:
+        mgr = h.cluster
+        s0 = mgr.shards[0]
+        table = mgr.router.slot_table()
+        owners = np.bincount([table[key_slot(n)] for n in names], minlength=2)
+        if (owners == 0).any():
+            raise AssertionError(f"a shard owns none of the sketches: {owners.tolist()}")
+        extra = list(itertools.islice(
+            (n for n in (f"ha:w{j}" for j in itertools.count())
+             if table[key_slot(n)] == 0), CL_HA_WRITE_SKETCHES))
+        day = cl_name("ha:day", table, 0)
+        ids = np.random.default_rng(seed + 3).integers(0, DAY_BITS, DAY_SETS)  # day 0
+        cl_fleet_entries(h, "before the kill")
+        reset_all_launches()
+        t0 = time.perf_counter()
+        b = h.create_batch()
+        for n, keys in zip(names, batches):
+            b.get_hyper_log_log(n).add_ints_async(keys)
+        b.execute()
+        h.get_bit_set(day).set_bits(ids)
+        wait_state("fleet catch-up", lambda: cl_fleet_caught_up(h), CL_WAIT_S)
+        catch_up = time.perf_counter() - t0
+        nkeys = CL_HA_SKETCHES * KEYS + DAY_SETS
+        cl_fleet_same(h, "after the catch-up")
+        bitcount = h.get_bit_set(day).cardinality()
+        owned = s0.guard.owned_slots()
+        parts = {"writes + catch-up": time.perf_counter() - t0}
+        t_part = time.perf_counter()
+
+        acked, errors, stop = [], [], threading.Event()
+
+        def writer() -> None:
+            for j in range(CL_HA_WRITE_MAX):
+                if stop.is_set():
+                    return
+                name = extra[j % len(extra)]
+                keys = keys_for((1 << 51) + j * CL_WRITE_KEYS, CL_WRITE_KEYS, seed)
+                try:
+                    h.get_hyper_log_log(name).add_ints(keys)
+                    acked.append((name, keys))
+                except Exception as exc:  # noqa: BLE001 — its fate is held to the acks below
+                    errors.append(repr(exc))
+                    time.sleep(0.001)
+
+        t = threading.Thread(target=writer, daemon=True)
+        t.start()
+        try:
+            wait_state("writer PFADDs before the kill",
+                       lambda: len(acked) >= CL_HA_WRITE_MIN, CL_WAIT_S)
+            s0.client._executor.shutdown(wait=False)  # shard 0's primary dies
+            t1 = time.perf_counter()
+            promoted = s0.replicas.failover("phase 20: shard 0's primary killed")
+            failover_s = time.perf_counter() - t1
+            if promoted is None:
+                raise AssertionError("failover() promoted no replica")
+            at_failover = len(acked)
+            # Until every writer sketch holds an acknowledged PFADD, and
+            # CL_HA_WRITE_MIN more came back from the promotee.
+            wait_state("writer PFADDs after the failover",
+                       lambda: (len(acked) >= at_failover + CL_HA_WRITE_MIN
+                                and len({n for n, _ in acked}) == len(extra))
+                       or not t.is_alive(), CL_WAIT_S)
+        finally:
+            stop.set()
+            t.join(CL_WAIT_S)
+        if t.is_alive():
+            raise AssertionError("the writer hung")
+        if (len(acked) < at_failover + CL_HA_WRITE_MIN
+                or len({n for n, _ in acked}) != len(extra)):
+            raise AssertionError(f"writes did not resume after the failover: "
+                                 f"{len(acked) - at_failover} acknowledged, {errors[-3:]}")
+        if s0.guard.owned_slots() != owned:
+            raise AssertionError("shard 0's owned slots changed across the failover")
+        parts["writer + failover"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+        fence = s0.replicas.last_fence_seq
+        post = keys_for(1 << 52, KEYS, seed)
+        h.get_hyper_log_log(extra[0]).add_ints(post)  # a write after the failover
+        acked.append((extra[0], post))
+        journal = promoted.persist.journal
+        if journal.last_seq <= fence:
+            raise AssertionError(f"the promotee's journal ends at {journal.last_seq}, "
+                                 f"at or before the fence {fence}")
+        mine = [n for n in names if table[key_slot(n)] == 0] + extra
+        count_with = h.get_hyper_log_log(mine[0]).count_with(*mine[1:])
+        # A SETBIT on the promotee: its BITCOUNT is computed there, not
+        # answered from the read cache it filled as a replica.
+        taken = np.zeros(min(DAY_BITS, 1 << 16), bool)
+        taken[ids[ids < taken.size]] = True
+        if taken.all():
+            raise AssertionError(f"the day sets all of its first {taken.size} bits")
+        fresh = int(np.argmin(taken))  # the first bit the day has not set
+        h.get_bit_set(day).set(fresh)
+        pc0 = all_launches()["popcount_partials"]
+        bitcount_after = h.get_bit_set(day).cardinality()
+        promotee_popcounts = all_launches()["popcount_partials"] - pc0
+        info = h.cluster_info()
+        parts["promotee's writes and reads"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+        s0.replicas.rejoin()
+        wait_state("the rejoined replica's catch-up", lambda: cl_fleet_caught_up(h),
+                   CL_WAIT_S)
+        launches = all_launches()
+        parts["rejoin + catch-up"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+        cl_fleet_same(h, "after the rejoin")
+        cl_fleet_entries(h, "after the failover and the rejoin")
+        got = owner_rows(h)
+        day_cells = shard_primary(s0).to_numpy_objects()[day][1]
+        parts["state reads"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+    finally:
+        h.shutdown()
+        shutil.rmtree(CL_HA_DIR, ignore_errors=True)
+    parts["shutdown"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    ref = RedissonTorch.create(card_config("sort"))
+    try:
+        futs = [ref.get_hyper_log_log(n).add_ints_async(k)
+                for n, k in list(zip(names, batches)) + acked]
+        [f.result() for f in futs]
+        want = ref.to_numpy_state()
+        ref_count = ref.get_hyper_log_log(mine[0]).count_with(*mine[1:])
+    finally:
+        ref.shutdown()
+    parts["reference"] = time.perf_counter() - t_part
+    wbank, wrows = want
+    if set(got) != set(wrows):
+        raise AssertionError(f"after the failover: sketches {sorted(set(got) ^ set(wrows))[:5]} "
+                             "are in only one of the cluster and the reference")
+    bad = [n for n in wrows if not np.array_equal(got[n], wbank[wrows[n]])]
+    if bad:
+        above = sum(bool((got[n] >= wbank[wrows[n]]).all()) for n in bad)
+        raise AssertionError(
+            f"after the failover: registers of {len(bad)} sketches differ from the "
+            f"reference fed the {len(acked)} acknowledged PFADDs, e.g. {bad[:3]}; "
+            f"{above} of them only above it (a PFADD that failed at the writer "
+            f"landed), {len(bad) - above} below it (an acknowledged PFADD lost); "
+            f"{len(errors)} writer PFADDs failed, e.g. {errors[:3]}")
+    if count_with != ref_count:
+        raise AssertionError(f"countWith over shard 0's {len(mine)} sketches "
+                             f"{count_with}, the reference's {ref_count}")
+    if bitcount_after != bitcount + 1 or bitcount != len(np.unique(ids)):
+        raise AssertionError(f"BITCOUNT {bitcount} before the kill, {bitcount_after} "
+                             f"on the promotee after one more SETBIT, "
+                             f"{len(np.unique(ids))} set")
+    if promotee_popcounts < 1:
+        raise AssertionError("the promotee's BITCOUNT launched no popcount_partials")
+    if (int(day_cells.sum()) != bitcount + 1 or not day_cells[ids].all()
+            or not day_cells[fresh]):
+        raise AssertionError("the promotee's day cells differ from numpy's")
+    if info["failovers"] != 1:
+        raise AssertionError(f"cluster_info failovers {info['failovers']}, not 1")
+    for k in ("seg_insert", "merge_stack", "popcount_partials"):
+        if not launches[k]:
+            raise AssertionError(f"the ha step never launched {k}: {launches}")
+    cl_metric(card, "ha: 2 masters x 1 replica, catch-up / failover seconds and "
+              "replica replay keys/s", json.dumps({
+                  "catch_up_s": catch_up, "failover_s": failover_s,
+                  "replay_keys_per_s": nkeys / catch_up}))
+    cl_metric(card, f"ha: writer PFADDs ({CL_WRITE_KEYS} keys) acknowledged / failed "
+              "(fate held to the acks)", f"{len(acked) - 1} / {len(errors)}")
+    cl_metric(card, "ha: kernel launches (both primaries, both replicas, the promotee)",
+              json.dumps(launches))
+    cl_metric(card, "ha: seconds by part", json.dumps(parts))
+    log(f"  ha: 2 shards x 1 replica caught up bit for bit ({nkeys} keys); shard 0's "
+        f"primary killed under a writer, replica promoted in {failover_s:.3f} s; slots "
+        f"kept, {len(acked)} acknowledged PFADDs all present, countWith over "
+        f"{len(mine)} = {count_with} equal, BITCOUNT {bitcount} + 1 after a SETBIT "
+        f"on the promotee ({promotee_popcounts} popcount launches); rejoined replica "
+        "caught up")
+    return {"launches": launches, "catch_up_s": catch_up, "failover_s": failover_s,
+            "keys_per_s": nkeys / catch_up, "acked": len(acked)}
+
+
 def cl_recover(c, card: str):
     """Step 5, last: a fresh facade (now 5 shards) on the same directory
     recovers the same slot table and registers; it starts the RESP servers
@@ -4649,8 +4942,9 @@ def cl_wire(c, seed: int, card: str) -> dict:
 
 
 def cluster_path(seed: int, card: str) -> dict:
-    """Phase 20: the cluster tier and the RESP front-end on cuda:0, each
-    step resetting the launch counters just before it."""
+    """Phase 20: the cluster tier (and, in its "ha" step, a second cluster
+    with a replica per shard) and the RESP front-end on cuda:0, each step
+    resetting the launch counters just before it."""
     import shutil
 
     from redisson_tpu_torch.client import RedissonTorch
@@ -4668,7 +4962,8 @@ def cluster_path(seed: int, card: str) -> dict:
                          ("hll", lambda: cl_hll(c, ref, data, card)),
                          ("merges", lambda: cl_merges(c, ref, data, card)),
                          ("bits", lambda: cl_bits(c, seed, card)),
-                         ("migration", lambda: cl_migrate(c, ref, data, seed, card))):
+                         ("migration", lambda: cl_migrate(c, ref, data, seed, card)),
+                         ("ha", lambda: cl_ha(seed, card, data))):
             t = time.perf_counter()
             out[name] = fn()
             steps[name] = round(time.perf_counter() - t, 3)
@@ -4686,7 +4981,7 @@ def cluster_path(seed: int, card: str) -> dict:
         (fresh or c).shutdown()
         shutil.rmtree(CL_DIR, ignore_errors=True)
     launches = {}
-    for step in ("hll", "merges", "bits", "migration", "wire"):
+    for step in ("hll", "merges", "bits", "migration", "ha", "wire"):
         launches = add_launches(launches, out[step]["launches"])
     out["launches"] = launches
     out["wall_s"] = time.perf_counter() - t_phase
@@ -6160,7 +6455,11 @@ def main() -> int:
     # host more: the device-only times come after every host-timed phase.
     t = time.perf_counter()
     for what, row, key, fn, src, reps in deferred:
-        row[key], parts = device_ms(fn, [src.clone() for _ in range(reps + 1)])
+        row[key], parts = device_ms(fn, [src.clone() for _ in range(reps + 1)],
+                                    counted=(key.startswith("device_ms")
+                                             and getattr(fn, "counted", True)))
+        if CUDA_EVENTS in parts:  # says so in the kernels line too
+            row[key.replace("_ms", "_src")] = "cuda events"
         log(f"{what}: device-only {row[key]:.5f} ms per call, by event: "
             + json.dumps(parts))
     del deferred
@@ -6181,7 +6480,8 @@ def main() -> int:
     dur_l = out["durability"]["recovery"]["launches"]
     # Phase 19: the follower's replay, the fleet's replica reads, the facades.
     rep_l = out["replica"]["launches"]
-    # Phase 20: the cluster's PFADDs, merges, bits, migrations and the wire.
+    # Phase 20: the cluster's PFADDs, merges, bits, migrations, the HA
+    # cluster's writes, replay and failover, and the wire.
     cl_l = out["cluster"]["launches"]
     # Phase 21: both geo sites' local writes and remote applies.
     geo_l = out["geo"]["launches"]

@@ -587,6 +587,10 @@ class TorchBackend:
     def bank_capacity(self) -> int:
         return self._alloc.capacity
 
+    @bank_capacity.setter
+    def bank_capacity(self, v: int) -> None:
+        self._alloc.capacity = v
+
     def attach_mesh(self, mesh, num_shards: int, shard_of=None) -> None:
         """Put the (still lazy) HLL bank onto a logical mesh: its row
         blocks are the mesh entries' shards, and each logical shard has a

@@ -151,6 +151,7 @@ class RedissonTorch:
         self._redis_pubsub = None
         self._redis_watchdog = None
         self._is_shutdown = False
+        self._is_shutting_down = False
         clcfg = self.config.cluster
         if clcfg is not None and clcfg.shard_id == -1:
             # Slot-sharded namespace: this client is the FACADE. It builds
@@ -1137,6 +1138,9 @@ class RedissonTorch:
     def is_shutdown(self) -> bool:
         return self._is_shutdown
 
+    def is_shutting_down(self) -> bool:
+        return self._is_shutting_down
+
     def shutdown(self) -> None:
         """Stop in the JAX client's order: the fault manager (its watchdog
         reads executor internals; in-flight rebuilds finish while the
@@ -1152,6 +1156,15 @@ class RedissonTorch:
         thread."""
         if self._is_shutdown:
             return
+        self._is_shutting_down = True
+        try:
+            self._shutdown_inner()
+        finally:
+            # Flips back even when a teardown step raises: a client that
+            # reports "shutting down" for ever would wedge its callers.
+            self._is_shutting_down = False
+
+    def _shutdown_inner(self) -> None:
         if self.wire is not None:
             # Wire first, in every mode: stop accepting sockets and drain
             # the event loop before the stack underneath starts refusing

@@ -521,6 +521,11 @@ class Config:
     def to_json(self) -> str:
         return json.dumps(self.to_dict(), indent=2)
 
+    def to_yaml(self) -> str:
+        import yaml
+
+        return yaml.safe_dump(self.to_dict())
+
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "Config":
         kwargs: Dict[str, Any] = {}
@@ -538,6 +543,12 @@ class Config:
     @classmethod
     def from_json(cls, text: str) -> "Config":
         return cls.from_dict(json.loads(text))
+
+    @classmethod
+    def from_yaml(cls, text: str) -> "Config":
+        import yaml
+
+        return cls.from_dict(yaml.safe_load(text))
 
 
 #: Config attribute -> section type (the dict round trip's schema)

@@ -354,3 +354,5 @@ HF_EXPORT uint64_t hf_popcount(const uint8_t* bits, int64_t nbytes) {
   for (; i < nbytes; i++) total += (uint64_t)__builtin_popcount(bits[i]);
   return total;
 }
+
+HF_EXPORT const char* hf_version() { return "redisson-tpu-torch native 1.0"; }

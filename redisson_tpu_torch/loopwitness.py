@@ -295,6 +295,41 @@ def loop_witness_reset() -> None:
             st.stalls = []
 
 
+def merge_loop_snapshots(snaps) -> dict:
+    """Merge loop_witness_snapshot() dicts from several runs/processes:
+    runs/beats sum, max/p99 take the max, stall logs concatenate (still
+    capped)."""
+    loops: Dict[str, dict] = {}
+    for snap in snaps:
+        for name, data in snap.get("loops", {}).items():
+            cur = loops.get(name)
+            if cur is None:
+                loops[name] = {
+                    "callbacks": {s: dict(v)
+                                  for s, v in data["callbacks"].items()},
+                    "lag": dict(data["lag"]),
+                    "stalls": list(data["stalls"]),
+                    "stall_threshold_ms": data["stall_threshold_ms"],
+                }
+                continue
+            for site, v in data["callbacks"].items():
+                c = cur["callbacks"].get(site)
+                if c is None:
+                    cur["callbacks"][site] = dict(v)
+                else:
+                    c["runs"] += v["runs"]
+                    c["total_s"] = round(c["total_s"] + v["total_s"], 6)
+                    c["max_s"] = max(c["max_s"], v["max_s"])
+                    c["p99_s"] = max(c["p99_s"], v["p99_s"])
+            cur["lag"]["beats"] += data["lag"]["beats"]
+            cur["lag"]["max_s"] = max(cur["lag"]["max_s"],
+                                      data["lag"]["max_s"])
+            cur["lag"]["p99_s"] = max(cur["lag"]["p99_s"],
+                                      data["lag"]["p99_s"])
+            cur["stalls"] = (cur["stalls"] + list(data["stalls"]))[:_STALL_CAP]
+    return {"version": 1, "loops": loops}
+
+
 def dump_loop_witness(path: Optional[str] = None) -> None:
     """Write the snapshot as JSON (atexit hook when
     REDISSON_TPU_LOOP_WITNESS_OUT names a file — the harvest path of a

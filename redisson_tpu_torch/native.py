@@ -8,8 +8,10 @@ population count (`hll_fold` is the list-of-bytes form the embedded RESP
 server's PFADD folds with, `interop/fake_server.py`). And the RESP2 wire
 codec of the RESP front-end (`wire/`) and of the redis tier's client
 (`interop/`): `resp_encode` / `resp_encode_pipeline` and the incremental
-`RespParser`.
-The port's counterpart of the fold and RESP functions of
+`RespParser`. The batch hashes of byte keys (murmur3 x64 128, xxHash64),
+the CRC16 and the key slot of `redisson_tpu.native` are here too, over
+`ops.hashing` on CPU tensors and `ops.crc16`.
+The port's counterpart of the hash, fold and RESP functions of
 `redisson_tpu.native`, with its own copy of the C++ source.
 
 The library is compiled with `g++` at first use into the package's
@@ -29,8 +31,10 @@ import threading
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
-from redisson_tpu_torch.ops import _build
+from redisson_tpu_torch.ops import _build, hashing
+from redisson_tpu_torch.ops import crc16 as _crc16
 
 SOURCE = _build.CSRC / "host_fold.cpp"
 #: every source compiled into the one library (the fold half, the codec)
@@ -59,6 +63,7 @@ _SIGNATURES = {
     "hf_bloom_contains_rows": [_U8, _I64, _I32, _I64, _SEED, _K,
                                ctypes.c_uint64, _U8, _U8],
     "hf_popcount": [_U8, _I64],
+    "hf_version": [],
     "hf_resp_encode_pipeline": [_U8, ctypes.POINTER(_I64), _I32, _I64,
                                 ctypes.POINTER(_I64)],
     "hf_free": [ctypes.c_void_p],
@@ -70,6 +75,7 @@ _SIGNATURES = {
 }
 _RESTYPES = {
     "hf_popcount": ctypes.c_uint64,
+    "hf_version": ctypes.c_char_p,
     "hf_resp_encode_pipeline": ctypes.c_void_p,
     "hf_resp_parser_new": ctypes.c_void_p,
     "hf_resp_parser_feed": _I64,
@@ -126,6 +132,10 @@ def _load() -> Optional[ctypes.CDLL]:
 def available() -> bool:
     """Whether the library built and loaded (it is built on first call)."""
     return _load() is not None
+
+
+def version() -> str:
+    return _lib_or_raise().hf_version().decode()
 
 
 def _lib_or_raise() -> ctypes.CDLL:
@@ -272,6 +282,50 @@ def bloom_contains_rows(data: np.ndarray, lengths: np.ndarray,
         data.shape[0], seed, k, m, _p(bits, ctypes.c_uint8),
         _p(out, ctypes.c_uint8))
     return out
+
+
+def _padded(keys: Sequence[bytes]):
+    """Byte keys as the hashes take them: ([N, W] uint8 zero-padded, [N]
+    int32 lengths) CPU tensors, W a multiple of 32."""
+    n = len(keys)
+    lengths = np.fromiter((len(k) for k in keys), np.int32, n)
+    w = max(32, -(-int(lengths.max(initial=0)) // 32) * 32)
+    data = np.zeros((n, w), np.uint8)
+    data[np.arange(w)[None, :] < lengths[:, None]] = np.frombuffer(
+        b"".join(keys), np.uint8)
+    return torch.from_numpy(data), torch.from_numpy(lengths)
+
+
+def _u64(x: torch.Tensor) -> np.ndarray:
+    return x.numpy().view(np.uint64)
+
+
+def murmur3_x64_128(keys: Sequence[bytes], seed: int = 0):
+    """Batch MurmurHash3 x64 128 of byte keys -> (h1, h2) uint64 arrays
+    (`ops.hashing` on the CPU)."""
+    h1, h2 = hashing.murmur3_x64_128(*_padded(keys), seed)
+    return _u64(h1), _u64(h2)
+
+
+def xxhash64(keys: Sequence[bytes], seed: int = 0) -> np.ndarray:
+    """Batch xxHash64 of byte keys -> uint64 array (`ops.hashing` on the
+    CPU)."""
+    return _u64(hashing.xxhash64(*_padded(keys), seed))
+
+
+def crc16(data: bytes) -> int:
+    """The Redis CRC16 (CCITT / XMODEM) of `data`."""
+    return _crc16.crc16(data)
+
+
+def keyslot_batch(keys: Sequence[bytes]) -> np.ndarray:
+    """Cluster slot of each byte key ({hashtag} rule) -> int32 array."""
+    return np.fromiter((_crc16.key_slot(k) for k in keys), np.int32, len(keys))
+
+
+def keyslot(key) -> int:
+    """CRC16({hashtag-or-key}) % 16384: the Redis cluster slot."""
+    return _crc16.key_slot(key)
 
 
 def popcount(bits: np.ndarray) -> int:

@@ -137,15 +137,21 @@ class MetricsRegistry:
         with self._lock:
             self._gauges[name] = fn
 
-    def histogram(self, name: str) -> Histogram:
+    def _histogram(self, name: str) -> Histogram:
         with self._lock:
             h = self._histograms.get(name)
             if h is None:
                 h = self._histograms[name] = Histogram()
             return h
 
+    def histogram(self, name: str) -> Histogram:
+        """The named histogram, with every buffered record folded in (a
+        caller reads it: `histogram(name).snapshot()`)."""
+        self._before_read()
+        return self._histogram(name)
+
     def observe(self, name: str, value: float) -> None:
-        self.histogram(name).observe(value)
+        self._histogram(name).observe(value)
 
     def snapshot(self) -> Dict[str, Any]:
         self._before_read()
@@ -441,7 +447,7 @@ class ExecutorMetrics:
             registry.inc_many(counters)
             for name, vals in hists:
                 if vals:
-                    registry.histogram(name).observe_many(vals)
+                    registry._histogram(name).observe_many(vals)
 
     def record_error(self, kind: str) -> None:
         self.registry.inc(f"executor.errors.{kind}")

@@ -74,8 +74,9 @@ def _chunks(bits: torch.Tensor, fill: int = 0) -> torch.Tensor:
 
 def cardinality_partials(bits: torch.Tensor) -> torch.Tensor:
     """Per-chunk int32 popcount partials (each <= 2^20, overflow-proof);
-    the total is combined on the host (`combine_partials`)."""
-    return _chunks(bits).sum(dim=1, dtype=torch.int32)
+    the total is combined on the host (`combine_partials`). A host array
+    (numpy) is counted as a CPU tensor, as JAX's takes one."""
+    return _chunks(torch.as_tensor(bits)).sum(dim=1, dtype=torch.int32)
 
 
 def combine_partials(partials) -> int:

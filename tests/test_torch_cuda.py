@@ -19,8 +19,10 @@ and loading them back onto the card, and load_hll under both hash
 families; the pod tier's per-shard launches (insert, merge-all, BITCOUNT
 past 2^31 set bits on a 2^32-cell array, BITOP, Bloom add) on 4 logical
 shards of cuda:0 against the plain versions, a pod client and a mesh-plane
-merge+count on the card against the CPU. They skip where no card is
-visible. Run them on a
+merge+count on the card against the CPU; a two-shard cluster with a replica
+per shard on cuda:0 through a shard failover, and the mesh plane's SETBIT,
+BITCOUNT and Bloom filter on the card, each against the same sequence on
+the CPU. They skip where no card is visible. Run them on a
 machine with one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -1277,3 +1279,188 @@ def test_mesh_plane_merge_count_on_card_matches_cpu(dev, tmp_path):
         finally:
             c.shutdown()
     assert out[0] == out[1]
+
+
+def _ha_cluster(root, device):
+    """Redis Cluster's smallest HA layout: 2 masters with one replica
+    each (`replicas_per_shard=1`), the probe off."""
+    cfg = Config()
+    cfg.use_cuda(device=device, ingest="segment")
+    cfg.use_cluster(num_shards=2, dir=str(root), replicas_per_shard=1)
+    rc = cfg.use_replicas(1)
+    rc.health_interval_s = 0.0
+    rc.poll_interval_s = 0.002
+    return RedissonTorch.create(cfg)
+
+
+def _ha_caught_up(c, timeout_s=120.0):
+    import time
+
+    deadline = time.monotonic() + timeout_s
+    fleets = [s.replicas for s in c.cluster.shards.values()]
+    while time.monotonic() < deadline:
+        if all(f.replicas and all(r.lag() == 0 and r.applied_seq
+                                  >= f.router.journal.last_seq for r in f.replicas)
+               for f in fleets):
+            return
+        time.sleep(0.005)
+    raise AssertionError("a shard's fleet never caught up")
+
+
+def _ha_owned(c):
+    """(name -> registers, name -> cells) read from each shard's live
+    engine for the slots it owns."""
+    table = c.cluster.router.slot_table()
+    regs, cells = {}, {}
+    for sid, shard in c.cluster.shards.items():
+        live = shard.replicas.primary_client
+        bank, rows = live.to_numpy_state()
+        regs.update({n: bank[r].copy() for n, r in rows.items()
+                     if table[key_slot(n)] == sid})
+        cells.update({n: o[1] for n, o in live.to_numpy_objects().items()
+                      if table[key_slot(n)] == sid})
+    return regs, cells
+
+
+def test_ha_cluster_failover_on_card_matches_cpu(dev, tmp_path):
+    """`replicas_per_shard=1` on cuda:0: each replica bit-identical to its
+    primary after the catch-up; shard 0's primary killed and its replica
+    promoted; the slots kept, and every register, Bloom and bitmap cell
+    after the post-failover writes equal to the same sequence on a CPU
+    cluster, through seg_insert, the segment-OR, merge_stack and the
+    popcount kernel on the card."""
+    rng = np.random.default_rng(44)
+    batches = [rng.integers(0, 2**64, 40_000, dtype=np.uint64) for _ in range(16)]
+    more = [rng.integers(0, 2**64, 40_000, dtype=np.uint64) for _ in range(4)]
+    bloom_keys = rng.integers(0, 2**64, 200_000, dtype=np.uint64)
+    day = rng.integers(0, 1 << 24, 100_000)
+    out = []
+    for device in ("cuda:0", "cpu"):
+        c = _ha_cluster(tmp_path / device.replace(":", ""), device)
+        try:
+            table = c.cluster.router.slot_table()
+            mine = [n for n in (f"ha:{i}" for i in range(400))
+                    if table[key_slot(n)] == 0][:8]
+            names = [f"hll:{i}" for i in range(len(batches))]
+            assert {table[key_slot(n)] for n in names} == {0, 1}
+            ik.reset_launches()
+            ok.reset_launches()
+            for n, b in zip(names, batches):
+                c.get_hyper_log_log(n).add_ints(b)
+            bf = c.get_bloom_filter(mine[0] + ":bf")
+            bf.try_init(1_000_000, 0.01)
+            bf.add_ints(bloom_keys)
+            c.get_bit_set(mine[0] + ":day").set_bits(day)
+            _ha_caught_up(c)
+            for shard in c.cluster.shards.values():
+                want = _state(shard.client)
+                (rep,) = shard.replicas.replicas
+                assert rep.client.device == shard.client.device
+                _same_state(_state(rep.client), want)
+            s0 = c.cluster.shards[0]
+            owned = s0.guard.owned_slots()
+            bits_before = c.get_bit_set(mine[0] + ":day").cardinality()
+            s0.client._executor.shutdown(wait=False)
+            promoted = s0.replicas.failover("card drill")
+            assert promoted is not None and promoted.device.type == torch.device(device).type
+            assert s0.guard.owned_slots() == owned
+            for n, b in zip(mine, more):
+                c.get_hyper_log_log(n).add_ints(b)
+            ok.reset_launches()
+            union = c.get_hyper_log_log(mine[0]).count_with(*mine[1:4])
+            merges = ok.launches["merge_stack"]
+            # A SETBIT on the promotee, so that its BITCOUNT is computed
+            # there and not answered from the read cache of its replica days.
+            fresh = int(np.setdiff1d(np.arange(1 << 16), day)[0])
+            c.get_bit_set(mine[0] + ":day").set(fresh)
+            ok.reset_launches()
+            bits_after = c.get_bit_set(mine[0] + ":day").cardinality()
+            if device != "cpu":
+                assert merges and ok.launches["popcount_partials"] >= 1
+                assert ik.launches["seg_insert"] and ik.launches["bits_insert_segmented"]
+            assert bits_before == len(np.unique(day))
+            assert bits_after == bits_before + 1
+            assert c.cluster_info()["failovers"] == 1
+            out.append((_ha_owned(c), union, bits_after))
+        finally:
+            c.shutdown()
+    ((regs, cells), union, bits), ((cregs, ccells), cunion, cbits) = out
+    assert regs.keys() == cregs.keys() and cells.keys() == ccells.keys()
+    for n in regs:
+        np.testing.assert_array_equal(regs[n], cregs[n], err_msg=n)
+    for n in cells:
+        np.testing.assert_array_equal(cells[n], ccells[n], err_msg=n)
+    assert abs(union - cunion) <= 1e-5 * cunion and bits == cbits
+
+
+def test_mesh_plane_bits_on_card_match_cpu(dev, tmp_path):
+    """The mesh plane's BitSet and Bloom ops on cuda:0: SETBIT, BITCOUNT
+    (the popcount kernel) and a Bloom filter's adds and probes land the
+    same cells and answers as the mesh plane on the CPU."""
+    rng = np.random.default_rng(45)
+    days = [rng.integers(0, 1 << 22, 50_000) for _ in range(4)]
+    bloom_keys = rng.integers(0, 2**64, 100_000, dtype=np.uint64)
+    probe = rng.integers(0, 2**64, 50_000, dtype=np.uint64)
+    out = []
+    for device in ("cuda:0", "cpu"):
+        cfg = Config()
+        cfg.use_cuda(device=device)
+        cfg.use_cluster(num_shards=4, dir=str(tmp_path / device.replace(":", "")),
+                        data_plane="mesh")
+        c = RedissonTorch.create(cfg)
+        try:
+            names = [f"day:{i}" for i in range(len(days))]
+            olds = [c.get_bit_set(n).set_bits(d) for n, d in zip(names, days)]
+            olds.append(c.get_bit_set(names[0]).set_bits(days[1][:1000]))
+            bf = c.get_bloom_filter("mp:bf")
+            bf.try_init(200_000, 0.01)
+            # `added` flags of a threaded host fold follow each thread's
+            # order (ROADMAP queue 3): the cells are compared, not them.
+            assert np.asarray(bf.add_ints(bloom_keys)).any()
+            ok.reset_launches()
+            counts = [c.get_bit_set(n).cardinality() for n in names]
+            if device != "cpu":
+                assert ok.launches["popcount_partials"] >= len(names)
+            hits = bf.contains_count_ints(np.concatenate([bloom_keys[:1000], probe]))
+            cells = {n: c._dispatch.execute_sync(n, "bits_export", None)[1]
+                     for n in names + ["mp:bf"]}
+            out.append(([np.asarray(o) for o in olds], counts, hits, cells))
+        finally:
+            c.shutdown()
+    (olds, counts, hits, cells), (colds, ccounts, chits, ccells) = out
+    for a, b in zip(olds, colds):
+        np.testing.assert_array_equal(a, b)
+    assert counts == ccounts
+    assert counts == [len(np.unique(np.concatenate([days[0], days[1][:1000]])))] + [
+        len(np.unique(d)) for d in days[1:]]
+    assert hits == chits
+    for n in cells:
+        np.testing.assert_array_equal(cells[n], ccells[n], err_msg=n)
+
+
+def test_device_ms_cuda_event_fallback(dev, monkeypatch):
+    """chip_smoke.device_ms where torch.profiler records nothing: each call
+    is timed between CUDA events and labelled so; with `counted` a call
+    must count a launch on a kernel wrapper, so a plain torch call fails
+    that check and the popcount wrapper passes it."""
+    import contextlib
+
+    import torch.profiler
+
+    import chip_smoke
+
+    class Empty:
+        def key_averages(self):
+            return []
+
+    monkeypatch.setattr(torch.profiler, "profile",
+                        lambda *a, **k: contextlib.nullcontext(Empty()))
+    bufs = [torch.zeros(1 << 20, device=dev) for _ in range(4)]
+    ms, parts = chip_smoke.device_ms(lambda b: b.add_(1), bufs)
+    assert ms > 0 and list(parts) == [chip_smoke.CUDA_EVENTS]
+    with pytest.raises(AssertionError, match="kernel launches counted"):
+        chip_smoke.device_ms(lambda b: b.add_(1), bufs, counted=True)
+    cells = [torch.randint(0, 256, (1 << 20,), dtype=torch.uint8, device=dev)
+             for _ in range(4)]
+    ms, parts = chip_smoke.device_ms(ok.popcount_partials, cells, counted=True)
+    assert ms > 0 and list(parts) == [chip_smoke.CUDA_EVENTS]

@@ -47,7 +47,7 @@ from redisson_tpu.interop.durability import DurabilityManager as JDurability
 from redisson_tpu.interop.fake_server import EmbeddedRedis as JEmbeddedRedis
 from redisson_tpu_torch import native
 from redisson_tpu_torch.client import RedissonTorch
-from redisson_tpu_torch.config import Config, RedisConfig
+from redisson_tpu_torch.config import Config, CudaConfig, RedisConfig
 from redisson_tpu_torch.interop import hyll
 from redisson_tpu_torch.interop.durability import DurabilityManager
 from redisson_tpu_torch.interop.fake_server import EmbeddedRedis
@@ -194,7 +194,9 @@ def port_corpus(mod, excluded, prefix, extra=(), aliases=None,
     path -> {JAX name: port object}) names what the port spells
     differently, such as the client class. `overrides` replaces module
     helpers the tests call (a client factory on the CPU), as a redefined
-    fixture replaces a corpus fixture."""
+    fixture replaces a corpus fixture. A `Test<Name>` class comes out as
+    `Test_<prefix>__<Name>` with its methods rebound; `excluded` names one
+    of its methods as `Test<Name>::test_<name>`."""
     ns = {}
     for key, value in vars(mod).items():
         ns[key] = _port_value(value, extra, aliases)
@@ -210,23 +212,47 @@ def port_corpus(mod, excluded, prefix, extra=(), aliases=None,
             ns[key] = type(value.__name__, value.__bases__, body)
     ns.update(overrides or {})
     unported = {k for k, v in ns.items() if isinstance(v, Unported)}
+
+    def check(key, fn):
+        used = _code_names(fn.__code__) & unported
+        if used:
+            raise AssertionError(f"{mod.__name__}::{key} needs {sorted(used)}; "
+                                 "list it in EXCLUDED")
+
     out = {}
     for key, value in vars(mod).items():
+        if (key.startswith("Test") and isinstance(value, type)
+                and value.__module__ == mod.__name__):
+            cls = ns[key]
+            for name, fn in list(vars(cls).items()):
+                if not name.startswith("test_"):
+                    continue
+                if f"{key}::{name}" in excluded:
+                    delattr(cls, name)
+                else:
+                    check(f"{key}::{name}", fn)
+            out[f"Test_{prefix}__{key[len('Test'):]}"] = cls
+            continue
         if not key.startswith("test_") or not isinstance(value, types.FunctionType):
             continue
         if key in excluded:
             continue
-        used = _code_names(value.__code__) & unported
-        if used:
-            raise AssertionError(f"{mod.__name__}::{key} needs {sorted(used)}; "
-                                 "list it in EXCLUDED")
+        check(key, value)
         out[f"test_{prefix}__{key[len('test_'):]}"] = ns[key]
     return out
 
 
 def corpus_tests(mod) -> set:
-    return {k for k, v in vars(mod).items()
-            if k.startswith("test_") and isinstance(v, types.FunctionType)}
+    """The corpus's tests: `test_<name>` functions, and `Class::test_<name>`
+    for the methods of its `Test*` classes."""
+    names = set()
+    for k, v in vars(mod).items():
+        if k.startswith("test_") and isinstance(v, types.FunctionType):
+            names.add(k)
+        elif (k.startswith("Test") and isinstance(v, type)
+              and v.__module__ == mod.__name__):
+            names |= {f"{k}::{m}" for m in vars(v) if m.startswith("test_")}
+    return names
 
 
 # ---------------------------------------------------------------------------
@@ -276,6 +302,42 @@ EXCLUDED_COMPAT = {
 CLIENT_EXTRA = ("redisson_tpu.client", "redisson_tpu.config",
                 "redisson_tpu.executor")
 CLIENT_ALIASES = {"redisson_tpu.client": {"RedissonTPU": RedissonTorch}}
+
+
+class CpuConfig(Config):
+    """A corpus's `Config` on the CPU: the compute section is
+    `use_cuda(device="cpu")` unless the corpus passes one, and the JAX
+    spellings of that section (`tpu=`, `use_tpu()`) name it."""
+
+    def __init__(self, *args, tpu=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        if tpu is not None:
+            self.cuda = tpu
+        elif self.cuda is None and self.pod is None:
+            self.cuda = CudaConfig(device="cpu")
+
+    def use_tpu(self, **overrides) -> CudaConfig:
+        return self.use_cuda(**overrides)
+
+
+def cpu_tpu_config(**overrides) -> CudaConfig:
+    """A corpus's `TpuConfig(...)` on the CPU."""
+    return CudaConfig(**{"device": "cpu", **overrides})
+
+
+class CpuRedisson(RedissonTorch):
+    """A corpus's `RedissonTPU`: `create()` with no config is a client on
+    the CPU (the port's default is the card)."""
+
+    @classmethod
+    def create(cls, config=None):
+        return RedissonTorch.create(CpuConfig() if config is None else config)
+
+
+#: the corpora's client class and config on the CPU
+CPU_ALIASES = {"redisson_tpu.client": {"RedissonTPU": CpuRedisson},
+               "redisson_tpu.config": {"Config": CpuConfig,
+                                       "TpuConfig": cpu_tpu_config}}
 
 _CORPUS = {**port_corpus(test_interop, EXCLUDED_INTEROP, "interop",
                          CLIENT_EXTRA, CLIENT_ALIASES),
