@@ -272,9 +272,11 @@ Phases, each of which fails the run on error:
      the Bloom cells apart from np.packbits and the phase's wall seconds
      are printed, never checked.
  23. the pod tier and the mesh data plane (parallel/, cluster/ mesh
-     plane): a pod client (use_pod(num_shards=4, bank_capacity=1024), four
-     logical shards on cuda:0, one tensor per sharded array whose row
-     blocks or cell ranges are the shards). (1) The HLL path's 1024 x
+     plane): a pod client (use_pod(num_shards=4, bank_capacity=1024): four
+     mesh entries, entry i on cuda:{i % cards}, each entry's rows of the
+     bank and cells of every BitSet and Bloom a tensor of its own; on one
+     card four tensors of cuda:0; each array's blocks printed with their
+     card and bytes). (1) The HLL path's 1024 x
      40,000 keys (a 64 MiB bank, 256 rows per shard; one seg_insert per
      shard per chunk) and 64 of the sketches again as 8-byte strings
      (hashed on the card, no register rises): the bank bit-identical to
@@ -290,7 +292,13 @@ Phases, each of which fails the run on error:
      the old values, LENGTH 2^32, set_range [0, 2^31 + 2^20] and BITCOUNT
      equal to the host's exact count past 2^31 (per-shard popcount
      partials, an int64 combine); BITOP OR and AND of two 2^27-bit days
-     against numpy. (4) `use_cluster(num_shards=4, data_plane="mesh")`
+     against numpy. (4) With two cards or more, steps 1-3 ran over
+     min(4, cards) cards, and a child process that sees one card
+     (`--pod-one-card`) runs step 1 again on four tensors of that card:
+     PFADD keys/s, PFMERGE+count ms and reshard seconds of both printed
+     side by side with every card's name and power limit; on one card a
+     line says the step did not run. (5) On one card,
+     `use_cluster(num_shards=4, data_plane="mesh")`
      with phase 20's keys and layout against the stacks plane on the same
      sequence: replies (128 PFCOUNTs among them) and every register
      equal, collective_merges > 0,
@@ -298,7 +306,8 @@ Phases, each of which fails the run on error:
      to shard 1 under two writers, every acknowledged PFADD present, rows
      relocated on the card. seg_insert, merge_stack,
      bits_insert_segmented, popcount_partials and bitop_cells must launch
-     in (1)-(3). Keys/s, merge ms, reshard and migration seconds are
+     in (1)-(3). (5) does not run on several cards: the mesh plane keeps
+     one bank tensor. Keys/s, merge ms, reshard and migration seconds are
      printed, never checked. Run alone (`--phase pod`) it makes its own
      `sort` and `scatter` references.
  24. the passthrough mode (interop/backend_redis.py, bloom_redis.py,
@@ -5606,11 +5615,31 @@ def pd_close(what: str, got, want) -> None:
 
 
 def pd_on_card(c) -> bool:
-    """The pod's bank, sharded bit arrays and delegate store on the card."""
+    """The pod's blocks (the bank's and every sharded bit array's), each a
+    tensor of its own on its mesh entry's card, and the delegate store on
+    the mesh's home."""
     be = c._pod_backend()
-    tensors = ([be.bank] + [o.state for o in be._bits.values()]
-               + [be.store.get(n).state for n in be.store.keys()])
-    return all(t.is_cuda for t in tensors)
+    for arr in [be.bank] + [o.state for o in be._bits.values()]:
+        if ([b.device for b in arr.blocks] != list(be.mesh.devices)
+                or not all(b.is_cuda for b in arr.blocks)
+                or len({b.untyped_storage().data_ptr() for b in arr.blocks})
+                != len(arr.blocks)):
+            return False
+    return all(be.store.get(n).state.device == be.mesh.home for n in be.store.keys())
+
+
+def sync_cards() -> None:
+    """Wait for every visible card (a pod's blocks may span several)."""
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def pd_blocks(card: str, what: str, arr) -> None:
+    """Each block of a pod array: its card and bytes."""
+    pd_metric(card, f"{what} blocks (card, bytes)",
+              json.dumps([[str(b.device), int(b.nbytes)] for b in arr.blocks]))
 
 
 def pd_hll(c, ref, seed: int, card: str) -> dict:
@@ -5629,10 +5658,9 @@ def pd_hll(c, ref, seed: int, card: str) -> dict:
     t = time.perf_counter()
     added = [f.result() for f in [c.get_hyper_log_log(n).add_ints_async(b)
                                   for n, b in zip(names, batches)]]
-    import torch
-
-    torch.cuda.synchronize()
+    sync_cards()
     add_s = time.perf_counter() - t
+    pd_blocks(card, "bank", be.bank)
     if not all(added):
         raise AssertionError("phase 23: a first PFADD into an empty sketch reported "
                              "no change")
@@ -5663,7 +5691,7 @@ def pd_hll(c, ref, seed: int, card: str) -> dict:
     for n in (2, PD_SHARDS):
         t = time.perf_counter()
         c._executor.execute_barrier(lambda n=n: be.reshard(n)).result()
-        torch.cuda.synchronize()
+        sync_cards()
         reshard_s[n] = time.perf_counter() - t
         if be.mesh.size != n:
             raise AssertionError(f"phase 23: reshard({n}) left {be.mesh.size} shards")
@@ -5672,7 +5700,8 @@ def pd_hll(c, ref, seed: int, card: str) -> dict:
         pd_close(f"phase 23 PFCOUNT after reshard({n})",
                  pd_counts(c, names[:PD_RESHARD_COUNTS]), counts[:PD_RESHARD_COUNTS])
     if not pd_on_card(c):
-        raise AssertionError("phase 23: a pod state tensor is not on the card")
+        raise AssertionError("phase 23: a pod block is not a tensor of its own on its "
+                             "entry's card")
     for k in ("seg_insert", "merge_stack"):
         if not launches[k]:
             raise AssertionError(f"phase 23 hll never launched {k}: {launches}")
@@ -5703,7 +5732,9 @@ def pd_bloom(c, ref_bloom, seed: int, card: str) -> dict:
     reset_all_launches()
     t = time.perf_counter()
     f, added = bloom_fill(c, "pod:bloom", seed)
+    sync_cards()
     fill_s = time.perf_counter() - t
+    pd_blocks(card, "Bloom filter", c._pod_backend()._bits["pod:bloom"].state)
     hits = sum(f.contains_count_ints(bloom_keys(lo, BLOOM_BATCH, seed))
                for lo in range(0, BLOOM_KEYS, BLOOM_BATCH))
     count = f.count()
@@ -5741,6 +5772,7 @@ def pd_bits(c, seed: int, card: str) -> dict:
     t = time.perf_counter()
     big = c.get_bit_set("pod:big")
     old = big.set_bits(edges)
+    pd_blocks(card, "2^32-bit BitSet", c._pod_backend()._bits["pod:big"].state)
     again = big.set_bits(edges)
     if old.any() or not again.all() or not big.get_bits(edges).all():
         raise AssertionError("phase 23: SETBIT old values at the shard edges are wrong")
@@ -5825,7 +5857,7 @@ def pd_free_rows(backend, shard: int) -> int:
 
 
 def pd_mesh_migrate(c, data, seed: int, card: str) -> dict:
-    """Step 4, last: shard 0's whole slot range migrates live to the shard
+    """Step 5, last: shard 0's whole slot range migrates live to the shard
     whose preferred row block has the most free rows (so the relocation
     has room: a full block leaves rows in place, a placement hint) under
     two writers PFADDing into its sketches; every acknowledged PFADD
@@ -5916,15 +5948,22 @@ def pd_mesh_migrate(c, data, seed: int, card: str) -> dict:
 
 
 def pd_mesh(seed: int, card: str) -> dict:
-    """Step 4: `use_cluster(num_shards=4, data_plane="mesh")` with phase
+    """Step 5: `use_cluster(num_shards=4, data_plane="mesh")` with phase
     20's keys and layout against the stacks plane on the same sequence
     (results and registers equal, as the JAX package's mode-parity test
     holds them); collective_merges > 0; mesh_occupancy() the live sketch
-    count; then the live migration."""
+    count; then the live migration. One card only: the mesh plane keeps
+    one bank tensor, and across cards it is not ported yet."""
     import shutil
 
+    import torch
     from redisson_tpu_torch.config import Config
 
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        log(f"[{card}] phase 23 mesh data plane: not run on {cards} cards (one bank "
+            "tensor; ROADMAP queue 1: the mesh data plane across cards)")
+        return {"launches": {}, "migration": None, "merge_ms": None}
     data = cl_data(seed)
 
     def plane_config(plane: str):
@@ -5980,15 +6019,124 @@ def pd_mesh(seed: int, card: str) -> dict:
             "merge_ms": m_res["merge_ms"]}
 
 
+PD_ONE_CARD_TIMEOUT_S = 300
+PD_WARM_ROWS = 80  # rows a block of the warm-up pod: past a 64-entry row list
+
+
+def pd_warm() -> None:
+    """A small pod on the phase's mesh, run once before the timed steps: a
+    card's first launch of each kernel loads its module there, and its
+    first peer copy opens the peer path, so each card's start-up stays
+    out of the figures (on several cards, steps 1-3 are those cards' first
+    work)."""
+    from redisson_tpu_torch.client import RedissonTorch
+    from redisson_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.use_pod(num_shards=PD_SHARDS, bank_capacity=PD_SHARDS * PD_WARM_ROWS)
+    c = RedissonTorch.create(cfg)
+    try:
+        be = c._pod_backend()
+        names = [f"warm:{i}" for i in range(PD_SHARDS * PD_WARM_ROWS)]
+        [f.result() for f in [c.get_hyper_log_log(n).add_ints_async(keys_for(i, 100, 0))
+                              for i, n in enumerate(names)]]
+        c.get_hyper_log_log(names[0]).add_all([b"warm"])
+        c.get_hyper_log_log(names[0]).count()
+        c.get_hyper_log_log(names[0]).count_with(*names[1:8])
+        c.get_hyper_log_log(names[0]).merge_with_and_count(*names[1:])
+        c._executor.execute_sync("", "hll_count_all", None)
+        for n in (2, PD_SHARDS):
+            c._executor.execute_barrier(lambda n=n: be.reshard(n)).result()
+        bits = c.get_bit_set("warm:bits")
+        bits.set_bits([0, 1 << 20])
+        bits.cardinality()
+        bits.length()
+        dst = c.get_bit_set("warm:or")
+        dst.or_("warm:bits")
+        dst.and_("warm:bits")
+        f = c.get_bloom_filter("warm:bloom")
+        f.try_init(100_000, 0.01)
+        f.add_ints(keys_for(0, 10_000, 0))
+        f.contains_count_ints(keys_for(0, 10_000, 0))
+        f.count()
+    finally:
+        c.shutdown()
+    sync_cards()
+
+
+def pod_one_card(seed: int) -> int:
+    """`--pod-one-card`: phase 23's HLL step on a pod whose four entries
+    are tensors of one card (run with CUDA_VISIBLE_DEVICES naming one
+    card), held to its own `sort` reference: the one-card figures the
+    multi-card step prints beside its own. The last line is their JSON."""
+    import torch
+    from redisson_tpu_torch.client import RedissonTorch
+    from redisson_tpu_torch.config import Config
+
+    if torch.cuda.device_count() != 1:
+        raise AssertionError(f"--pod-one-card sees {torch.cuda.device_count()} cards")
+    card = card_line()
+    ref = sort_reference(seed)
+    pd_warm()
+    cfg = Config()
+    cfg.use_pod(num_shards=PD_SHARDS, bank_capacity=SKETCHES)
+    c = RedissonTorch.create(cfg)
+    try:
+        got = pd_hll(c, ref, seed, card)
+    finally:
+        c.shutdown()
+    print(json.dumps({k: got[k] for k in ("keys_per_s", "merge_ms", "reshard_s")}),
+          flush=True)
+    return 0
+
+
+def pd_cards(seed: int, card: str, hll: dict) -> dict:
+    """Step 4, with two cards or more: steps 1-3 ran over min(4, cards)
+    cards (entry i on cuda:{i % cards}); the same HLL step runs again in a
+    child process that sees one card (`--pod-one-card`), and the PFADD
+    rate, PFMERGE+count ms and reshard seconds are printed side by side
+    with every card's name and power limit."""
+    import torch
+
+    cards = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    torch.cuda.empty_cache()
+    env = dict(os.environ)
+    env["CUDA_VISIBLE_DEVICES"] = (env.get("CUDA_VISIBLE_DEVICES") or "0").split(",")[0]
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--pod-one-card", "--seed", str(seed)],
+        env=env, capture_output=True, text=True, timeout=PD_ONE_CARD_TIMEOUT_S)
+    for line in proc.stdout.strip().splitlines()[:-1]:
+        log(f"  one card | {line}")
+    if proc.returncode:
+        raise AssertionError(f"phase 23: the one-card pod failed ({proc.returncode}): "
+                             f"{proc.stderr[-3000:]}")
+    one = json.loads(proc.stdout.strip().splitlines()[-1])
+    where = f"{min(PD_SHARDS, cards)} of {cards} cards ({'; '.join(smi)})"
+    pd_metric(card, f"PFADD keys/s, pod on {where} vs one card",
+              f"{hll['keys_per_s']} {one['keys_per_s']}")
+    pd_metric(card, f"PFMERGE+count over {MERGE_N} ms, pod on {where} vs one card",
+              f"{hll['merge_ms']} {one['merge_ms']}")
+    pd_metric(card, f"reshard seconds (to 2, back to 4), pod on {where} vs one card",
+              f"{json.dumps(hll['reshard_s'])} {json.dumps(one['reshard_s'])}")
+    return {"cards": cards, "one_card": one}
+
+
 def pod_path(seed: int, card: str, ref, ref_bloom) -> dict:
-    """Phase 23: the pod tier (use_pod, 4 logical shards on cuda:0) and the
-    mesh data plane; each step resets the launch counters just before it
-    and reads them just after."""
+    """Phase 23: the pod tier (use_pod, 4 entries over the visible cards:
+    four tensors of cuda:0 on one card) and the mesh data plane; each step
+    resets the launch counters just before it and reads them just
+    after."""
     from redisson_tpu_torch.client import RedissonTorch
     from redisson_tpu_torch.config import Config
 
     t_phase = time.perf_counter()
     log(f"phase 23 on {card}:")
+    t = time.perf_counter()
+    pd_warm()
+    pd_metric(card, "warm-up pod seconds", time.perf_counter() - t)
     cfg = Config()
     cfg.use_pod(num_shards=PD_SHARDS, bank_capacity=SKETCHES)
     c = RedissonTorch.create(cfg)
@@ -6002,6 +6150,16 @@ def pod_path(seed: int, card: str, ref, ref_bloom) -> dict:
             steps[name] = round(time.perf_counter() - t, 3)
     finally:
         c.shutdown()
+    import torch
+
+    if torch.cuda.device_count() < 2:
+        log(f"[{card}] phase 23 pod on several cards: not run for want of a second "
+            f"card ({torch.cuda.device_count()} visible); steps 1-3 ran on four "
+            "tensors of cuda:0")
+    else:
+        t = time.perf_counter()
+        out["cards"] = pd_cards(seed, card, out["hll"])
+        steps["cards"] = round(time.perf_counter() - t, 3)
     t = time.perf_counter()
     out["mesh"] = pd_mesh(seed, card)
     steps["mesh"] = round(time.perf_counter() - t, 3)
@@ -6401,6 +6559,9 @@ def main() -> int:
                     help="only build the kernels and run the phase NAME (a key of "
                          "phase_table, e.g. serve), with the phases whose results it "
                          "reads (PHASE_NEEDS)")
+    ap.add_argument("--pod-one-card", action="store_true",
+                    help="phase 23's HLL step on a one-card pod, for the multi-card "
+                         "step's comparison (run with CUDA_VISIBLE_DEVICES naming one card)")
     ap.add_argument("--child-writer", metavar="DIR",
                     help="phase 15's writer role: reopen the persist directory DIR and "
                          "write acknowledged batches until killed")
@@ -6424,6 +6585,8 @@ def main() -> int:
         return 2
     if args.child_writer:
         return child_writer(args.child_writer, args.seed)
+    if args.pod_one_card:
+        return pod_one_card(args.seed)
 
     from redisson_tpu_torch import native
 

@@ -231,7 +231,7 @@ class RedissonTorch:
         if mcfg is not None and mcfg.high_watermark_bytes > 0:
             self._pressure = PressureMonitor(
                 self.memstat, mcfg,
-                device_fn=lambda: device_memory(self.device, mcfg.high_watermark_bytes))
+                device_fn=lambda: self._device_memory(mcfg.high_watermark_bytes))
         self._memreport = MemoryReport(self.memstat, store=self._store,
                                        backend=self.sketch,
                                        pressure=self._pressure)
@@ -445,6 +445,15 @@ class RedissonTorch:
             pod_backend=pod, hll_family=getattr(pod, "family", "m3"))
         if self.config.flush_interval_s > 0:
             self._durability.start_periodic(self.config.flush_interval_s)
+
+    def _device_memory(self, capacity: int) -> dict:
+        """{device name: `device_memory`} for every device the client's
+        state lives on, its own device first: each distinct card of the
+        engine's mesh (a pod's blocks, read anew after a reshard), else
+        the client's device."""
+        mesh = getattr(self.sketch, "mesh", None)
+        devices = mesh.devices if mesh is not None else (self.device,)
+        return {str(d): device_memory(d, capacity) for d in dict.fromkeys(devices)}
 
     def _pod_backend(self):
         """The backend that owns the HLL bank (`bank_names`, `row_version`,

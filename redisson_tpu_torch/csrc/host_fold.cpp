@@ -282,6 +282,19 @@ HF_EXPORT void hf_hll_fold_u64(const uint64_t* keys, int64_t n, uint64_t seed,
       if (sc[(size_t)i] > regs[i]) regs[i] = sc[(size_t)i];
 }
 
+// HLL fold of u64 keys into per-row sketches of a host bank mirror
+// ([nrows, 16384] uint8, in place): key i goes to row rows[i]; a row
+// outside [0, nrows) is skipped, never written.
+HF_EXPORT void hf_hll_fold_u64_rows(const uint64_t* keys, const int32_t* rows,
+                                    int64_t n, uint64_t seed, uint8_t* bank,
+                                    int64_t nrows) {
+  for (int64_t i = 0; i < n; i++) {
+    const int64_t row = rows[i];
+    if (row < 0 || row >= nrows) continue;
+    hll_fold_h1(mm3_h1_u64(keys[i], seed), bank + row * kRegs);
+  }
+}
+
 // HLL fold of padded byte rows ([n, w] uint8 plus lengths).
 HF_EXPORT void hf_hll_fold_rows(const uint8_t* data, int64_t w,
                                 const int32_t* lengths, int64_t n,

@@ -621,6 +621,12 @@ def bitset_cardinality_partials(bits):
     return pk.popcount_partials(bits)
 
 
+def bitset_cardinality(bits) -> int:
+    """BITCOUNT, exact past 2^31 set bits: the partials combine on the
+    host in Python ints."""
+    return bitset.combine_partials(bitset_cardinality_partials(bits))
+
+
 def bitset_bitop(stack, op: str):
     """BITOP AND|OR|XOR over [K, n] stacked operands -> [n] (the bitop
     kernel on a card)."""
@@ -630,6 +636,13 @@ def bitset_bitop(stack, op: str):
 def bitset_length_partials(bits):
     """Device half of lengthAsync: per-chunk int32 local offsets."""
     return bitset.length_partials(bits)
+
+
+def bitset_length(bits) -> int:
+    """Index of the highest set bit + 1, exact past 2^31 bits. Blocks; the
+    backend's LENGTH stages `bitset_length_partials` and combines on the
+    completer instead."""
+    return bitset.combine_length(bitset_length_partials(bits))
 
 
 def bitset_not_masked(bits, n: int):

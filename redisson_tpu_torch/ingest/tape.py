@@ -60,6 +60,10 @@ class WindowTape:
     link_bytes: int = 0             # table + wire bytes shipped
 
     @property
+    def n_entries(self) -> int:
+        return len(self.planes)
+
+    @property
     def n_shards(self) -> int:
         """Distinct logical shards this window retires (>= 1)."""
         if not self.planes:

@@ -10,11 +10,14 @@ memory (DEL/FLUSHALL/RENAME), mirroring Redis which still honours DEL at
 ``maxmemory``. Hysteresis: once shedding starts it only stops below the
 low-watermark, so usage hovering at the line doesn't flap.
 
-The monitor's snapshot also says how much memory the device has
+The monitor's snapshot also says how much memory the devices have
 (``device_memory``): on a CUDA card as CUDA and the caching allocator
 report it (``torch.cuda.mem_get_info`` / ``memory_stats``), on the CPU
-the configured capacity. The gate never reads it: it sheds by the
-ledger and the configured marks alone, as JAX's does.
+the configured capacity. ``devices`` holds one section per device the
+client's state lives on (every card of a pod spread over several),
+``device`` the first of them (the client's own device). The gate never
+reads them: it sheds by the ledger and the configured marks alone, as
+JAX's does.
 """
 from __future__ import annotations
 
@@ -102,7 +105,8 @@ class PressureMonitor:
         self._meter_cache = (-math.inf, 0)   # (sampled_at, bytes)
         self._shedding = False
         self.shed_total = 0
-        # device_fn() -> device_memory(...) for the snapshot (None: omitted).
+        # device_fn() -> {device name: device_memory(...)}, the client's
+        # own device first, for the snapshot (None: omitted).
         self.device_fn = device_fn
 
     # -- sampling / forecasting -----------------------------------------
@@ -201,5 +205,7 @@ class PressureMonitor:
             **fc,
         }
         if self.device_fn is not None:
-            snap["device"] = self.device_fn()
+            sections = self.device_fn()
+            snap["device"] = next(iter(sections.values()))
+            snap["devices"] = sections
         return snap

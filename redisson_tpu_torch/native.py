@@ -55,6 +55,7 @@ _I64, _SEED, _K, _NT = ctypes.c_int64, ctypes.c_uint64, ctypes.c_int32, ctypes.c
 _SIGNATURES = {
     "hf_hll_fold_u64": [_U64, _I64, _SEED, _U8, _NT],
     "hf_hll_fold_rows": [_U8, _I64, _I32, _I64, _SEED, _U8],
+    "hf_hll_fold_u64_rows": [_U64, _I32, _I64, _SEED, _U8, _I64],
     "hf_bloom_fold_u64": [_U64, _I64, _SEED, _K, ctypes.c_uint64, _U8, _U8, _NT],
     "hf_bloom_contains_u64": [_U64, _I64, _SEED, _K, ctypes.c_uint64, _U8, _U8,
                               _NT],
@@ -194,6 +195,26 @@ def hll_fold_u64(keys: np.ndarray, regs: np.ndarray, seed: int = 0,
                                     seed, _p(regs, ctypes.c_uint8),
                                     _threads(nthreads))
     return regs
+
+
+def hll_fold_u64_rows(keys: np.ndarray, rows: np.ndarray, bank: np.ndarray,
+                      seed: int = 0) -> np.ndarray:
+    """Fold u64 keys into per-row sketches of a host bank mirror ([nrows,
+    16384] uint8, in place; returns `bank`): key i into row rows[i], a row
+    outside the mirror skipped. The host half of the pod's streaming
+    ingest: `parallel.sharded.bank_absorb_host` max-merges the mirror into
+    the sharded bank."""
+    if (bank.dtype != np.uint8 or bank.ndim != 2 or bank.shape[1] != HLL_M
+            or not bank.flags.c_contiguous):
+        raise ValueError("bank must be a contiguous uint8 [nrows, 16384] array")
+    keys = _u64_keys(keys, "hll_fold_u64_rows")
+    rows = np.ascontiguousarray(rows, np.int32)
+    if rows.shape != keys.shape:
+        raise ValueError(f"{rows.shape[0]} rows for {keys.shape[0]} keys")
+    _lib_or_raise().hf_hll_fold_u64_rows(
+        _p(keys, ctypes.c_uint64), _p(rows, ctypes.c_int32), keys.shape[0], seed,
+        _p(bank, ctypes.c_uint8), bank.shape[0])
+    return bank
 
 
 def hll_fold_rows(data: np.ndarray, lengths: np.ndarray, regs: np.ndarray,

@@ -3,10 +3,14 @@
 
 The cluster-mode analogue (`cluster/ClusterConnectionManager.java`): object
 names are assigned rows in an [S, m] bank sharded over the logical mesh
-(`parallel/mesh.py`); placement is by allocation order (contiguous rows ->
-balanced shards). BitSets and Bloom filters are mesh-sharded bit arrays
-(`parallel/sharded_bits.py`) that one logical array spans; every other
-kind delegates to a single-device TorchBackend on the mesh's device.
+(`parallel/mesh.py`): a `mesh.Sharded` whose block of S/D rows lives on
+each entry's own device; placement is by allocation order (contiguous rows
+-> balanced shards). BitSets and Bloom filters are mesh-sharded bit arrays
+(`parallel/sharded_bits.py`) that one logical array spans, a block of
+cells per entry; every other kind delegates to a single-device
+TorchBackend on the mesh's home (entry 0's device), as JAX's delegate
+sits on device 0. Cross-block results (PFMERGE partials, old-bit sums,
+insert flags) meet on home by peer copy.
 
 Cross-object coalescing: hll_add is GLOBAL_COALESCE, so one run carries
 inserts for thousands of sketches (each key tagged with its target row)
@@ -38,7 +42,7 @@ from redisson_tpu_torch.ingest.pipeline import StagingPipeline
 from redisson_tpu_torch.ops import bloom as bloom_ops
 from redisson_tpu_torch.ops import bloom_math, hashing
 from redisson_tpu_torch.parallel import sharded, sharded_bits
-from redisson_tpu_torch.parallel.mesh import get_mesh
+from redisson_tpu_torch.parallel.mesh import bank_sharding, get_mesh
 from redisson_tpu_torch.store import ObjectType, SketchStore, WrongTypeError
 
 
@@ -71,7 +75,7 @@ class PodBackend:
     def __init__(self, cfg):
         self._device_spec = cfg.device
         self.mesh = get_mesh(cfg.num_shards, device=cfg.device)
-        self.device = self.mesh.device
+        self.device = self.mesh.home
         self.seed = cfg.hash_seed
         self.family = "m3"
         cap = cfg.bank_capacity
@@ -357,13 +361,15 @@ class PodBackend:
                 self.bank, h1, put(prow), put(valid), self.mesh)
             return changed
 
-        # Dispatches stay serial (the bank carries state); `changed`
-        # vectors resolve on the completer, each op reading its own row.
+        # Dispatches stay serial (the bank carries state); the chunks'
+        # per-block flags meet on home once, and resolve on the completer,
+        # each op reading its own row.
         parts = self._pipeline.run(chunks, stage, dispatch)
         for op in live:
             self._alloc.bump(op.target)
         complete_changed_rows(self.completer, live,
-                              [self._rows[op.target] for op in live], parts)
+                              [self._rows[op.target] for op in live],
+                              [sharded.changed_on_home(parts)] if parts else [])
 
     def _submit_estimate(self, ops: List[Op], est) -> None:
         rb = Readback(est)
@@ -577,11 +583,10 @@ class PodBackend:
             width = max([obj.logical_n] + [s.logical_n for s in sources])
             self._bits_grow(obj, width - 1)
             if sources:
-                n = obj.state.shape[0]
-                stack = torch.stack([obj.state] + [
-                    sharded_bits.grow_bits(s.state, n, self.mesh)
-                    for s in sources])
-                obj.state = sharded_bits.bitop(stack, kind, self.mesh)
+                n = len(obj.state)
+                obj.state = sharded_bits.bitop(
+                    [obj.state] + [sharded_bits.grow_bits(s.state, n, self.mesh)
+                                   for s in sources], kind, self.mesh)
             obj.meta["nbits"] = width
             obj.meta["extent_bits"] = max(
                 [obj.meta.get("extent_bits", 0)]
@@ -711,7 +716,7 @@ class PodBackend:
         if obj is None:
             self._delegate.run("bits_export", target, ops)
             return
-        host = obj.state[: obj.logical_n].cpu().numpy().astype(np.uint8)
+        host = obj.state.to_numpy(obj.logical_n)
         for op in ops:
             op.future.set_result((obj.otype, host, dict(obj.meta), obj.version))
 
@@ -726,7 +731,8 @@ class PodBackend:
         if otype == ObjectType.BITSET:
             meta.setdefault("nbits", host.shape[0])
             meta.setdefault("extent_bits", host.shape[0])
-        obj = _PodBits(target, otype, self._delegate._to_device(padded), meta)
+        obj = _PodBits(target, otype,
+                       sharded_bits.bits_sharding(self.mesh).put(padded), meta)
         obj.version = 1
         self._bits[target] = obj
 
@@ -764,7 +770,7 @@ class PodBackend:
         if row is None:
             self._delegate.run("hll_export", target, ops)
             return
-        regs = self.bank[row].cpu().numpy().astype(np.uint8)
+        regs = self.bank.row(row).cpu().numpy().astype(np.uint8)
         version = self._row_versions.get(target, 0)
         for op in ops:
             op.future.set_result((regs, version))
@@ -775,7 +781,7 @@ class PodBackend:
         for op in ops:
             regs = np.asarray(op.payload["regs"]).astype(np.int32)
             row = self.row_of(target)
-            self.bank[row] = self._delegate._to_device(regs)
+            self.bank.row(row).copy_(torch.from_numpy(regs))
             self._alloc.bump(target)
             op.future.set_result(True)
 
@@ -785,7 +791,7 @@ class PodBackend:
         cloned on the dispatcher inside the barrier."""
         cut = self._delegate.snapshot_cut()
         for name, obj in self._bits.items():
-            cut["objects"][name] = (obj.otype, obj.state[: obj.logical_n].clone(),
+            cut["objects"][name] = (obj.otype, obj.state.clone(obj.logical_n),
                                     dict(obj.meta), obj.version)
         cut["rows"] = {name: (row, self._row_versions.get(name, 0))
                        for name, row in self._rows.items()}
@@ -806,10 +812,10 @@ class PodBackend:
         if cap % ndev:
             bank_np = np.concatenate(
                 [bank_np, np.zeros((ndev - cap % ndev, bank_np.shape[1]), np.int32)])
-        self.bank = self._delegate._to_device(bank_np.copy())
+        self.bank = bank_sharding(self.mesh).put(bank_np)
         alloc = self._alloc
         alloc.clear()
-        alloc.capacity = self.bank.shape[0]
+        alloc.capacity = len(self.bank)
         alloc.rows.update({str(n): int(r) for n, r in rows.items()})
         alloc.next = max(alloc.rows.values(), default=-1) + 1
         used = set(alloc.rows.values())
@@ -824,13 +830,13 @@ class PodBackend:
 
     def to_numpy_state(self):
         """(bank as numpy [S, m] int32, name -> row map)."""
-        return self.bank.cpu().numpy().copy(), dict(self._rows)
+        return self.bank.to_numpy(), dict(self._rows)
 
     def to_numpy_objects(self) -> dict:
         """name -> (otype, cells trimmed to the logical length, meta) for
         every sharded bit object and every delegate store object."""
         out = self._delegate.to_numpy_objects()
         for name, obj in self._bits.items():
-            out[name] = (obj.otype, obj.state[: obj.logical_n].cpu().numpy().copy(),
+            out[name] = (obj.otype, obj.state.to_numpy(obj.logical_n),
                          dict(obj.meta))
         return out

@@ -15,12 +15,19 @@ tier's shard rule), or on the CPU when the caller asks for it. Each shard
 body of JAX runs once per entry, over that entry's rows or cell range, and
 ``pmax`` / ``psum`` become an explicit combine of the per-entry partials.
 
-Placement: when every entry names the same device, a sharded array is ONE
-contiguous tensor whose row blocks (bank) or cell ranges (bits) are the
-shards, as views with no copies. That is the only layout one card and the
-CPU tests can run, and it keeps every single-bank code path of the backend
-unchanged. A mesh whose entries name different cards raises
-NotImplementedError (ROADMAP queue 1, multi-card placement).
+Placement (the pod tier): a sharded array is a ``Sharded``, one tensor per
+entry on that entry's device, as JAX's ``NamedSharding(mesh, P("shards",
+...))`` places one shard per device. ``Sharding`` (``bank_sharding``,
+``slot_sharding``) makes and moves them, as JAX's ``device_put`` does; an
+operand every entry reads whole goes to each entry's device by
+``replicate``. One layout for every mesh: on one card the entries'
+blocks are separate tensors of ``cuda:0``, on the CPU separate CPU tensors,
+so one card and the CPU tests run the code several cards run.
+
+The mesh data plane (``ShardedBank``, ``TorchBackend.attach_mesh``) keeps
+ONE tensor whose row blocks are the shards, on ``Mesh.device``: a mesh whose
+entries name different cards raises NotImplementedError there
+(``MULTI_CARD_ITEM``).
 
 ``get_mesh`` is the CACHED constructor: topology-change storms (node_up /
 node_down scans re-resolving the same device set) must not mint fresh
@@ -31,10 +38,12 @@ the no-rebuild contract.
 
 from __future__ import annotations
 
+import functools
 import threading
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from redisson_tpu_torch import device as device_mod
@@ -42,8 +51,8 @@ from redisson_tpu_torch import device as device_mod
 SHARD_AXIS = "shards"
 SLOT_AXIS = "slots"
 
-#: the ROADMAP item a mesh spanning several cards waits for
-MULTI_CARD_ITEM = "ROADMAP queue 1: multi-card placement"
+#: the ROADMAP item the mesh data plane across several cards waits for
+MULTI_CARD_ITEM = "ROADMAP queue 1: the mesh data plane across cards"
 
 # Lock discipline: every name in this table is only touched under the
 # named lock.
@@ -87,15 +96,23 @@ class Mesh:
         return (self.axis,)
 
     @property
+    def home(self) -> torch.device:
+        """Entry 0's device: where the pod's cross-shard combines land and
+        its delegate keeps the unsharded kinds (JAX's device 0)."""
+        return self.devices[0]
+
+    @property
     def device(self) -> torch.device:
-        """The one device every entry names: where the mesh's arrays live
-        as one tensor. Raises for a mesh spanning several cards."""
+        """The one device every entry names: where the mesh data plane's
+        bank lives as one tensor. Raises for a mesh spanning several
+        cards."""
         first = self.devices[0]
         if any(d != first for d in self.devices[1:]):
             raise NotImplementedError(
                 f"a mesh whose entries span several devices "
-                f"({sorted({str(d) for d in self.devices})}) needs multi-card "
-                f"placement ({MULTI_CARD_ITEM})")
+                f"({sorted({str(d) for d in self.devices})}) has no single "
+                f"device: one tensor over several cards waits for "
+                f"{MULTI_CARD_ITEM}")
         return first
 
 
@@ -164,6 +181,188 @@ def row_blocks(rows: int, mesh: Mesh):
     return [(i * per, (i + 1) * per) for i in range(mesh.size)]
 
 
+class Sharded:
+    """One sharded array of the pod tier (JAX: an array placed with
+    ``NamedSharding(mesh, P("shards", ...))``): block ``i`` is a tensor of
+    its own on ``mesh.devices[i]`` holding the global rows (the bank) or
+    cells (bits) ``[i * per, i * per + len(block i))``. Every block holds
+    ``per`` but in a trimmed copy (``clone(stop)``). Global indexes are
+    Python ints, so a cell index up to 2^32 - 1 is exact."""
+
+    __slots__ = ("mesh", "blocks", "per")
+
+    def __init__(self, mesh: Mesh, blocks, per: Optional[int] = None):
+        if len(blocks) != mesh.size:
+            raise ValueError(f"{len(blocks)} blocks for a mesh of {mesh.size}")
+        self.mesh = mesh
+        self.blocks: List[torch.Tensor] = list(blocks)
+        self.per = int(blocks[0].shape[0]) if per is None else int(per)
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return ((sum(int(b.shape[0]) for b in self.blocks),)
+                + tuple(self.blocks[0].shape[1:]))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.blocks[0].dtype
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of every block: what the entries' devices hold."""
+        return sum(int(b.nbytes) for b in self.blocks)
+
+    def __len__(self) -> int:
+        return self.shape[0]
+
+    def ranges(self) -> List[Tuple[int, int]]:
+        """[(lo, hi)] global range of each block."""
+        return [(i * self.per, i * self.per + int(b.shape[0]))
+                for i, b in enumerate(self.blocks)]
+
+    def locate(self, index: int) -> Tuple[int, int]:
+        """(entry, local index) of a global row or cell."""
+        i = int(index)
+        if not 0 <= i < len(self):
+            raise IndexError(f"index {i} outside [0, {len(self)})")
+        return i // self.per, i % self.per
+
+    def row(self, index: int) -> torch.Tensor:
+        """The view of one global row (or cell) in its block."""
+        b, j = self.locate(index)
+        return self.blocks[b][j]
+
+    def to_numpy(self, stop: Optional[int] = None) -> np.ndarray:
+        """The blocks concatenated on the host (the first `stop` rows or
+        cells)."""
+        stop = len(self) if stop is None else int(stop)
+        parts = []
+        for (lo, hi), b in zip(self.ranges(), self.blocks):
+            if lo < stop:
+                parts.append(b[: min(hi, stop) - lo].cpu().numpy())
+        if not parts:
+            return self.blocks[0][:0].cpu().numpy()
+        return np.concatenate(parts)
+
+    def __array__(self, dtype=None, copy=None):
+        out = self.to_numpy()
+        return out if dtype is None else out.astype(dtype)
+
+    def clone(self, stop: Optional[int] = None) -> "Sharded":
+        """A copy of every block on its own device (the first `stop` rows
+        or cells: later blocks come out shorter or empty)."""
+        stop = len(self) if stop is None else int(stop)
+        return Sharded(self.mesh, [b[: max(0, min(hi, stop) - lo)].clone()
+                                   for (lo, hi), b in zip(self.ranges(), self.blocks)],
+                       self.per)
+
+
+def _as_tensor(arr) -> torch.Tensor:
+    if isinstance(arr, np.ndarray):
+        arr = np.ascontiguousarray(arr)
+        return torch.from_numpy(arr if arr.flags.writeable else arr.copy())
+    return torch.as_tensor(arr)
+
+
+def on_home(mesh: Mesh, arr, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """An operand (numpy or a tensor on any device) on the mesh's home."""
+    t = _as_tensor(arr).to(mesh.home)
+    return t if dtype is None else t.to(dtype)
+
+
+# Cross-card moves are peer copies (``Tensor.to`` / ``copy_`` between cards,
+# which PyTorch orders against both cards' current streams), not NCCL: the
+# pod is one process driving every card, as JAX's is, while
+# ``torch.distributed`` wants a process per card; and what crosses cards is
+# small (a key chunk's hashes, a [2^14] HLL partial, a few BITCOUNT
+# partials) or a one-off re-blocking (growth, reshard).
+
+
+def replicate(mesh: Mesh, arr) -> Tuple[torch.Tensor, ...]:
+    """An operand every entry reads whole (JAX's ``device_put`` under
+    ``P()``): one tensor per entry, entries on one device sharing it."""
+    t = _as_tensor(arr)
+    copies: Dict[torch.device, torch.Tensor] = {}
+    for d in mesh.devices:
+        if d not in copies:
+            copies[d] = t.to(d, non_blocking=True)
+    return tuple(copies[d] for d in mesh.devices)
+
+
+@dataclass(frozen=True)
+class Sharding:
+    """An array split over the mesh's axis along its first dimension
+    (JAX's ``NamedSharding`` under ``P(axis, ...)``): rows for a bank,
+    cells for bits."""
+
+    mesh: Mesh
+    axis: str = SHARD_AXIS
+
+    def __post_init__(self):
+        if self.axis != self.mesh.axis:
+            raise ValueError(f"axis {self.axis!r} is not the mesh's axis "
+                             f"{self.mesh.axis!r}")
+
+    def _per(self, n: int) -> int:
+        if n % self.mesh.size:
+            raise ValueError(f"{n} rows not divisible by {self.mesh.size} devices")
+        return n // self.mesh.size
+
+    def zeros(self, shape, dtype: torch.dtype) -> Sharded:
+        """A zero array of global `shape`, split into its blocks."""
+        per = self._per(int(shape[0]))
+        rest = tuple(shape[1:])
+        return Sharded(self.mesh, [torch.zeros((per,) + rest, dtype=dtype, device=d)
+                                   for d in self.mesh.devices])
+
+    def put(self, arr, rows: Optional[int] = None) -> Sharded:
+        """`arr` (numpy, a tensor on any device, or a ``Sharded``) split
+        here (JAX's ``device_put``): a new ``Sharded`` of `rows` global
+        rows or cells (default `len(arr)`; rows past `arr` are zero), each
+        block filled from the source ranges it overlaps, so rows keep
+        their global index when the block boundaries move."""
+        if isinstance(arr, Sharded):
+            pieces = [(lo, b) for (lo, _), b in zip(arr.ranges(), arr.blocks)]
+            src_rows, rest, dtype = len(arr), arr.shape[1:], arr.dtype
+        else:
+            t = _as_tensor(arr)
+            pieces = [(0, t)]
+            src_rows, rest, dtype = int(t.shape[0]), tuple(t.shape[1:]), t.dtype
+        rows = src_rows if rows is None else int(rows)
+        if rows < src_rows:
+            raise ValueError(f"cannot shrink {src_rows} -> {rows}")
+        per = self._per(rows)
+        blocks = []
+        for i, d in enumerate(self.mesh.devices):
+            lo, hi = i * per, (i + 1) * per
+            make = torch.empty if hi <= src_rows else torch.zeros
+            blk = make((per,) + tuple(rest), dtype=dtype, device=d)
+            for start, src in pieces:
+                a, b = max(lo, start), min(hi, start + int(src.shape[0]))
+                if a < b:
+                    blk[a - lo:b - lo].copy_(src[a - start:b - start],
+                                             non_blocking=True)
+            blocks.append(blk)
+        return Sharded(self.mesh, blocks)
+
+
+def bank_sharding(mesh: Mesh, axis: str = SHARD_AXIS) -> Sharding:
+    """[S, m] sketch bank: rows split across the entries, registers
+    local."""
+    return Sharding(mesh, axis)
+
+
+def slot_sharding(mesh: Mesh) -> Sharding:
+    """A bank split by slot-range rows across a ``SLOT_AXIS`` mesh."""
+    return Sharding(mesh, SLOT_AXIS)
+
+
+def replicated(mesh: Mesh):
+    """JAX's name for the replicated placement: ``replicated(mesh)(arr)``
+    is ``replicate(mesh, arr)``."""
+    return functools.partial(replicate, mesh)
+
+
 class ShardedBank:
     """Placement and row-geometry bookkeeping for the mesh data plane's one
     HLL bank.
@@ -182,6 +381,10 @@ class ShardedBank:
         self.mesh = mesh
         self.num_shards = max(int(num_shards), 1)
         self.capacity = self.round_capacity(capacity)
+
+    @property
+    def ndev(self) -> int:
+        return self.mesh.size
 
     def round_capacity(self, capacity: int) -> int:
         """Row count must divide evenly across mesh entries."""

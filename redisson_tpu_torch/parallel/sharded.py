@@ -1,19 +1,24 @@
 """Sharded HLL bank: [S, m] sketches row-sharded over a logical mesh
 (counterpart of `redisson_tpu.parallel.sharded`).
 
-The multi-device design of the JAX package, on logical devices:
+The multi-device design of the JAX package, on the mesh's entries:
 
-  * a bank of S sketches is one [S, m] int32 tensor whose row blocks are
-    the mesh entries' shards (S/D rows each; `parallel/mesh.py`), so every
-    insert touches exactly one shard's rows;
-  * inserts take a replicated key batch plus a per-key target row; each
-    shard masks the keys routed to its row range and folds them into its
-    own rows through the `seg_insert` kernel's multi-target form
-    (`ingest.kernels.hll_insert_segmented_rows`), the body JAX runs inside
-    `shard_map` once per device;
-  * whole-bank PFMERGE = each shard's row-max (the `merge_stack` kernel over
-    its block) and then the max over the D partials, which stands in for
-    JAX's `lax.pmax` over the shard axis.
+  * a bank of S sketches is a `mesh.Sharded` whose block i, S/D rows, is a
+    tensor of its own on entry i's device (JAX's `P("shards", None)`), so
+    every insert touches exactly one block's rows;
+  * inserts take a key batch plus a per-key target row. The batch is
+    hashed ONCE, on the mesh's home (entry 0's device), and the hashes go
+    to every block's card by peer copy (JAX replicates the chunk with
+    `device_put` and hashes it on every device; here the staged chunk
+    crosses the host link once, to home, NVLink is far wider than each
+    card's host link, and the hash runs once). Each block masks the keys
+    routed to its rows
+    and folds them through the `seg_insert` kernel's multi-target form
+    (`ingest.kernels.hll_insert_segmented_rows`) on its own card: the body
+    JAX runs inside `shard_map` once per device;
+  * whole-bank PFMERGE = each block's row-max (the `merge_stack` kernel on
+    its card), then the [m] partials peer-copied to home and max-combined
+    there: JAX's `lax.pmax` over the shard axis.
 
 Where JAX donates the bank, the port writes it in place and returns it.
 """
@@ -28,161 +33,184 @@ import torch
 from redisson_tpu_torch.ingest import kernels as ingest_kernels
 from redisson_tpu_torch.ops import hashing, hll
 from redisson_tpu_torch.ops import kernels as pk
-from redisson_tpu_torch.parallel.mesh import Mesh, row_blocks
+from redisson_tpu_torch.parallel.mesh import (
+    Mesh, Sharded, bank_sharding, on_home, replicate)
 
 
-def _on(mesh: Mesh, arr, dtype=None) -> torch.Tensor:
-    """A replicated operand (numpy or tensor) on the mesh's device."""
-    if isinstance(arr, np.ndarray):
-        arr = torch.from_numpy(np.ascontiguousarray(arr))
-    t = torch.as_tensor(arr).to(mesh.device)
-    return t if dtype is None else t.to(dtype)
-
-
-def make_bank(mesh: Mesh, num_sketches: int, m: int = hll.M) -> torch.Tensor:
-    """Zero-initialized sharded [S, m] bank."""
+def make_bank(mesh: Mesh, num_sketches: int, m: int = hll.M) -> Sharded:
+    """Zero-initialized sharded [S, m] bank: one zero block per entry."""
     ndev = mesh.size
     if num_sketches % ndev != 0:
         raise ValueError(f"num_sketches {num_sketches} not divisible by {ndev} devices")
-    return torch.zeros((num_sketches, m), dtype=torch.int32, device=mesh.device)
+    return bank_sharding(mesh).zeros((num_sketches, m), torch.int32)
 
 
 def h1_of(hi, lo, mesh: Mesh, seed: int = 0,
           pre_hashed: bool = False) -> torch.Tensor:
-    """The murmur3 h1 (int64) of a (hi, lo) uint32 lane batch: the raw u64
-    key hashed on the device, or the lanes taken as an already computed h1
-    (`pre_hashed`, what byte keys arrive as)."""
-    hi = _on(mesh, hi).to(torch.int64) & 0xFFFFFFFF
-    lo = _on(mesh, lo).to(torch.int64) & 0xFFFFFFFF
+    """The murmur3 h1 (int64, on the mesh's home) of a (hi, lo) uint32
+    lane batch: the raw u64 key hashed on home, or the lanes taken as an
+    already computed h1 (`pre_hashed`, what byte keys arrive as)."""
+    hi = on_home(mesh, hi).to(torch.int64) & 0xFFFFFFFF
+    lo = on_home(mesh, lo).to(torch.int64) & 0xFFFFFFFF
     key = (hi << 32) | lo
     if pre_hashed:
         return key
     return hashing.murmur3_x64_128_u64(key, seed)[0]
 
 
-def bank_insert_h1(bank: torch.Tensor, h1: torch.Tensor, row, valid,
-                   mesh: Mesh):
-    """Fold h1 hashes into their target rows, shard by shard, in place ->
-    (bank, changed_rows[S] bool). Each shard's body (JAX's `_insert_local`)
-    masks the pairs routed to its rows and runs one multi-target
-    segmented insert over its block of the bank."""
-    s, m = bank.shape
+def bank_insert_h1(bank: Sharded, h1, row, valid, mesh: Mesh):
+    """Fold h1 hashes into their target rows, block by block, in place ->
+    (bank, changed_rows): a `Sharded` [S] bool whose blocks stay on their
+    cards until read. Bucket and rank are computed once on home; each
+    block's body (JAX's `_insert_local`) receives them with the row list
+    by peer copy, masks the pairs routed to its rows and runs one
+    multi-target segmented insert on its own card."""
+    m = bank.shape[1]
+    h1 = on_home(mesh, h1)
     bucket, rank = hll.bucket_rank(h1, hll.p_of(m))
-    row = _on(mesh, row, torch.int32)
-    valid = _on(mesh, valid, torch.bool)
-    rank = torch.where(valid, rank, 0)
-    changed = torch.zeros((s,), dtype=torch.bool, device=bank.device)
-    for lo, hi in row_blocks(s, mesh):
-        mine = valid & (row >= lo) & (row < hi)
-        local_row = torch.where(mine, row - lo, 0).to(torch.int32)
-        local_rank = torch.where(mine, rank, 0).to(torch.int32)
+    row = on_home(mesh, row, torch.int32)
+    rank = torch.where(on_home(mesh, valid, torch.bool), rank, 0).to(torch.int32)
+    ops = zip(*(replicate(mesh, t) for t in (bucket.to(torch.int32), rank, row)))
+    changed = []
+    for (lo, hi), block, (b, r, w) in zip(bank.ranges(), bank.blocks, ops):
+        mine = (w >= lo) & (w < hi)
+        flags = torch.zeros((hi - lo,), dtype=torch.bool, device=block.device)
         ingest_kernels.hll_insert_segmented_rows(
-            bank[lo:hi], bucket, local_rank, local_row, changed[lo:hi])
-    return bank, changed
+            block, b, torch.where(mine, r, 0), torch.where(mine, w - lo, 0), flags)
+        changed.append(flags)
+    return bank, Sharded(mesh, changed)
 
 
-def bank_insert(bank: torch.Tensor, hi, lo, row, valid, mesh: Mesh,
+def bank_insert(bank: Sharded, hi, lo, row, valid, mesh: Mesh,
                 seed: int = 0, pre_hashed: bool = False):
-    """Insert a replicated key batch into the sharded bank -> (bank,
-    changed_rows[S]): per-row change flags vs the pre-batch state
-    (`changed_rows.any()` is the whole-batch bool)."""
+    """Insert a key batch into the sharded bank -> (bank, changed_rows):
+    per-row change flags vs the pre-batch state (`np.asarray(changed_rows)`
+    is the [S] vector)."""
     return bank_insert_h1(bank, h1_of(hi, lo, mesh, seed, pre_hashed), row,
                           valid, mesh)
 
 
-def _partials(bank: torch.Tensor, mesh: Mesh):
-    """Each shard's row-max over its block: one merge_stack per shard."""
-    return [pk.merge_stack(bank[lo:hi])
-            for lo, hi in row_blocks(bank.shape[0], mesh)]
+def changed_on_home(parts) -> torch.Tensor:
+    """The read of insert flags: the chunks' `Sharded` flags OR-ed block
+    by block on their cards, then the blocks peer-copied to home ->
+    one [S] bool."""
+    blocks = [torch.stack(col).any(dim=0) if len(col) > 1 else col[0]
+              for col in zip(*(p.blocks for p in parts))]
+    home = parts[0].mesh.home
+    return torch.cat([b.to(home) for b in blocks])
 
 
-def combine_max(parts) -> torch.Tensor:
-    """The cross-shard combine of [m] partials (JAX's pmax)."""
+def combine_max(parts, home: Optional[torch.device] = None) -> torch.Tensor:
+    """The cross-shard combine of [m] partials (JAX's pmax): each partial
+    peer-copied to `home` (default: the first partial's device), then a
+    max there."""
+    home = parts[0].device if home is None else home
     if len(parts) == 1:
-        return parts[0]
-    return torch.stack(parts).amax(dim=0)
+        return parts[0].to(home)
+    return torch.stack([p.to(home) for p in parts]).amax(dim=0)
 
 
-def bank_merge_all(bank: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """PFMERGE across every sketch in the bank -> [m] merged registers."""
-    return combine_max(_partials(bank, mesh))
+def bank_merge_all(bank: Sharded, mesh: Mesh) -> torch.Tensor:
+    """PFMERGE across every sketch in the bank -> [m] merged registers on
+    the mesh's home: each block's row-max (one merge_stack on its card),
+    then the combine."""
+    return combine_max([pk.merge_stack(block) for block in bank.blocks], mesh.home)
 
 
-def bank_count_all(bank: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+def bank_count_all(bank: Sharded, mesh: Mesh) -> torch.Tensor:
     """Union cardinality of the whole bank (merge + count, no mutation)."""
     return hll.count(bank_merge_all(bank, mesh))
 
 
-def bank_count_row(bank: torch.Tensor, row: int) -> torch.Tensor:
-    """Cardinality of one sketch row."""
-    return hll.count(bank[int(row)])
+def bank_count_row(bank: Sharded, row: int) -> torch.Tensor:
+    """Cardinality of one sketch row, on its block's card."""
+    return hll.count(bank.row(int(row)))
 
 
-def _rows(rows) -> np.ndarray:
-    return np.ascontiguousarray(np.asarray(rows, np.int32))
+def _fold_rows(bank: Sharded, rows) -> torch.Tensor:
+    """Max over the listed rows (they may repeat and span blocks) -> [m]
+    on home: one merge_stack row-list launch per block that holds some,
+    each on its card, then the partials' combine."""
+    rows = np.asarray(rows, np.int64)
+    if rows.size and (rows.min() < 0 or rows.max() >= len(bank)):
+        raise IndexError(f"row outside [0, {len(bank)})")
+    parts = []
+    for (lo, hi), block in zip(bank.ranges(), bank.blocks):
+        own = rows[(rows >= lo) & (rows < hi)]
+        if own.size:
+            parts.append(pk.merge_stack(block, (own - lo).astype(np.int32)))
+    home = bank.mesh.home
+    if not parts:
+        return torch.zeros((bank.shape[1],), dtype=bank.dtype, device=home)
+    return combine_max(parts, home)
 
 
-def bank_count_rows_merged(bank: torch.Tensor, rows,
+def bank_count_rows_merged(bank: Sharded, rows,
                            mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """Union count over a row subset (rows may repeat): merge_stack's
-    row-list form, read in place."""
-    return hll.count(pk.merge_stack(bank, _rows(rows)))
+    """Union count over a row subset (rows may repeat)."""
+    return hll.count(_fold_rows(bank, rows))
 
 
-def bank_merge_rows(bank: torch.Tensor, rows, target: int) -> torch.Tensor:
+def bank_merge_rows(bank: Sharded, rows, target: int) -> Sharded:
     """PFMERGE `rows` (the caller includes `target`) into row `target`, in
-    place."""
-    bank[int(target)] = pk.merge_stack(bank, _rows(rows))
+    place: the merged registers written into the target's block."""
+    bank.row(int(target)).copy_(_fold_rows(bank, rows))
     return bank
 
 
-def bank_merge_count_rows(bank: torch.Tensor, rows, target: int):
+def bank_merge_count_rows(bank: Sharded, rows, target: int):
     """Fused PFMERGE + PFCOUNT: fold `rows` (incl. `target`) into row
     `target` in place -> (bank, estimate)."""
-    merged = pk.merge_stack(bank, _rows(rows))
-    bank[int(target)] = merged
+    merged = _fold_rows(bank, rows)
+    bank.row(int(target)).copy_(merged)
     return bank, hll.count(merged)
 
 
-def bank_absorb_host(bank: torch.Tensor, host_u8, mesh: Mesh) -> torch.Tensor:
-    """Max-merge a host-folded [S, m] uint8 bank mirror into the sharded
-    bank, in place."""
-    torch.maximum(bank, _on(mesh, host_u8, torch.int32), out=bank)
+def bank_absorb_host(bank: Sharded, host_u8, mesh: Mesh) -> Sharded:
+    """Max-merge a host-folded [S, m] uint8 bank mirror (what
+    `native.hll_fold_u64_rows` folds) into the sharded bank, in place:
+    each block takes its slice of the mirror."""
+    host = torch.from_numpy(np.ascontiguousarray(host_u8))
+    if tuple(host.shape) != tuple(bank.shape):
+        raise ValueError(f"mirror {tuple(host.shape)} for a bank {bank.shape}")
+    for (lo, hi), block in zip(bank.ranges(), bank.blocks):
+        torch.maximum(block, host[lo:hi].to(block.device).to(torch.int32), out=block)
     return bank
 
 
-def zero_row(bank: torch.Tensor, row: int) -> torch.Tensor:
+def zero_row(bank: Sharded, row: int) -> Sharded:
     """Reset one sketch row (pod-mode DEL of an HLL), in place."""
-    bank[int(row)] = 0
+    bank.row(int(row)).zero_()
     return bank
 
 
-def grow_bank(bank: torch.Tensor, new_capacity: int, mesh: Mesh) -> torch.Tensor:
-    """Enlarge [S, m] -> [S', m] keeping row indices (a new tensor on the
-    mesh's device; the row blocks follow the new capacity)."""
-    s, m = bank.shape
+def grow_bank(bank: Sharded, new_capacity: int, mesh: Mesh) -> Sharded:
+    """Enlarge [S, m] -> [S', m] keeping row indices. As in JAX the blocks
+    follow the new capacity (S'/D rows each), so an existing row can move
+    to another entry, and another card: it is copied to the block that now
+    holds its index."""
+    s = len(bank)
     if new_capacity < s:
         raise ValueError(f"cannot shrink {s} -> {new_capacity}")
     if new_capacity == s:
         return bank
-    out = torch.zeros((new_capacity, m), dtype=bank.dtype, device=mesh.device)
-    out[:s] = bank
-    return out
+    return bank_sharding(mesh).put(bank, new_capacity)
 
 
-def migrate_bank(bank: torch.Tensor, new_mesh: Mesh) -> torch.Tensor:
-    """Re-shard the bank onto a different mesh (topology change): the row
-    blocks follow the new mesh; the tensor moves only if the new mesh's
-    device differs."""
-    if bank.shape[0] % new_mesh.size:
+def migrate_bank(bank: Sharded, new_mesh: Mesh) -> Sharded:
+    """Re-shard the bank onto a different mesh (topology change): rows go
+    to the new mesh's blocks, moving between cards where the entries'
+    devices differ."""
+    if len(bank) % new_mesh.size:
         raise ValueError(
-            f"bank rows {bank.shape[0]} not divisible by "
+            f"bank rows {len(bank)} not divisible by "
             f"{new_mesh.size} devices")
-    return bank.to(new_mesh.device)
+    if new_mesh == bank.mesh:
+        return bank
+    return bank_sharding(new_mesh).put(bank)
 
 
-def full_step(bank: torch.Tensor, hi, lo, row, valid, mesh: Mesh,
-              seed: int = 0):
+def full_step(bank: Sharded, hi, lo, row, valid, mesh: Mesh, seed: int = 0):
     """One complete step: sharded insert, then the global merge-count."""
     bank, _ = bank_insert(bank, hi, lo, row, valid, mesh, seed)
     return bank, bank_count_all(bank, mesh)

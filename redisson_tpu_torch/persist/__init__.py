@@ -22,6 +22,7 @@
 from redisson_tpu_torch.persist.codec import decode_payload, encode_payload
 from redisson_tpu_torch.persist.journal import (
     Journal,
+    JournalCorruption,
     JournalGap,
     JournalRecord,
     JournalTail,
@@ -35,6 +36,7 @@ from redisson_tpu_torch.persist.follower import JournalFollower
 
 __all__ = [
     "Journal",
+    "JournalCorruption",
     "JournalFollower",
     "JournalGap",
     "JournalRecord",

@@ -61,6 +61,11 @@ SEGMENT_PREFIX = "seg-"
 SEGMENT_SUFFIX = ".wal"
 
 
+class JournalCorruption(RuntimeError):
+    """A sealed segment failed validation in a way torn-tail truncation
+    cannot explain (bad magic on a non-final segment, decode error)."""
+
+
 class JournalGap(RuntimeError):
     """A tailer's next sequence number is below every surviving segment —
     the leader truncated history past the tail position (snapshot +
@@ -550,6 +555,10 @@ class Journal:
         """Highest sequence number known fsynced to stable storage."""
         with self._io:
             return self._synced_seq
+
+    def segment_count(self) -> int:
+        with self._io:
+            return len(self._segments)
 
     def disk_bytes(self) -> int:
         """On-disk bytes across live segments (the memstat 'disk' meter);

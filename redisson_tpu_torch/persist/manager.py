@@ -76,6 +76,12 @@ class PersistenceManager:
             raise RuntimeError("persistence manager not started")
         return self.snapshotter.snapshot_now()
 
+    def sync(self) -> None:
+        """Force a group-commit fsync (the caller wants a durability point
+        stronger than the configured policy, e.g. before a drill kill)."""
+        if self.journal is not None:
+            self.journal.sync()
+
     def stats(self) -> Dict[str, Any]:
         out: Dict[str, Any] = {}
         if self.journal is not None:

@@ -21,7 +21,8 @@ carried into a port pod client. Exact everywhere but PFCOUNT (rel 1e-5).
 
 The port's own rules: the pod Bloom's shard-size rule (the segment-OR
 under 2^31 cells per shard, `scatter_` at or above, pinned by patching the
-cap constant here); a mesh spanning two cards raises NotImplementedError;
+cap constant here); a mesh spanning two cards has no single device and the
+mesh data plane refuses it (NotImplementedError);
 a pod without `device="cpu"` asks for the card and raises without one.
 """
 
@@ -165,14 +166,11 @@ def _split(keys):
 def test_port_bank_is_sharded(mesh):
     bank = sharded.make_bank(mesh, 64)
     assert bank.shape == (64, 16384)
-    blocks = mesh_mod.row_blocks(64, mesh)
-    # Each shard is an 8-row view of the one bank tensor (no copies).
-    assert [hi - lo for lo, hi in blocks] == [8] * 8
-    row_bytes = 16384 * 4
-    for lo, hi in blocks:
-        view = bank[lo:hi]
-        assert view.data_ptr() == bank.data_ptr() + lo * row_bytes
-        assert view.is_contiguous()
+    assert bank.ranges() == mesh_mod.row_blocks(64, mesh)
+    # Each shard is an 8-row tensor of its own on its entry's device.
+    assert {tuple(b.shape) for b in bank.blocks} == {(8, 16384)}
+    assert len({b.untyped_storage().data_ptr() for b in bank.blocks}) == 8
+    assert [b.device for b in bank.blocks] == list(mesh.devices)
     assert mesh.size == 8 and set(mesh.devices) == {torch.device("cpu")}
 
 
@@ -203,7 +201,7 @@ def test_port_sharded_matches_single_device_semantics(mesh):
     bucket, rank = hll.bucket_rank(h1)
     want = np.zeros((8, 16384), np.int32)
     np.maximum.at(want, (row, bucket.numpy()), rank.numpy())
-    assert np.array_equal(bank.numpy(), want)
+    assert np.array_equal(np.asarray(bank), want)
 
 
 def test_port_full_step_on_8_shards(mesh):
@@ -350,13 +348,20 @@ def test_pod_config_modes():
 
 
 def test_mesh_spanning_two_cards_raises():
+    """A mesh naming two cards has no single device, and the mesh data
+    plane, which keeps one bank tensor on it, refuses it. (The pod builds
+    on such a mesh: tests/test_torch_cuda.py, on several cards.)"""
     two = Mesh("shards", (torch.device("cuda", 0), torch.device("cuda", 1)))
-    with pytest.raises(NotImplementedError, match="multi-card placement"):
+    assert two.home == torch.device("cuda", 0)
+    with pytest.raises(NotImplementedError, match=mesh_mod.MULTI_CARD_ITEM):
         two.device
-    with pytest.raises(NotImplementedError, match="multi-card placement"):
-        sharded.make_bank(two, 8)
-    with pytest.raises(NotImplementedError, match="multi-card placement"):
-        sharded_bits.make_bits(two, 4096)
+    from redisson_tpu_torch.backend_torch import TorchBackend
+    from redisson_tpu_torch.store import SketchStore
+
+    backend = TorchBackend(SketchStore(torch.device("cpu")))
+    with pytest.raises(NotImplementedError, match=mesh_mod.MULTI_CARD_ITEM):
+        backend.attach_mesh(two, 2)
+    assert backend.mesh is None
 
 
 def test_mesh_cache_keys_on_device_set():
@@ -393,7 +398,7 @@ def test_pod_bloom_shard_size_rule(monkeypatch, mesh, cap_offset, segment):
     from redisson_tpu_torch.ops import bloom
 
     want[bloom.indexes(h1, h2, k, m).reshape(-1)] = 1
-    assert torch.equal(bits, want)
+    assert np.array_equal(np.asarray(bits), want.numpy())
     assert bool(added.all())
 
 
@@ -422,8 +427,8 @@ def test_bank_insert_equals_jax(mesh, jmesh, pre_hashed):
         bank, changed = sharded.bank_insert(
             bank, hi[part], lo[part], row[part], valid[part], mesh, 0,
             pre_hashed)
-        assert np.array_equal(changed.numpy(), np.asarray(jchanged))
-    assert np.array_equal(bank.numpy(), np.asarray(jbank))
+        assert np.array_equal(np.asarray(changed), np.asarray(jchanged))
+    assert np.array_equal(np.asarray(bank), np.asarray(jbank))
     assert np.array_equal(sharded.bank_merge_all(bank, mesh).numpy(),
                           np.asarray(jsharded.bank_merge_all(jbank, jmesh)))
     got = float(sharded.bank_count_all(bank, mesh))
@@ -456,17 +461,17 @@ def test_sharded_bits_equal_jax(mesh, jmesh):
     bits = sharded_bits.set_range(bits, 50_001, 123_456, True, mesh)
     jbits = jsbits.set_range(jbits, np.uint32(70_000), np.uint32(70_100), False)
     bits = sharded_bits.set_range(bits, 70_000, 70_100, False, mesh)
-    assert np.array_equal(bits.numpy(), np.asarray(jbits))
+    assert np.array_equal(np.asarray(bits), np.asarray(jbits))
     jbits = jsbits.bitop_not(jbits, np.uint32(150_000 - 1))
     bits = sharded_bits.bitop_not(bits, 150_000 - 1, mesh)
-    assert np.array_equal(bits.numpy(), np.asarray(jbits))
+    assert np.array_equal(np.asarray(bits), np.asarray(jbits))
     assert sharded_bits.length(bits, mesh) == jsbits.length(jbits)
     other = (rng.random(bits.shape[0]) < 0.3).astype(np.uint8)
     for op in ("and", "or", "xor"):
-        got = sharded_bits.bitop(torch.stack([bits, torch.from_numpy(other)]),
-                                 op, mesh)
+        got = sharded_bits.bitop(
+            [bits, sharded_bits.bits_sharding(mesh).put(other)], op, mesh)
         exp = jsbits.bitop(jnp.stack([jbits, jnp.asarray(other)]), op)
-        assert np.array_equal(got.numpy(), np.asarray(exp)), op
+        assert np.array_equal(np.asarray(got), np.asarray(exp)), op
 
 
 def test_bitcount_and_length_at_the_top_index(mesh, jmesh):
@@ -475,7 +480,7 @@ def test_bitcount_and_length_at_the_top_index(mesh, jmesh):
     assert sharded_bits.combine_partials(
         [torch.full((2,), (1 << 31) - 1, dtype=torch.int32)] * 2) == 4 * ((1 << 31) - 1)
     bits = sharded_bits.make_bits(mesh, 1 << 16)
-    bits[-1] = 1
+    bits.blocks[-1][-1] = 1
     assert sharded_bits.length(bits, mesh) == bits.shape[0]
 
 
@@ -499,7 +504,7 @@ def test_pod_bloom_equals_jax(mesh, jmesh, layout):
         bits, added = sharded_bits.bloom_add_packed(
             bits, keys, count, k, m, 0, mesh, layout)
         assert np.array_equal(added.numpy(), np.asarray(jadded))
-    assert np.array_equal(bits.numpy(), np.asarray(jbits))
+    assert np.array_equal(np.asarray(bits), np.asarray(jbits))
     probe = rng.integers(0, 2**63, 1024, dtype=np.int64)
     got = sharded_bits.bloom_contains_packed(bits, probe, 1024, k, m, 0, mesh, layout)
     exp = jsbits.bloom_contains_packed(
@@ -514,7 +519,7 @@ def test_pod_bloom_equals_jax(mesh, jmesh, layout):
     bits, added = sharded_bits.bloom_add_bytes(bits, data, lengths, valid, k, m,
                                                0, mesh, layout)
     assert np.array_equal(added.numpy(), np.asarray(jadded))
-    assert np.array_equal(bits.numpy(), np.asarray(jbits))
+    assert np.array_equal(np.asarray(bits), np.asarray(jbits))
 
 
 def _pod_sequence(c, seed, n_ops=300):
