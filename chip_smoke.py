@@ -294,20 +294,22 @@ Phases, each of which fails the run on error:
      partials, an int64 combine); BITOP OR and AND of two 2^27-bit days
      against numpy. (4) With two cards or more, steps 1-3 ran over
      min(4, cards) cards, and a child process that sees one card
-     (`--pod-one-card`) runs step 1 again on four tensors of that card:
-     PFADD keys/s, PFMERGE+count ms and reshard seconds of both printed
-     side by side with every card's name and power limit; on one card a
-     line says the step did not run. (5) On one card,
-     `use_cluster(num_shards=4, data_plane="mesh")`
-     with phase 20's keys and layout against the stacks plane on the same
-     sequence: replies (128 PFCOUNTs among them) and every register
-     equal, collective_merges > 0,
+     (`--pod-one-card`) runs step 1 and step 5 again on four tensors of
+     that card: PFADD keys/s, PFMERGE+count ms and reshard seconds of both
+     printed side by side with every card's name and power limit; on one
+     card a line says the step did not run. (5)
+     `use_cluster(num_shards=4, data_plane="mesh")`, its bank one block
+     per entry over min(4, cards) cards (four tensors of cuda:0 on one
+     card; each block's card and bytes printed), with phase 20's keys and
+     layout against the stacks plane on the same sequence: replies (128
+     PFCOUNTs among them) and every register equal, collective_merges > 0,
      mesh_occupancy() the live sketch count; shard 0's range migrated live
-     to shard 1 under two writers, every acknowledged PFADD present, rows
-     relocated on the card. seg_insert, merge_stack,
+     to the shard with the most free rows under two writers, every
+     acknowledged PFADD present, rows relocated across blocks; its RBatch
+     seconds, PFMERGE-over-1000 ms and migration seconds printed, on
+     several cards beside the one-card child's. seg_insert, merge_stack,
      bits_insert_segmented, popcount_partials and bitop_cells must launch
-     in (1)-(3). (5) does not run on several cards: the mesh plane keeps
-     one bank tensor. Keys/s, merge ms, reshard and migration seconds are
+     in (1)-(3). Keys/s, merge ms, reshard and migration seconds are
      printed, never checked. Run alone (`--phase pod`) it makes its own
      `sort` and `scatter` references.
  24. the passthrough mode (interop/backend_redis.py, bloom_redis.py,
@@ -5614,18 +5616,24 @@ def pd_close(what: str, got, want) -> None:
         raise AssertionError(f"{what}: {len(bad)} counts differ, e.g. {bad[:3]}")
 
 
-def pd_on_card(c) -> bool:
-    """The pod's blocks (the bank's and every sharded bit array's), each a
-    tensor of its own on its mesh entry's card, and the delegate store on
-    the mesh's home."""
-    be = c._pod_backend()
-    for arr in [be.bank] + [o.state for o in be._bits.values()]:
-        if ([b.device for b in arr.blocks] != list(be.mesh.devices)
+def pd_placed(arrays, mesh, store) -> bool:
+    """Each blocked array's blocks, each a tensor of its own on its mesh
+    entry's card, and the store's objects on the mesh's home."""
+    for arr in arrays:
+        if ([b.device for b in arr.blocks] != list(mesh.devices)
                 or not all(b.is_cuda for b in arr.blocks)
                 or len({b.untyped_storage().data_ptr() for b in arr.blocks})
                 != len(arr.blocks)):
             return False
-    return all(be.store.get(n).state.device == be.mesh.home for n in be.store.keys())
+    return all(store.get(n).state.device == mesh.home for n in store.keys())
+
+
+def pd_on_card(c) -> bool:
+    """The pod's blocks (the bank's and every sharded bit array's) and the
+    delegate store, placed (`pd_placed`)."""
+    be = c._pod_backend()
+    return pd_placed([be.bank] + [o.state for o in be._bits.values()], be.mesh,
+                     be.store)
 
 
 def sync_cards() -> None:
@@ -5862,8 +5870,8 @@ def pd_mesh_migrate(c, data, seed: int, card: str) -> dict:
     has room: a full block leaves rows in place, a placement hint) under
     two writers PFADDing into its sketches; every acknowledged PFADD
     present (a `sort` client fed the base keys and exactly the acknowledged
-    batches), no future lost, rows relocated into the target's block on
-    the card."""
+    batches), no future lost, rows relocated into the target's preferred
+    range (across blocks, and across cards on several)."""
     import threading
 
     from redisson_tpu_torch.client import RedissonTorch
@@ -5943,7 +5951,7 @@ def pd_mesh_migrate(c, data, seed: int, card: str) -> dict:
     log(f"  mesh migration: {len(src_slots)} slots ({len(hot)} sketches) shard 0 -> "
         f"{target} (free rows by block {free}) under 2 writers, {len(acked)} "
         f"acknowledged PFADDs all present; {stats['bank_rows_relocated']} rows "
-        "relocated into its block on the card")
+        "relocated into its preferred range, across blocks")
     return {"migrate_s": migrate_s, "acked": len(acked), "stats": stats}
 
 
@@ -5952,18 +5960,13 @@ def pd_mesh(seed: int, card: str) -> dict:
     20's keys and layout against the stacks plane on the same sequence
     (results and registers equal, as the JAX package's mode-parity test
     holds them); collective_merges > 0; mesh_occupancy() the live sketch
-    count; then the live migration. One card only: the mesh plane keeps
-    one bank tensor, and across cards it is not ported yet."""
+    count; then the live migration. The mesh plane's bank is one block per
+    entry over min(4, cards) cards (four tensors of cuda:0 on one card);
+    each block's card and bytes are printed."""
     import shutil
 
-    import torch
     from redisson_tpu_torch.config import Config
 
-    cards = torch.cuda.device_count()
-    if cards > 1:
-        log(f"[{card}] phase 23 mesh data plane: not run on {cards} cards (one bank "
-            "tensor; ROADMAP queue 1: the mesh data plane across cards)")
-        return {"launches": {}, "migration": None, "merge_ms": None}
     data = cl_data(seed)
 
     def plane_config(plane: str):
@@ -5996,10 +5999,11 @@ def pd_mesh(seed: int, card: str) -> dict:
         live = sum(1 for r in rows.values() if bank[r].any())
         expect("phase 23 mesh_occupancy()", be.mesh_occupancy(), live)
         expect("phase 23 live sketches", live, len(s_regs))
-        if be.mesh.size != PD_SHARDS or not on_card(mc):
-            raise AssertionError("phase 23: the mesh bank is not 4 shards on the card")
+        if be.mesh.size != PD_SHARDS or not pd_placed([be.bank], be.mesh, be.store):
+            raise AssertionError("phase 23: the mesh bank is not 4 blocks on their cards")
         if not launches["merge_stack"]:
             raise AssertionError(f"phase 23 mesh never launched merge_stack: {launches}")
+        pd_blocks(card, "mesh bank", be.bank)
         info = mesh.cluster_info()
         pd_metric(card, "mesh RBatch seconds, stacks RBatch seconds",
                   f"{m_res['batch_s']} {s_res['batch_s']}")
@@ -6008,15 +6012,21 @@ def pd_mesh(seed: int, card: str) -> dict:
         pd_metric(card, "collective_merges, multi_shard_windows, cross_shard_merges",
                   f"{info['collective_merges']} {info['multi_shard_windows']} "
                   f"{info['cross_shard_merges']}")
-        log(f"  mesh plane: {len(s_regs)} sketches' results and registers equal the "
-            f"stacks plane's; occupancy {live}")
+        log(f"  mesh plane over {len(set(be.mesh.devices))} card(s): {len(s_regs)} "
+            f"sketches' results and registers equal the stacks plane's; occupancy {live}")
         migration = pd_mesh_migrate(mesh, data, seed, card)
         launches = all_launches()
     finally:
         mesh.shutdown()
         shutil.rmtree(PD_DIR, ignore_errors=True)
     return {"launches": launches, "migration": migration,
-            "merge_ms": m_res["merge_ms"]}
+            "merge_ms": m_res["merge_ms"], "batch_s": m_res["batch_s"]}
+
+
+def pd_mesh_figures(mesh: dict) -> dict:
+    """The mesh step's figures printed beside another run's."""
+    return {"mesh_batch_s": mesh["batch_s"], "mesh_merge_ms": mesh["merge_ms"],
+            "mesh_migrate_s": mesh["migration"]["migrate_s"]}
 
 
 PD_ONE_CARD_TIMEOUT_S = 300
@@ -6067,8 +6077,9 @@ def pd_warm() -> None:
 def pod_one_card(seed: int) -> int:
     """`--pod-one-card`: phase 23's HLL step on a pod whose four entries
     are tensors of one card (run with CUDA_VISIBLE_DEVICES naming one
-    card), held to its own `sort` reference: the one-card figures the
-    multi-card step prints beside its own. The last line is their JSON."""
+    card), held to its own `sort` reference, then the mesh plane's step 5
+    there: the one-card figures the multi-card steps print beside their
+    own. The last line is their JSON."""
     import torch
     from redisson_tpu_torch.client import RedissonTorch
     from redisson_tpu_torch.config import Config
@@ -6085,8 +6096,9 @@ def pod_one_card(seed: int) -> int:
         got = pd_hll(c, ref, seed, card)
     finally:
         c.shutdown()
-    print(json.dumps({k: got[k] for k in ("keys_per_s", "merge_ms", "reshard_s")}),
-          flush=True)
+    figures = {k: got[k] for k in ("keys_per_s", "merge_ms", "reshard_s")}
+    figures.update(pd_mesh_figures(pd_mesh(seed, card)))
+    print(json.dumps(figures), flush=True)
     return 0
 
 
@@ -6121,7 +6133,7 @@ def pd_cards(seed: int, card: str, hll: dict) -> dict:
               f"{hll['merge_ms']} {one['merge_ms']}")
     pd_metric(card, f"reshard seconds (to 2, back to 4), pod on {where} vs one card",
               f"{json.dumps(hll['reshard_s'])} {json.dumps(one['reshard_s'])}")
-    return {"cards": cards, "one_card": one}
+    return {"cards": cards, "one_card": one, "where": where}
 
 
 def pod_path(seed: int, card: str, ref, ref_bloom) -> dict:
@@ -6163,6 +6175,14 @@ def pod_path(seed: int, card: str, ref, ref_bloom) -> dict:
     t = time.perf_counter()
     out["mesh"] = pd_mesh(seed, card)
     steps["mesh"] = round(time.perf_counter() - t, 3)
+    what = f"mesh RBatch s, PFMERGE over {MERGE_N} ms, migration s: mesh plane on"
+    mesh_fig = json.dumps(pd_mesh_figures(out["mesh"]))
+    if "cards" in out:
+        one = {k: v for k, v in out["cards"]["one_card"].items() if k.startswith("mesh_")}
+        pd_metric(card, f"{what} {out['cards']['where']} vs one card",
+                  f"{mesh_fig} {json.dumps(one)}")
+    else:
+        pd_metric(card, f"{what} 1 card", mesh_fig)
     pod_l = {}
     for step in ("hll", "bloom", "bits"):
         pod_l = add_launches(pod_l, out[step]["launches"])

@@ -29,11 +29,17 @@ steal group: its groups skip the planner and retire through the same
 `_op_geo_flush` install the applier's LWW decisions.
 
 Mesh data plane (cluster `data_plane="mesh"`): `attach_mesh` puts the
-still-lazy bank onto a logical mesh (`parallel/mesh.ShardedBank`): rows
-are allocated in the owning logical shard's preferred row block, PFMERGE /
-countWith / the fused merge+count run as the engine's mesh collectives
-(per-shard merge_stack folds, a max across shards), and the tape stamps
-each entry's logical shard in its shard column.
+still-lazy bank onto a logical mesh (`parallel/mesh.ShardedBank`): the bank
+is a `parallel.mesh.Sharded`, one block of rows per mesh entry on that
+entry's device (four tensors of one card on one card), which every
+`engine.hll_bank_*` function takes. Rows are allocated in the owning
+logical shard's preferred row range, PFMERGE / countWith / the fused
+merge+count run as the engine's mesh collectives (per-block merge_stack
+folds, a max across blocks), device inserts run per block on each block's
+card, and a tape window or delta chunk, which mixes bank rows with the
+store's cells on home, gathers its rows to home for its one launch and
+writes them back block by block. The tape stamps each entry's logical
+shard in its shard column.
 """
 
 from __future__ import annotations
@@ -63,6 +69,8 @@ from redisson_tpu_torch.ingest.planner import IngestPlanner, default_planner
 from redisson_tpu_torch.ops import bitset as bitset_ops
 from redisson_tpu_torch.ops import bloom as bloom_ops
 from redisson_tpu_torch.ops import bloom_math
+from redisson_tpu_torch.parallel import sharded
+from redisson_tpu_torch.parallel.mesh import Sharded
 from redisson_tpu_torch.store import ObjectType, SketchStore, WrongTypeError
 
 
@@ -598,32 +606,27 @@ class TorchBackend:
         `shard_of` maps a target name to its logical shard (the tape's
         shard column, the per-shard memstat attribution). Must be called
         before the first bank-touching op (the client wires it right after
-        construction, before the executor starts)."""
+        construction, before the executor starts). The mesh's home is the
+        backend's device: the store, the tape's windows and the
+        collectives' combines live there."""
         from redisson_tpu_torch.parallel.mesh import ShardedBank
 
         if self.bank is not None:
             raise RuntimeError("attach_mesh: bank already materialized")
-        sb = ShardedBank(mesh, self._alloc.capacity, num_shards)
-        if mesh.device != self.device:
-            raise ValueError(f"attach_mesh: mesh on {mesh.device}, backend on "
+        if mesh.home != self.device:
+            raise ValueError(f"attach_mesh: mesh home {mesh.home}, backend on "
                              f"{self.device}")
+        sb = ShardedBank(mesh, self._alloc.capacity, num_shards)
         self.mesh = mesh
         self._sharded_bank = sb
         self._shard_of = shard_of
         self._alloc.capacity = sb.capacity
 
-    def _put(self, arr: np.ndarray) -> torch.Tensor:
-        """A bank-kernel operand on the device: replicated across the mesh
-        in mesh mode (every shard reads it in place), else on the store's
-        device."""
-        if self._sharded_bank is not None:
-            return self._sharded_bank.replicate(np.ascontiguousarray(arr))
-        return self._to_device(arr)
-
     def mesh_relocate(self, names, target_shard: int) -> int:
         """Device-side bank-row relocation for mesh-mode slot migration:
         move each name's registers into the adopting shard's preferred row
-        block (copy row, zero the old one, remap the allocator). Runs on
+        range (copy the row, across blocks and cards where they differ;
+        zero the old one; remap the allocator). Runs on
         the dispatcher (executor.execute_barrier): the caller's journaled
         flip fence orders it against in-flight windows. A full target block
         leaves rows in place (placement is a hint; the collectives select
@@ -640,7 +643,7 @@ class TorchBackend:
             new = self._alloc.claim_range(lo, hi)
             if new is None:
                 break
-            self.bank[new] = self.bank[row]
+            self.bank = sharded.copy_row(self.bank, row, new)
             self.bank = engine.hll_bank_zero_row(self.bank, row)
             self._alloc.rows[name] = new
             self._alloc.free.append(row)
@@ -660,7 +663,8 @@ class TorchBackend:
 
     def _grow_bank(self, new_cap: int) -> int:
         """RowAllocator grow hook: reallocate the bank at `new_cap` rows
-        (rounded to a multiple of the mesh size in mesh mode)."""
+        (rounded to a multiple of the mesh size in mesh mode, where the
+        blocks follow the new capacity as JAX's re-placement does)."""
         sb = self._sharded_bank
         if sb is not None:
             new_cap = sb.round_capacity(new_cap)
@@ -669,12 +673,13 @@ class TorchBackend:
         self._account_bank()
         return new_cap
 
-    def _ensure_bank(self) -> torch.Tensor:
+    def _ensure_bank(self):
+        """The bank, made on first use: a tensor, or the mesh plane's
+        `Sharded` of zero blocks."""
         if self.bank is None:
             sb = self._sharded_bank
             if sb is not None:
-                self.bank = sb.place(engine.hll_bank_make(sb.capacity,
-                                                          device=self.device))
+                self.bank = sharded.make_bank(sb.mesh, sb.capacity)
             else:
                 self.bank = engine.hll_bank_make(self.bank_capacity,
                                                  device=self.device)
@@ -831,10 +836,17 @@ class TorchBackend:
             for name, (otype, cells, meta, *_rest) in objects.items():
                 self._install_bits(str(name), otype, cells, meta)
         bank_np = np.ascontiguousarray(bank_np, np.int32)
-        self.bank = torch.from_numpy(bank_np.copy()).to(self.device)
+        sb = self._sharded_bank
+        if sb is not None:
+            # Mesh plane: placed in blocks, the rows padded to a multiple
+            # of the mesh size.
+            sb.capacity = sb.round_capacity(bank_np.shape[0])
+            self.bank = sb.place(bank_np, sb.capacity)
+        else:
+            self.bank = torch.from_numpy(bank_np.copy()).to(self.device)
         alloc = self._alloc
         alloc.clear()
-        alloc.capacity = bank_np.shape[0]
+        alloc.capacity = len(self.bank)
         alloc.rows.update({str(n): int(r) for n, r in rows.items()})
         alloc.next = max(alloc.rows.values(), default=-1) + 1
         used = set(alloc.rows.values())
@@ -846,9 +858,11 @@ class TorchBackend:
 
     def to_numpy_state(self):
         """(bank as numpy [S, m] int32, name -> row map): the reverse of
-        `from_jax_state`."""
+        `from_jax_state` (a blocked bank's blocks concatenated)."""
         bank = self._ensure_bank()
-        return bank.cpu().numpy().copy(), dict(self._rows)
+        host = (bank.to_numpy() if isinstance(bank, Sharded)
+                else bank.cpu().numpy().copy())
+        return host, dict(self._rows)
 
     def to_numpy_objects(self) -> dict:
         """name -> (otype, cells as numpy uint8, meta) for every BitSet and
@@ -1393,20 +1407,16 @@ class TorchBackend:
             # entries span several logical shards (the tape's shard column).
             self.counters["multi_shard_windows"] += 1
         n_hll = tp.n_hll
-        # The window's operands, read by every shard of a mesh bank.
-        wire = self._put(tp.wire)
-        table = self._put(tp.table)
-        if n_hll:
-            bank = self._ensure_bank()
-            rows_pad = self._put(engine.pad_rows_repeat(tp.hll_rows))
-        else:
-            bank = None
-            rows_pad = torch.zeros((1,), dtype=torch.int32, device=self.device)
+        # The window retires on the store's device (a mesh bank's home):
+        # its HLL rows are host ints, gathered from the bank there.
+        wire = self._to_device(tp.wire)
+        table = self._to_device(tp.table)
+        bank = self._ensure_bank() if n_hll else None
         store_planes = tp.planes[n_hll:]
         store_old = [self.store.get(p.target).state for p in store_planes]
         want_old = any(p.kind == "bitset_set" for p in store_planes)
         new_bank, merged, changed, old_packed = engine.tape_apply(
-            bank, wire, table, rows_pad, store_old, n_hll=n_hll,
+            bank, wire, table, tp.hll_rows, store_old, n_hll=n_hll,
             lanes=tp.lanes, want_old=want_old)
         self.counters["merge_launches"] += 1
         self.counters["window_launches"] += 1
@@ -2627,7 +2637,8 @@ class TorchBackend:
         if inner == "hll_add":
             row = self._hll_row(target)  # WRONGTYPE if a store object
             bank = self._ensure_bank()
-            regs = torch.maximum(bank[row], plane.to(torch.int32))
+            regs = torch.maximum(engine.hll_bank_row(bank, row).to(plane.device),
+                                 plane.to(torch.int32))
             self.bank = engine.hll_bank_set_row(bank, regs, row)
             self._bump(target)
             return

@@ -32,6 +32,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from redisson_tpu_torch.parallel.mesh import Sharded
 from redisson_tpu_torch.store import SketchStore
 
 MANIFEST = "manifest.json"
@@ -74,9 +75,13 @@ def _fsync_dir(path: str) -> None:
 
 
 def host_copy(state) -> np.ndarray:
-    """A host numpy copy of a tensor or an array-like. A CUDA tensor comes
-    through a pinned `Readback` and is copied out of it, so its pinned
-    buffer is released before the next object's is taken."""
+    """A host numpy copy of a tensor, a blocked array or an array-like. A
+    CUDA tensor comes through a pinned `Readback` and is copied out of it,
+    so its pinned buffer is released before the next object's is taken; a
+    `Sharded` (a pod's or the mesh plane's bank or cells) is copied block
+    by block that way, each from its own card, and concatenated."""
+    if isinstance(state, Sharded):
+        return np.concatenate([host_copy(b) for b in state.blocks])
     if isinstance(state, torch.Tensor):
         if not state.is_cuda:
             return state.detach().numpy()

@@ -14,7 +14,12 @@ writes a fresh row first, so the PFADD "changed" flag keeps JAX's meaning
 (`hll_bank_row`, for export) clone.
 
 Every named HLL is a row of one `[S, m]` int32 bank: multi-sketch PFMERGE
-and PFCOUNT are one row-max over an index vector. The hand-written kernels
+and PFCOUNT are one row-max over an index vector. The bank is one tensor,
+or, on the cluster's mesh data plane, a `parallel.mesh.Sharded` whose
+blocks lie on the mesh entries' devices: every `hll_bank_*` function takes
+either, and hands a `Sharded` to the blocked-bank functions of
+`parallel/sharded.py` (the pod's), which work block by block on each
+block's card and meet on the mesh's home. The hand-written kernels
 are the segmented insert (`ingest="segment"`; a multi-target run takes its
 multi-target form, one launch per chunk) and `merge_stack`
 (`hll_merge_stack`, `hll_count_merged`, and the bank merges, which it reads
@@ -38,14 +43,14 @@ old rows, where JAX donated it.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from redisson_tpu_torch.ops import bitset, bloom, hashing, hll
 from redisson_tpu_torch.ops import kernels as pk
 from redisson_tpu_torch.ops import window_kernel as wk
+from redisson_tpu_torch.parallel import sharded
+from redisson_tpu_torch.parallel.mesh import Sharded
 
 # Batch-size buckets: powers of two between MIN_BUCKET and MAX_BUCKET keys.
 MIN_BUCKET = 1 << 10
@@ -117,6 +122,8 @@ def pad_rows_repeat(rows):
 
 
 def _index(rows, device) -> torch.Tensor:
+    if isinstance(rows, torch.Tensor):
+        return rows.to(device).long()
     return torch.as_tensor(np.asarray(rows), device=device).long()
 
 
@@ -242,7 +249,8 @@ def hll_count_merged(stack):
 
 
 # ---------------------------------------------------------------------------
-# HLL bank: named sketches as rows of ONE [S, m] tensor.
+# HLL bank: named sketches as rows of ONE [S, m] bank (a tensor, or a
+# `Sharded` on the mesh data plane).
 # ---------------------------------------------------------------------------
 
 
@@ -253,12 +261,18 @@ def hll_bank_make(capacity: int, m: int = None, device=None) -> torch.Tensor:
 
 def _bank_add(bank, h1, rows, valid, impl: str = "scatter"):
     """Multi-target insert, in place: key i raises bank row rows[i]. Returns
-    (bank, changed_rows[S]). Under 'segment' the segmented kernel's
+    (bank, changed_rows[S]). A blocked bank takes the pod's per-block
+    insert whatever `impl` (the segmented kernel's multi-target form on
+    each block's card, JAX's `_insert_local`), its flags read into one [S]
+    bool on home. Under 'segment' the segmented kernel's
     multi-target form folds the whole chunk in one launch and sets the
     flags; otherwise the flat scatter at row*m + bucket (JAX's path), where
     a row changed iff some key's rank exceeds the register it lands on
     (gathered before the scatter): the same flag as JAX's whole-bank row
     compare, without a bank-sized copy."""
+    if isinstance(bank, Sharded):
+        bank, changed = sharded.bank_insert_h1(bank, h1, rows, valid, bank.mesh)
+        return bank, sharded.changed_on_home([changed])
     s, m = bank.shape
     bucket, rank = hll.bucket_rank(h1, hll.p_of(m))
     rank = torch.where(valid, rank, 0)  # padded lanes never raise
@@ -282,7 +296,16 @@ def _bank_add_row(bank, h1, row: int, valid, impl: str = "scatter"):
     """Single-target insert into bank row `row`, in place. Returns (bank,
     changed_rows[S]). Under 'segment' the kernel folds into the row and
     writes its flag itself; the other strategies insert into a fresh row
-    and write it back."""
+    and write it back. A blocked bank runs it on the row's block, on its
+    card."""
+    if isinstance(bank, Sharded):
+        b, j = bank.locate(row)
+        block = bank.blocks[b]
+        _, flags = _bank_add_row(block, h1.to(block.device), j,
+                                 valid.to(block.device), impl)
+        changed_rows = torch.zeros(len(bank), dtype=torch.bool, device=h1.device)
+        changed_rows[row:row + 1] = flags[j:j + 1].to(h1.device)
+        return bank, changed_rows
     s, m = bank.shape
     bucket, rank = hll.bucket_rank(h1, hll.p_of(m))
     rank = torch.where(valid, rank, 0)
@@ -342,21 +365,29 @@ def hll_bank_add_bytes_rows(bank, data, lengths, rows, valid, seed: int = 0,
                      impl)
 
 
+def _row(bank, row: int):
+    """The view of one bank row (in its block, for a blocked bank)."""
+    return bank.row(row) if isinstance(bank, Sharded) else bank[row]
+
+
 def hll_bank_row(bank, row: int):
     """One row's registers as a fresh tensor (export/snapshot: independent
-    of later in-place inserts)."""
-    return bank[row].clone()
+    of later in-place inserts), on the row's device."""
+    return _row(bank, row).clone()
 
 
 def hll_bank_count(bank, row: int):
-    return hll.count(bank[row])
+    return hll.count(_row(bank, row))
 
 
 def _merged_rows(bank, rows):
     """Max over a row subset (rows may repeat), read from the bank in place
     by merge_stack; JAX gathers the rows and reduces them with jnp.max. The
     list stays on the host: on a card it reaches the kernel by value (no
-    allocation, no host-to-device copy per merge)."""
+    allocation, no host-to-device copy per merge). A blocked bank folds
+    each block's rows on its card and combines the partials on home."""
+    if isinstance(bank, Sharded):
+        return sharded.fold_rows(bank, rows)
     return pk.merge_stack(bank, np.asarray(rows, np.int32))
 
 
@@ -368,7 +399,7 @@ def hll_bank_count_rows(bank, rows):
 def hll_bank_merge_rows(bank, rows, target: int):
     """PFMERGE rows (the caller includes `target` in `rows`) into row
     `target`, in place."""
-    bank[target] = _merged_rows(bank, rows)
+    _row(bank, target).copy_(_merged_rows(bank, rows))
     return bank
 
 
@@ -376,13 +407,15 @@ def hll_bank_merge_count_rows(bank, rows, target: int):
     """Fused PFMERGE + PFCOUNT: fold `rows` into row `target` (in place) and
     estimate the merged cardinality -> (bank, estimate)."""
     merged = _merged_rows(bank, rows)
-    bank[target] = merged
+    _row(bank, target).copy_(merged)
     return bank, hll.count(merged)
 
 
 def hll_bank_absorb_rows(bank, regs_u8, rows):
     """Max-merge folded sketches [R, m] into bank rows [R] (rows may repeat),
     in place -> (bank, changed[R]) with one flag per source sketch."""
+    if isinstance(bank, Sharded):
+        return sharded.absorb_rows(bank, regs_u8, rows)
     s, m = bank.shape
     f = regs_u8.to(torch.int32)
     rows = _index(rows, bank.device)
@@ -395,29 +428,39 @@ def hll_bank_absorb_rows(bank, regs_u8, rows):
 
 def hll_bank_set_row(bank, regs, row: int):
     """Overwrite one row (hll_import / restore), in place."""
-    bank[row] = regs.to(torch.int32)
+    _row(bank, row).copy_(regs.to(torch.int32))
     return bank
 
 
 def hll_bank_rows_u8(bank, rows):
-    """Bank rows as uint8 register images (registers are 0..64, lossless)."""
+    """Bank rows as uint8 register images (registers are 0..64, lossless),
+    [R, m] in request order; from a blocked bank, on the mesh's home
+    (`rows` then host ints)."""
+    if isinstance(bank, Sharded):
+        return sharded.rows_u8(bank, rows)
     return bank[_index(rows, bank.device)].to(torch.uint8)
 
 
 def hll_bank_set_rows(bank, regs_u8, rows):
-    """Overwrite bank rows [R] (unique) with [R, m] uint8 images, in place."""
+    """Overwrite bank rows [R] (unique) with [R, m] uint8 images, in place;
+    a blocked bank writes each block's rows on its card."""
+    if isinstance(bank, Sharded):
+        return sharded.set_rows(bank, regs_u8, rows)
     bank[_index(rows, bank.device)] = regs_u8.to(torch.int32)
     return bank
 
 
 def hll_bank_zero_row(bank, row: int):
-    bank[row] = 0
+    _row(bank, row).zero_()
     return bank
 
 
 def hll_bank_grow(bank, new_cap: int):
     """Elastic capacity: [S, m] -> [S', m], row indices stable (a new
-    tensor: the old one is released)."""
+    tensor: the old one is released). A blocked bank is re-placed at S'/D
+    rows a block, as JAX re-places it: rows change blocks, and cards."""
+    if isinstance(bank, Sharded):
+        return sharded.grow_bank(bank, new_cap, bank.mesh)
     s, m = bank.shape
     out = torch.zeros((new_cap, m), dtype=bank.dtype, device=bank.device)
     out[:s] = bank
@@ -427,78 +470,43 @@ def hll_bank_grow(bank, new_cap: int):
 # ---------------------------------------------------------------------------
 # Mesh collectives (cluster data_plane="mesh")
 #
-# The bank's row blocks are the shards of a logical mesh
-# (parallel/mesh.py SLOT_AXIS). Cross-shard PFMERGE / PFCOUNT / DBSIZE run
-# as JAX's shard_map collectives do: each shard max-folds the requested
-# rows IT owns (merge_stack over its block, JAX's `_local_fold`), the
-# partials combine by a max (JAX's pmax hop), and the target row's owner
-# writes the merged registers into its block. No register image crosses
-# the host link.
+# The bank is a `Sharded` over a logical mesh (parallel/mesh.py SLOT_AXIS).
+# Cross-shard PFMERGE / PFCOUNT / DBSIZE run as JAX's shard_map collectives
+# do, through the pod's blocked-bank functions: each block max-folds the
+# requested rows IT holds (merge_stack on its card, JAX's `_local_fold`),
+# the [m] partials meet on home by peer copy and combine by a max (JAX's
+# pmax), and the target row's block takes the merged registers. No
+# register image crosses the host link.
 # ---------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
-def _mesh_collectives(mesh):
-    """Per-mesh collective entry points, cached on the Mesh (hashable, and
-    `parallel.mesh.get_mesh` returns one instance per device set), as JAX
-    caches its compiled shard_maps."""
-    from redisson_tpu_torch.parallel.mesh import row_blocks
-    from redisson_tpu_torch.parallel.sharded import combine_max
-
-    def local_fold(bank, rows):
-        rows = np.asarray(rows, np.int32)
-        parts = []
-        for lo, hi in row_blocks(bank.shape[0], mesh):
-            own = rows[(rows >= lo) & (rows < hi)]
-            if own.size:
-                parts.append(pk.merge_stack(bank[lo:hi], own - np.int32(lo)))
-        if not parts:
-            return bank.new_zeros((bank.shape[1],))
-        return combine_max(parts)
-
-    def merge(bank, rows, target):
-        bank[int(target)] = local_fold(bank, rows)
-        return bank
-
-    def merge_count(bank, rows, target):
-        merged = local_fold(bank, rows)
-        bank[int(target)] = merged
-        return bank, hll.count(merged)
-
-    def count(bank, rows):
-        return hll.count(local_fold(bank, rows))
-
-    def occupancy(bank):
-        # DBSIZE-style row occupancy: each shard counts its non-empty rows,
-        # the partials sum in int64.
-        parts = [(bank[lo:hi] != 0).any(dim=1).sum(dtype=torch.int64)
-                 for lo, hi in row_blocks(bank.shape[0], mesh)]
-        return torch.stack(parts).sum()
-
-    return {"merge": merge, "merge_count": merge_count, "count": count,
-            "occupancy": occupancy}
+def _on_mesh(bank, mesh) -> Sharded:
+    if not isinstance(bank, Sharded) or bank.mesh != mesh:
+        raise ValueError("a mesh collective takes a bank placed on its mesh "
+                         "(ShardedBank.place)")
+    return bank
 
 
 def hll_bank_merge_rows_collective(bank, rows, target, *, mesh):
     """PFMERGE `rows` into row `target` on a mesh-sharded bank, in place:
-    per-shard folds, a max across shards, the owner's writeback."""
-    return _mesh_collectives(mesh)["merge"](bank, rows, target)
+    per-block folds, a max across blocks, the owner's writeback."""
+    return sharded.bank_merge_rows(_on_mesh(bank, mesh), rows, target)
 
 
 def hll_bank_merge_count_rows_collective(bank, rows, target, *, mesh):
     """Fused collective PFMERGE + PFCOUNT -> (bank, estimate)."""
-    return _mesh_collectives(mesh)["merge_count"](bank, rows, target)
+    return sharded.bank_merge_count_rows(_on_mesh(bank, mesh), rows, target)
 
 
 def hll_bank_count_rows_collective(bank, rows, *, mesh):
     """Union cardinality over rows of a mesh-sharded bank (countWith)."""
-    return _mesh_collectives(mesh)["count"](bank, rows)
+    return sharded.bank_count_rows_merged(_on_mesh(bank, mesh), rows)
 
 
 def hll_bank_occupancy_collective(bank, *, mesh):
-    """Mesh-wide non-empty row count (DBSIZE analogue): per-shard counts
+    """Mesh-wide non-empty row count (DBSIZE analogue): per-block counts
     summed in int64."""
-    return _mesh_collectives(mesh)["occupancy"](bank)
+    return sharded.occupancy(_on_mesh(bank, mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -560,31 +568,34 @@ def tape_apply(bank, wire, table, hll_rows, store_old, *, n_hll: int,
     """Retire one encoded window tape.
 
     Gathers the HLL entries' bank rows (uint8) and the store entries' cell
-    tensors into a zero-padded [T2, lanes] stack of old rows, packs their
-    pre-merge bits when `want_old` (SETBIT results; formed before the merge
-    overwrites the stack), merges the whole tape with ONE `window_merge`,
-    and writes the HLL rows back through `hll_rows`, the bank rows
-    repeat-padded with the first (the repeats write equal values).
+    tensors into a zero-padded [T2, lanes] stack of old rows on the wire's
+    device, packs their pre-merge bits when `want_old` (SETBIT results;
+    formed before the merge overwrites the stack), merges the whole tape
+    with ONE `window_merge`, and writes the HLL rows back. The first
+    `n_hll` entries of `hll_rows` are the HLL entries' rows (JAX pads the
+    vector to a power of two by repeating the first; the repeats are not
+    read). A blocked bank's rows are gathered from their blocks to the
+    wire's device (home) and written back block by block, each on its
+    card: the one launch still retires a window whose rows span cards.
 
-    `bank` [S, m] int32 (None when `n_hll` is 0), `wire` uint8 [T2, W] and
-    `table` int32 [T2, 5] from the encode, `store_old` the store entries'
-    cell tensors in row order. Returns (bank, merged [T2, lanes], changed
-    [T2] bool, old_packed [T2, lanes // 8] | None).
+    `bank` [S, m] int32 or a `Sharded` (None when `n_hll` is 0; `hll_rows`
+    host ints for a `Sharded`), `wire` uint8 [T2, W] and `table` int32
+    [T2, 5] from the encode, `store_old` the store entries' cell tensors in
+    row order. Returns (bank, merged [T2, lanes], changed [T2] bool,
+    old_packed [T2, lanes // 8] | None).
     """
     t2 = table.shape[0]
     old = torch.zeros((t2, lanes), dtype=torch.uint8, device=wire.device)
-    rows = hll_rows.long()
     if n_hll:
         m = bank.shape[1]
-        old[:n_hll, :m] = bank[rows[:n_hll]].to(torch.uint8)
+        rows = hll_rows[:n_hll]
+        old[:n_hll, :m] = hll_bank_rows_u8(bank, rows)
     for j, cells in enumerate(store_old):
         old[n_hll + j, : cells.shape[0]] = cells
     old_packed = _pack_rows(old.clamp(max=1)) if want_old else None
     merged, changed = wk.window_merge(old, wire, table)
     if n_hll:
-        sel = torch.arange(rows.shape[0], device=rows.device)
-        sel = torch.where(sel < n_hll, sel, 0)
-        bank.index_copy_(0, rows, merged[sel, :m].to(torch.int32))
+        bank = hll_bank_set_rows(bank, merged[:n_hll, :m], rows)
     return bank, merged, changed, old_packed
 
 

@@ -11,7 +11,8 @@ accounting affordable on the hot path. Cells and bank rows written in
 place keep their size; only a growth reallocates, and every growth goes
 through `store.swap` or the backend's bank hooks.
 
-The shared HLL bank is a single device tensor holding many logical rows;
+The shared HLL bank holds many logical rows (one device tensor, or the
+blocks of a pod's or the mesh plane's bank, counted whole by `nbytes`);
 it is tracked as one ledger entry (kind ``"hll"``) updated from the
 backend's ``_ensure_bank`` / ``_grow_bank`` / flushall / state-install
 hooks. Per-row attribution is derived arithmetically at report time,
@@ -284,8 +285,8 @@ class MemLedger:
             if bank is not None:
                 actual[BANK_ENTRY] = int(bank.nbytes)
         with self._lock:
-            # Per-shard bank entries (mesh data plane) add up to the one
-            # bank tensor they account before the comparison.
+            # Per-shard bank entries (mesh data plane) add up to the bank
+            # they account before the comparison.
             ledger: Dict[str, int] = {}
             bank_total = 0
             for n, e in self._entries.items():

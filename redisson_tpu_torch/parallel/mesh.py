@@ -15,7 +15,7 @@ tier's shard rule), or on the CPU when the caller asks for it. Each shard
 body of JAX runs once per entry, over that entry's rows or cell range, and
 ``pmax`` / ``psum`` become an explicit combine of the per-entry partials.
 
-Placement (the pod tier): a sharded array is a ``Sharded``, one tensor per
+Placement (the pod tier and the mesh plane): a sharded array is a ``Sharded``, one tensor per
 entry on that entry's device, as JAX's ``NamedSharding(mesh, P("shards",
 ...))`` places one shard per device. ``Sharding`` (``bank_sharding``,
 ``slot_sharding``) makes and moves them, as JAX's ``device_put`` does; an
@@ -24,10 +24,10 @@ operand every entry reads whole goes to each entry's device by
 blocks are separate tensors of ``cuda:0``, on the CPU separate CPU tensors,
 so one card and the CPU tests run the code several cards run.
 
-The mesh data plane (``ShardedBank``, ``TorchBackend.attach_mesh``) keeps
-ONE tensor whose row blocks are the shards, on ``Mesh.device``: a mesh whose
-entries name different cards raises NotImplementedError there
-(``MULTI_CARD_ITEM``).
+The mesh data plane (``ShardedBank``, ``TorchBackend.attach_mesh``) has the
+pod's layout: its one shared HLL bank is a ``Sharded`` made and moved by
+``slot_sharding(mesh)``, block ``i`` on entry ``i``'s device, so the plane
+runs over several cards as the pod does.
 
 ``get_mesh`` is the CACHED constructor: topology-change storms (node_up /
 node_down scans re-resolving the same device set) must not mint fresh
@@ -50,9 +50,6 @@ from redisson_tpu_torch import device as device_mod
 
 SHARD_AXIS = "shards"
 SLOT_AXIS = "slots"
-
-#: the ROADMAP item the mesh data plane across several cards waits for
-MULTI_CARD_ITEM = "ROADMAP queue 1: the mesh data plane across cards"
 
 # Lock discipline: every name in this table is only touched under the
 # named lock.
@@ -97,23 +94,11 @@ class Mesh:
 
     @property
     def home(self) -> torch.device:
-        """Entry 0's device: where the pod's cross-shard combines land and
-        its delegate keeps the unsharded kinds (JAX's device 0)."""
+        """Entry 0's device: where the pod's and the mesh plane's
+        cross-shard combines land, and where the unsharded kinds live (the
+        pod's delegate, the mesh plane's store and tape windows: JAX's
+        device 0)."""
         return self.devices[0]
-
-    @property
-    def device(self) -> torch.device:
-        """The one device every entry names: where the mesh data plane's
-        bank lives as one tensor. Raises for a mesh spanning several
-        cards."""
-        first = self.devices[0]
-        if any(d != first for d in self.devices[1:]):
-            raise NotImplementedError(
-                f"a mesh whose entries span several devices "
-                f"({sorted({str(d) for d in self.devices})}) has no single "
-                f"device: one tensor over several cards waits for "
-                f"{MULTI_CARD_ITEM}")
-        return first
 
 
 def _entries(num_devices: int, device) -> Tuple[torch.device, ...]:
@@ -182,9 +167,9 @@ def row_blocks(rows: int, mesh: Mesh):
 
 
 class Sharded:
-    """One sharded array of the pod tier (JAX: an array placed with
-    ``NamedSharding(mesh, P("shards", ...))``): block ``i`` is a tensor of
-    its own on ``mesh.devices[i]`` holding the global rows (the bank) or
+    """One sharded array of the pod tier or the mesh plane (JAX: an array
+    placed with ``NamedSharding(mesh, P(axis, ...))``): block ``i`` is a
+    tensor of its own on ``mesh.devices[i]`` holding the global rows (the bank) or
     cells (bits) ``[i * per, i * per + len(block i))``. Every block holds
     ``per`` but in a trimmed copy (``clone(stop)``). Global indexes are
     Python ints, so a cell index up to 2^32 - 1 is exact."""
@@ -367,20 +352,22 @@ class ShardedBank:
     """Placement and row-geometry bookkeeping for the mesh data plane's one
     HLL bank.
 
-    The bank itself stays a plain ``[S, m] int32`` tensor owned by the
-    TorchBackend (every single-bank path keeps working); this object
-    carries the mesh and the logical shard -> preferred row-block map that
-    keeps a shard's sketches in its own mesh entry's rows, so a collective
-    fold finds them in that entry's local block.
+    The bank is a ``Sharded`` owned by the TorchBackend, placed by
+    ``slot_sharding(mesh)`` as JAX places it (``NamedSharding(mesh,
+    P("slots"))``): block ``i``, rows ``[i * S/D, (i + 1) * S/D)``, a tensor
+    of its own on entry ``i``'s device. This object carries the mesh and
+    the logical shard -> preferred row-range map that keeps a shard's
+    sketches in one entry's block, so a collective fold finds them there.
 
-    Row blocks are a PLACEMENT HINT, not a correctness domain: when a
-    shard's preferred block fills, rows spill to any free row (the
-    collectives select by row index, never by block)."""
+    Preferred ranges are a PLACEMENT HINT, not a correctness domain: when a
+    shard's range fills, rows spill to any free row (the collectives select
+    by row index, never by block)."""
 
     def __init__(self, mesh: Mesh, capacity: int, num_shards: int):
         self.mesh = mesh
         self.num_shards = max(int(num_shards), 1)
         self.capacity = self.round_capacity(capacity)
+        self.sharding = slot_sharding(mesh)
 
     @property
     def ndev(self) -> int:
@@ -393,15 +380,12 @@ class ShardedBank:
             capacity += ndev - capacity % ndev
         return capacity
 
-    def place(self, bank: torch.Tensor) -> torch.Tensor:
-        """Commit a bank onto the mesh: one contiguous tensor on the mesh's
-        device, whose row blocks are the entries' shards."""
-        return bank.to(self.mesh.device).contiguous()
-
-    def replicate(self, arr) -> torch.Tensor:
-        """An operand every entry reads (wire, table, row list): on the
-        mesh's device, read by every shard in place."""
-        return torch.as_tensor(arr).to(self.mesh.device)
+    def place(self, bank, rows: Optional[int] = None) -> Sharded:
+        """Commit a bank (numpy, a tensor on any device, or a ``Sharded``)
+        onto the mesh (JAX's ``device_put`` under the slot sharding): a
+        ``Sharded`` of `rows` rows (default the bank's own; rows past it
+        are zero), each block filled on its entry's device."""
+        return self.sharding.put(bank, rows)
 
     def block(self, shard_id: int, capacity: Optional[int] = None
               ) -> Tuple[int, int]:

@@ -1,5 +1,6 @@
 """Sharded HLL bank: [S, m] sketches row-sharded over a logical mesh
-(counterpart of `redisson_tpu.parallel.sharded`).
+(counterpart of `redisson_tpu.parallel.sharded`). The pod's bank and the
+mesh data plane's share these functions.
 
 The multi-device design of the JAX package, on the mesh's entries:
 
@@ -18,7 +19,11 @@ The multi-device design of the JAX package, on the mesh's entries:
     JAX runs inside `shard_map` once per device;
   * whole-bank PFMERGE = each block's row-max (the `merge_stack` kernel on
     its card), then the [m] partials peer-copied to home and max-combined
-    there: JAX's `lax.pmax` over the shard axis.
+    there: JAX's `lax.pmax` over the shard axis;
+  * work that mixes bank rows with state on home (a mesh-plane tape window
+    or delta chunk, whose BitSet and Bloom cells live in the store there)
+    gathers its rows to home (`rows_u8`) and writes them back block by
+    block (`set_rows`), peer copies both ways.
 
 Where JAX donates the bank, the port writes it in place and returns it.
 """
@@ -42,7 +47,7 @@ def make_bank(mesh: Mesh, num_sketches: int, m: int = hll.M) -> Sharded:
     ndev = mesh.size
     if num_sketches % ndev != 0:
         raise ValueError(f"num_sketches {num_sketches} not divisible by {ndev} devices")
-    return bank_sharding(mesh).zeros((num_sketches, m), torch.int32)
+    return bank_sharding(mesh, mesh.axis).zeros((num_sketches, m), torch.int32)
 
 
 def h1_of(hi, lo, mesh: Mesh, seed: int = 0,
@@ -127,18 +132,28 @@ def bank_count_row(bank: Sharded, row: int) -> torch.Tensor:
     return hll.count(bank.row(int(row)))
 
 
-def _fold_rows(bank: Sharded, rows) -> torch.Tensor:
+def _by_block(bank: Sharded, rows):
+    """(block, positions in `rows`, local rows) for every block that holds
+    some of the global `rows` (host ints)."""
+    rows = np.asarray(rows, np.int64).reshape(-1)
+    if rows.size and (rows.min() < 0 or rows.max() >= len(bank)):
+        raise IndexError(f"row outside [0, {len(bank)})")
+    for (lo, hi), block in zip(bank.ranges(), bank.blocks):
+        at = np.nonzero((rows >= lo) & (rows < hi))[0]
+        if at.size:
+            yield block, at, rows[at] - lo
+
+
+def _on(idx: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(idx).to(device, non_blocking=True)
+
+
+def fold_rows(bank: Sharded, rows) -> torch.Tensor:
     """Max over the listed rows (they may repeat and span blocks) -> [m]
     on home: one merge_stack row-list launch per block that holds some,
     each on its card, then the partials' combine."""
-    rows = np.asarray(rows, np.int64)
-    if rows.size and (rows.min() < 0 or rows.max() >= len(bank)):
-        raise IndexError(f"row outside [0, {len(bank)})")
-    parts = []
-    for (lo, hi), block in zip(bank.ranges(), bank.blocks):
-        own = rows[(rows >= lo) & (rows < hi)]
-        if own.size:
-            parts.append(pk.merge_stack(block, (own - lo).astype(np.int32)))
+    parts = [pk.merge_stack(block, local.astype(np.int32))
+             for block, _at, local in _by_block(bank, rows)]
     home = bank.mesh.home
     if not parts:
         return torch.zeros((bank.shape[1],), dtype=bank.dtype, device=home)
@@ -148,20 +163,20 @@ def _fold_rows(bank: Sharded, rows) -> torch.Tensor:
 def bank_count_rows_merged(bank: Sharded, rows,
                            mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Union count over a row subset (rows may repeat)."""
-    return hll.count(_fold_rows(bank, rows))
+    return hll.count(fold_rows(bank, rows))
 
 
 def bank_merge_rows(bank: Sharded, rows, target: int) -> Sharded:
     """PFMERGE `rows` (the caller includes `target`) into row `target`, in
     place: the merged registers written into the target's block."""
-    bank.row(int(target)).copy_(_fold_rows(bank, rows))
+    bank.row(int(target)).copy_(fold_rows(bank, rows))
     return bank
 
 
 def bank_merge_count_rows(bank: Sharded, rows, target: int):
     """Fused PFMERGE + PFCOUNT: fold `rows` (incl. `target`) into row
     `target` in place -> (bank, estimate)."""
-    merged = _fold_rows(bank, rows)
+    merged = fold_rows(bank, rows)
     bank.row(int(target)).copy_(merged)
     return bank, hll.count(merged)
 
@@ -184,6 +199,65 @@ def zero_row(bank: Sharded, row: int) -> Sharded:
     return bank
 
 
+def rows_u8(bank: Sharded, rows) -> torch.Tensor:
+    """The registers of the global `rows` (host ints, any blocks, may
+    repeat) as [R, m] uint8 images on home, in request order: each block
+    gathers its rows on its card and narrows them to uint8 there
+    (registers are 0..64, lossless), and the images travel to home by
+    peer copy."""
+    home = bank.mesh.home
+    rows = np.asarray(rows, np.int64).reshape(-1)
+    out = torch.empty((rows.size, bank.shape[1]), dtype=torch.uint8, device=home)
+    for block, at, local in _by_block(bank, rows):
+        out[_on(at, home)] = block[_on(local, block.device)].to(torch.uint8).to(home)
+    return out
+
+
+def set_rows(bank: Sharded, regs_u8: torch.Tensor, rows) -> Sharded:
+    """Overwrite the global `rows` (host ints; a repeat must carry the same
+    registers) with the [R, m] uint8 images `regs_u8` (on any device), in
+    place: each block's images go to its card by peer copy and widen to
+    int32 there."""
+    for block, at, local in _by_block(bank, rows):
+        src = regs_u8[_on(at, regs_u8.device)].to(block.device)
+        block[_on(local, block.device)] = src.to(block.dtype)
+    return bank
+
+
+def copy_row(bank: Sharded, src: int, dst: int) -> Sharded:
+    """Row `dst` takes row `src`'s registers, in place, wherever their
+    blocks lie (a peer copy between their cards)."""
+    bank.row(int(dst)).copy_(bank.row(int(src)))
+    return bank
+
+
+def absorb_rows(bank: Sharded, regs_u8: torch.Tensor, rows):
+    """Max-merge folded sketches `regs_u8` [R, m] (on any device) into the
+    global `rows` (host ints, may repeat), in place -> (bank, changed [R]
+    bool on home): each block takes its sketches on its card, and a
+    sketch's flag says whether it raised a register of its row's state
+    before this call."""
+    home, m = bank.mesh.home, bank.shape[1]
+    changed = torch.zeros((len(rows),), dtype=torch.bool, device=home)
+    for block, at, local in _by_block(bank, rows):
+        f = regs_u8[_on(at, regs_u8.device)].to(block.device).to(block.dtype)
+        idx = _on(local, block.device)
+        changed[_on(at, home)] = (f > block[idx]).any(dim=1).to(home)
+        cells = idx[:, None] * m + torch.arange(m, device=block.device)
+        block.view(-1).scatter_reduce_(0, cells.reshape(-1), f.reshape(-1),
+                                       reduce="amax")
+    return bank, changed
+
+
+def occupancy(bank: Sharded) -> torch.Tensor:
+    """Non-empty rows of the whole bank (the DBSIZE analogue): each block
+    counts its own on its card, and the partials are summed in int64 on
+    home (JAX's psum)."""
+    home = bank.mesh.home
+    return torch.stack([(b != 0).any(dim=1).sum(dtype=torch.int64).to(home)
+                        for b in bank.blocks]).sum()
+
+
 def grow_bank(bank: Sharded, new_capacity: int, mesh: Mesh) -> Sharded:
     """Enlarge [S, m] -> [S', m] keeping row indices. As in JAX the blocks
     follow the new capacity (S'/D rows each), so an existing row can move
@@ -194,7 +268,7 @@ def grow_bank(bank: Sharded, new_capacity: int, mesh: Mesh) -> Sharded:
         raise ValueError(f"cannot shrink {s} -> {new_capacity}")
     if new_capacity == s:
         return bank
-    return bank_sharding(mesh).put(bank, new_capacity)
+    return bank_sharding(mesh, mesh.axis).put(bank, new_capacity)
 
 
 def migrate_bank(bank: Sharded, new_mesh: Mesh) -> Sharded:
@@ -207,7 +281,7 @@ def migrate_bank(bank: Sharded, new_mesh: Mesh) -> Sharded:
             f"{new_mesh.size} devices")
     if new_mesh == bank.mesh:
         return bank
-    return bank_sharding(new_mesh).put(bank)
+    return bank_sharding(new_mesh, new_mesh.axis).put(bank)
 
 
 def full_step(bank: Sharded, hi, lo, row, valid, mesh: Mesh, seed: int = 0):

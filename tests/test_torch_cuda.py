@@ -24,7 +24,11 @@ cuda:0 on one card) against the plain versions; with two cards or more,
 the sharded functions spread over min(4, cards) cards against 4 entries of
 cuda:0 and the CPU, migrations across cards included; a pod client on the
 cards against a CPU pod through reshard(2), reshard(4) and
-on_device_loss(2); a mesh-plane merge+count on the card against the CPU; a two-shard cluster with a replica
+on_device_loss(2); a mesh-plane merge+count on the card against the CPU;
+with two cards or more, the mesh plane over min(4, cards) cards against a
+one-card mesh plane and the CPU, a live migration across cards included;
+delta_merge and window_merge on a window whose HLL rows come from blocks
+on every card, against their plain versions; a two-shard cluster with a replica
 per shard on cuda:0 through a shard failover, and the mesh plane's SETBIT,
 BITCOUNT and Bloom filter on the card, each against the same sequence on
 the CPU. They skip where no card is visible. Run them on a
@@ -1468,35 +1472,133 @@ def test_pod_memory_snapshot_reads_every_card(dev):
         c.shutdown()
 
 
-def _mesh_plane_across_cards(request):
-    """The mesh data plane keeps one bank tensor: with two cards or more
-    its mesh spreads over them and the plane refuses
-    (test_mesh_plane_refuses_several_cards), so there the test is expected
-    to raise NotImplementedError until the plane runs across cards."""
-    if torch.cuda.device_count() > 1:
-        request.applymarker(pytest.mark.xfail(
-            strict=True, raises=NotImplementedError,
-            reason="the mesh data plane across cards (ROADMAP queue 1)"))
+def _mesh_plane_run(root, device, monkeypatch, one_card=False):
+    """One sequence on a 4-shard mesh plane on `device` (over the visible
+    cards; with `one_card`, made while one card is visible, so its four
+    blocks are tensors of cuda:0): PFADDs into 32 sketches of every block,
+    PFCOUNTs, a merge+count and a countWith across blocks, then shard 0's
+    slot range migrated live into shard 3 -> what each returned, the
+    registers before and after the migration, and the blocks' devices."""
+    from redisson_tpu_torch.ops import hll
+
+    cfg = Config()
+    cfg.use_cuda(device=device)
+    cfg.use_cluster(num_shards=4, dir=str(root), data_plane="mesh")
+    with monkeypatch.context() as mp:
+        if one_card:
+            mp.setattr(torch.cuda, "device_count", lambda: 1)
+        c = RedissonTorch.create(cfg)
+    try:
+        mc = c.cluster.mesh_client
+        be = mc._routing.sketch
+        names = [f"mc:{i}" for i in range(32)]
+        rng = np.random.default_rng(17)
+        out = {"flags": [c.get_hyper_log_log(n).add_ints(
+            rng.integers(0, 2**64, 20_000, dtype=np.uint64)) for n in names]}
+        out["flags"].append(c.get_hyper_log_log(names[0]).add_all(
+            [b"b:%d" % i for i in range(3000)]))
+        export = lambda n: mc._dispatch.execute_sync(n, "hll_export", None)[0]  # noqa: E731
+        out["counts"] = [c.get_hyper_log_log(n).count() for n in names[::3]]
+        out["merge_count"] = c.get_hyper_log_log("mc:union").merge_with_and_count(*names)
+        out["count_with"] = c.get_hyper_log_log(names[1]).count_with(*names[2:12])
+        out["collective_merges"] = be.counters["collective_merges"]
+        out["occupancy"] = be.mesh_occupancy()
+        out["regs"] = {n: export(n) for n in names + ["mc:union"]}
+        # The card's own estimator over these registers: what each count
+        # must equal on any layout (a float32 sum on the CPU may round the
+        # last ulp otherwise).
+        on_card = lambda r: int(round(float(hll.count(  # noqa: E731
+            torch.from_numpy(np.asarray(r, np.int32)).to("cuda:0")))))
+        regs = out["regs"]
+        out["card_counts"] = ([on_card(regs[n]) for n in names[::3]]
+                              + [on_card(regs["mc:union"]),
+                                 on_card(np.max([regs[n] for n in names[1:12]], axis=0))])
+        table = c.cluster.router.slot_table()
+        slots = [s for s in range(16384) if table[s] == 0]
+        out["migrate"] = c.cluster.migrate_slots(slots, 3, timeout_s=120)
+        out["regs_after"] = {n: export(n) for n in names + ["mc:union"]}
+        out["devices"] = [b.device for b in be.bank.blocks]
+        assert len({b.untyped_storage().data_ptr() for b in be.bank.blocks}) == 4
+        assert mc.memory_verify()["ok"]
+        return out
+    finally:
+        c.shutdown()
 
 
-def test_mesh_plane_refuses_several_cards(dev, tmp_path):
-    """With two cards or more the mesh plane's mesh spreads over them, and
-    the plane raises NotImplementedError naming the ROADMAP item: nothing
-    gathers its bank onto one card."""
-    from redisson_tpu_torch.backend_torch import TorchBackend
-    from redisson_tpu_torch.parallel.mesh import MULTI_CARD_ITEM, SLOT_AXIS, get_mesh
-    from redisson_tpu_torch.store import SketchStore
+def test_mesh_plane_refuses_several_cards(dev, tmp_path, monkeypatch):
+    """The mesh plane no longer refuses a mesh over several cards: spread
+    over min(4, cards) cards (one block per entry, entry i on cuda:{i %
+    cards}) it equals the same sequence on a one-card mesh plane (four
+    blocks of cuda:0) and on the CPU: PFADD flags, every register, each
+    PFCOUNT exactly (and equal to the card's estimator over the CPU's
+    registers), collective_merges and mesh_occupancy(), then a live
+    migration of shard 0's range into shard 3, across cards."""
+    cards = _cards(2)
+    spread = _mesh_plane_run(tmp_path / "spread", "cuda:0", monkeypatch)
+    one = _mesh_plane_run(tmp_path / "one", "cuda:0", monkeypatch, one_card=True)
+    cpu = _mesh_plane_run(tmp_path / "cpu", "cpu", monkeypatch)
+    n = min(4, len(cards))
+    assert spread["devices"] == [torch.device("cuda", i % len(cards)) for i in range(4)]
+    assert len(set(spread["devices"])) == n
+    assert one["devices"] == [dev] * 4
+    assert cpu["devices"] == [torch.device("cpu")] * 4
+    for got in (spread, one):
+        for key in ("flags", "collective_merges", "occupancy", "migrate"):
+            assert got[key] == cpu[key], key
+        for key in ("regs", "regs_after"):
+            for name, want in cpu[key].items():
+                assert np.array_equal(got[key][name], want), (key, name)
+        assert got["counts"] + [got["merge_count"], got["count_with"]] == cpu["card_counts"]
+        assert got["card_counts"] == cpu["card_counts"]
+    assert spread["migrate"]["bank_rows_relocated"] > 0
+    for name in cpu["regs"]:
+        assert np.array_equal(spread["regs_after"][name], spread["regs"][name]), name
 
-    _cards(2)
-    mesh = get_mesh(4, axis=SLOT_AXIS)
-    assert len(set(mesh.devices)) > 1
-    backend = TorchBackend(SketchStore(dev))
-    with pytest.raises(NotImplementedError, match=MULTI_CARD_ITEM):
-        backend.attach_mesh(mesh, 4)
+
+def test_window_rows_from_every_card_through_delta_and_window_merge(dev):
+    """Kernels 3 and 4 on a window whose HLL rows come from a blocked bank
+    over min(4, cards) cards: the rows gathered to home (`rows_u8`),
+    merged by delta_merge and by window_merge on home, each bit-identical
+    to its plain version, and written back into their blocks on their
+    cards equal to the plain merge's rows."""
+    from redisson_tpu_torch.parallel import sharded
+    from redisson_tpu_torch.parallel.mesh import Mesh, SLOT_AXIS, slot_sharding
+
+    cards = _cards(1)
+    mesh = Mesh(SLOT_AXIS, tuple(cards[i % min(4, len(cards))] for i in range(4)))
+    rng = np.random.default_rng(23)
+    host = rng.integers(0, 40, (256, 16384)).astype(np.int32)
+    rows = np.array([3, 70, 130, 200, 250, 64, 191], np.int64)  # every block
+    for form in ("delta", "window"):
+        bank = slot_sharding(mesh).put(host)
+        old = sharded.rows_u8(bank, rows)
+        assert old.device == dev and torch.equal(
+            old.cpu(), torch.from_numpy(host[rows].astype(np.uint8)))
+        t = rows.size
+        if form == "delta":
+            delta = torch.from_numpy(rng.integers(0, 50, (t, 16384)).astype(np.uint8)).to(dev)
+            want_old, want = ok.delta_merge_plain(old.clone(), delta)
+            before = ok.launches["delta_merge"]
+            got_old, got = ok.delta_merge(old, delta)
+            assert ok.launches["delta_merge"] == before + 1
+        else:
+            _old, wire, table = _tape(dev, t, 16384, 16384, 29)
+            table[:, 0] = wk.OP_HLL
+            table[:, 3] = 16384
+            want_old, want = wk.window_merge_plain(old.clone(), wire, table)
+            before = wk.launches["window_merge"]
+            got_old, got = wk.window_merge(old, wire, table)
+            assert wk.launches["window_merge"] == before + 1
+        assert torch.equal(got_old, want_old) and torch.equal(got, want), form
+        sharded.set_rows(bank, got_old, rows)
+        after = bank.to_numpy()
+        expect = host.copy()
+        expect[rows] = want_old.cpu().numpy()
+        assert np.array_equal(after, expect), form
+        assert [b.device for b in bank.blocks] == list(mesh.devices)
 
 
-def test_mesh_plane_merge_count_on_card_matches_cpu(dev, tmp_path, request):
-    _mesh_plane_across_cards(request)
+def test_mesh_plane_merge_count_on_card_matches_cpu(dev, tmp_path):
     out = []
     for device in ("cuda:0", "cpu"):
         cfg = Config()
@@ -1633,11 +1735,10 @@ def test_ha_cluster_failover_on_card_matches_cpu(dev, tmp_path):
     assert abs(union - cunion) <= 1e-5 * cunion and bits == cbits
 
 
-def test_mesh_plane_bits_on_card_match_cpu(dev, tmp_path, request):
+def test_mesh_plane_bits_on_card_match_cpu(dev, tmp_path):
     """The mesh plane's BitSet and Bloom ops on cuda:0: SETBIT, BITCOUNT
     (the popcount kernel) and a Bloom filter's adds and probes land the
     same cells and answers as the mesh plane on the CPU."""
-    _mesh_plane_across_cards(request)
     rng = np.random.default_rng(45)
     days = [rng.integers(0, 1 << 22, 50_000) for _ in range(4)]
     bloom_keys = rng.integers(0, 2**64, 100_000, dtype=np.uint64)

@@ -21,8 +21,9 @@ carried into a port pod client. Exact everywhere but PFCOUNT (rel 1e-5).
 
 The port's own rules: the pod Bloom's shard-size rule (the segment-OR
 under 2^31 cells per shard, `scatter_` at or above, pinned by patching the
-cap constant here); a mesh spanning two cards has no single device and the
-mesh data plane refuses it (NotImplementedError);
+cap constant here); the mesh data plane takes a mesh spanning two cards
+(its bank blocked, one block per entry) when its home is the backend's
+device, and refuses it otherwise;
 a pod without `device="cpu"` asks for the card and raises without one.
 """
 
@@ -348,20 +349,32 @@ def test_pod_config_modes():
 
 
 def test_mesh_spanning_two_cards_raises():
-    """A mesh naming two cards has no single device, and the mesh data
-    plane, which keeps one bank tensor on it, refuses it. (The pod builds
-    on such a mesh: tests/test_torch_cuda.py, on several cards.)"""
-    two = Mesh("shards", (torch.device("cuda", 0), torch.device("cuda", 1)))
-    assert two.home == torch.device("cuda", 0)
-    with pytest.raises(NotImplementedError, match=mesh_mod.MULTI_CARD_ITEM):
-        two.device
-    from redisson_tpu_torch.backend_torch import TorchBackend
+    """A mesh naming two cards: the mesh data plane takes it (its bank is
+    one block per entry, each on its entry's card: tests/test_torch_cuda.py
+    runs it on several cards), and `attach_mesh` raises only for a backend
+    that is not on the mesh's home. Without a card, the fields
+    `attach_mesh` reads stand in for a backend on `cuda:0`."""
+    import types
+
+    from redisson_tpu_torch.backend_torch import RowAllocator, TorchBackend
     from redisson_tpu_torch.store import SketchStore
 
+    cuda0 = torch.device("cuda", 0)
+    two = Mesh(mesh_mod.SLOT_AXIS, (cuda0, torch.device("cuda", 1)))
+    assert two.home == cuda0
+    assert not hasattr(two, "device") and not hasattr(mesh_mod, "MULTI_CARD_ITEM")
     backend = TorchBackend(SketchStore(torch.device("cpu")))
-    with pytest.raises(NotImplementedError, match=mesh_mod.MULTI_CARD_ITEM):
+    with pytest.raises(ValueError, match="home"):
         backend.attach_mesh(two, 2)
     assert backend.mesh is None
+    card = types.SimpleNamespace(bank=None, device=cuda0,
+                                 _alloc=RowAllocator(255, None))
+    TorchBackend.attach_mesh(card, two, 2)
+    sb = card._sharded_bank
+    assert card.bank is None  # still lazy: made in blocks on first use
+    assert sb.ndev == 2 and card.mesh.home == cuda0
+    assert sb.capacity == card._alloc.capacity == 256
+    assert sb.sharding.mesh is two and sb.sharding.axis == mesh_mod.SLOT_AXIS
 
 
 def test_mesh_cache_keys_on_device_set():
